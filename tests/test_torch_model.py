@@ -1,5 +1,6 @@
 """The port's GcnEncoderNode and training loop against tpugraph's on the
-BCSR path (Pallas kernels in interpret mode), from the same parameters."""
+BCSR, resident-stacked and edge-packet paths (Pallas kernels in interpret
+mode), from the same parameters."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +17,8 @@ from tpugraph.ops import bcsr as jax_bcsr
 from tpugraph.train import loop as jax_loop
 from tpugraph_torch.core.graph import graph_from_edge_list
 from tpugraph_torch.data import gen_syn1
-from tpugraph_torch.nn import BCSRAdj, GcnEncoderNode, params_from_jax
+from tpugraph_torch.nn import (BCSRAdj, GcnEncoderNode, PacketAdj,
+                                StackedAdj, params_from_jax)
 from tpugraph_torch.nn.losses import node_cross_entropy
 from tpugraph_torch.ops import bcsr
 from tpugraph_torch.train import TrainConfig, train_node_classifier
@@ -104,3 +106,65 @@ def test_training_trajectory_matches(syn1):
     assert out["history"]["loss"][-1] < out["history"]["loss"][0]
     np.testing.assert_allclose(out["ypred"], np.asarray(out_j["ypred"]),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def small_syn1():
+    """The small syn1 of tests/test_train.py:145-159 in both packages,
+    random features and JAX params."""
+    from tpugraph.data import featgen as jax_featgen
+    from tpugraph_torch.data.featgen import ConstFeatureGen
+
+    kw = dict(nb_shapes=8, width_basis=40, seed=3)
+    G_j, labels, _ = jax_gen_syn1(
+        feature_generator=jax_featgen.ConstFeatureGen(np.ones(10, np.float32)),
+        **kw)
+    G_t, labels_t, _ = gen_syn1(
+        feature_generator=ConstFeatureGen(np.ones(10, np.float32)), **kw)
+    assert list(labels) == list(labels_t)
+    g_j = jax_graph_from_networkx(G_j)
+    g_t = graph_from_edge_list(G_t.number_of_nodes(), G_t.edges())
+    rng = np.random.default_rng(1)
+    feat = np.zeros((g_t.num_nodes_padded, 10), np.float32)
+    feat[: g_t.n_node] = rng.standard_normal((g_t.n_node, 10))
+    dims = dict(input_dim=10, hidden_dim=8, embedding_dim=8,
+                label_dim=int(max(labels)) + 1, num_layers=3)
+    model_j = JaxGcnEncoderNode(**dims)
+    params = model_j.init(jax.random.PRNGKey(0), jnp.asarray(feat),
+                          SparseAdj(g_j.senders, g_j.receivers, g_j.edge_weight))
+    return dict(g_j=g_j, g_t=g_t, labels=np.asarray(labels), feat=feat,
+                dims=dims, model_j=model_j, params=params)
+
+
+@pytest.mark.parametrize("fmt", [
+    dict(bcsr_resident="on"),
+    dict(bcsr_format="packets", packet_geom=(32, 32, 8)),
+    dict(bcsr_k_pack=4),
+    dict(bcsr_k_pack=-1),
+])
+def test_format_training_trajectory_matches(small_syn1, fmt):
+    """20 epochs in each static-weight format from the same parameters:
+    the loss trajectory and predictions match tpugraph's (int8 tiles and
+    f32 packet compute are exact here, so only summation order differs;
+    1e-5 relative)."""
+    d = small_syn1
+    epochs = 20
+    out_j = jax_loop.train_node_classifier(
+        d["model_j"], d["g_j"], d["feat"], d["labels"],
+        jax_loop.TrainConfig(num_epochs=epochs, scan_chunk=epochs,
+                             use_bcsr=True, **fmt),
+        init_params=d["params"])
+    out = train_node_classifier(
+        GcnEncoderNode(**d["dims"], device="cpu"), d["g_t"], d["feat"],
+        d["labels"], TrainConfig(num_epochs=epochs, **fmt),
+        init_params=params_from_jax(d["params"]), device="cpu")
+    np.testing.assert_allclose(out["history"]["loss"], out_j["history"]["loss"],
+                               rtol=1e-5, atol=0)
+    assert out["history"]["loss"][-1] < out["history"]["loss"][0]
+    ypred_j = np.asarray(out_j["ypred"])
+    assert out["ypred"].shape == ypred_j.shape
+    np.testing.assert_allclose(out["ypred"], ypred_j, rtol=1e-5,
+                               atol=1e-5 * np.abs(ypred_j).max())
+    kind = {"bcsr_resident": StackedAdj, "bcsr_format": PacketAdj,
+            "bcsr_k_pack": BCSRAdj}[next(iter(fmt))]
+    assert isinstance(out["adj"], kind)

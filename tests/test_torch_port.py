@@ -53,8 +53,8 @@ def test_unported_options_raise():
         GcnEncoderNode(**DIMS, bn=True, device="cpu")
     g = graph_from_edge_list(3, [(0, 1), (1, 2)])
     model = GcnEncoderNode(**DIMS, device="cpu")
-    for cfg in (TrainConfig(use_bcsr=False), TrainConfig(bcsr_k_pack=4),
-                TrainConfig(bcsr_format="packets")):
+    for cfg in (TrainConfig(use_bcsr=False), TrainConfig(opt="sgd"),
+                TrainConfig(opt_scheduler="step")):
         with pytest.raises(NotImplementedError):
             train_node_classifier(model, g, np.ones((8, 4), np.float32),
                                   np.zeros(3, int), cfg, device="cpu")

@@ -28,7 +28,20 @@
 //   thread in registers, then multiplies by the support of the current tile
 //   values (entries that are exactly 0 get 0) and writes float32.
 //
-// Both kernels need B % 64 == 0 and launch on the caller's stream; each entry
+// spmm_bcsr_packed_f32 replaces tpugraph/ops/pallas_spmm.py:spmm_bcsr_packed
+// (_spmm_packed_kernel_factory): the same y = A @ x on a layout whose row
+// blocks each hold a multiple of k_pack tiles (bcsr_from_coo(pad_rows_to=k)).
+//   Bound on the H100: bytes, as B1.
+//   Design: the TPU kernel takes k_pack tiles per grid step and double-buffers
+//   the x-block DMAs by hand.  Here each CTA owns B1's (row block, 64 rows, 64
+//   columns of D) output slice and walks its row block k_pack tiles at a time;
+//   every 64x32 tile slice and 32x64 x slice is fetched with cp.async into one
+//   of two shared-memory stages while the other stage is multiplied, so the
+//   next loads (across tile and group boundaries) overlap the FMAs.  Dead tiles
+//   of the padded layout (all zero, column block 0) add zeros.  IEEE f32 FMA,
+//   fixed summation order, no atomics, every row block written.
+//
+// All kernels need B % 64 == 0 and launch on the caller's stream; each entry
 // point returns cudaGetLastError() right after its launch.
 
 #include <cuda_runtime.h>
@@ -158,6 +171,105 @@ sddmm_bcsr_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ r
         }
 }
 
+// ---------------------------------------------------------------- B3
+
+constexpr int AP = BK + 4;  // padded row of the [m][k] tile stage (16-byte rows)
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// 4-byte copy; src_bytes = 0 writes a zero without reading gmem.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool in) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+                 "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+    asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__global__ void __launch_bounds__(THREADS)
+spmm_bcsr_packed_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ col_blk,
+                        const int32_t* __restrict__ row_ptr, const float* __restrict__ x,
+                        float* __restrict__ y, int block, int d, int k_pack) {
+    __shared__ __align__(16) float As[2][BM][AP];
+    __shared__ __align__(16) float Xs[2][BK][BN];
+    const int subs = block / BM;
+    const int r = blockIdx.x / subs;
+    const int m0 = (blockIdx.x % subs) * BM;
+    const int n0 = blockIdx.y * BN;
+    const int tid = threadIdx.x;
+    const int tx = tid % TX, ty = tid / TX;
+    const int chunks = block / BK;          // k-chunks of one tile
+    const int t_lo = row_ptr[r];
+    const int groups = (row_ptr[r + 1] - t_lo) / k_pack;
+    const int steps = groups * k_pack * chunks;
+
+    // stage step s = (tile t_lo + s / chunks, chunk s % chunks) into buffer buf
+    auto load = [&](int s, int buf) {
+        const int t = t_lo + s / chunks;
+        const int k0 = (s % chunks) * BK;
+        const float* tile = tiles + ((size_t)t * block + m0) * block + k0;
+        for (int i = tid; i < BM * (BK / 4); i += THREADS) {
+            const int m = i / (BK / 4), q = i % (BK / 4);
+            cp_async16(&As[buf][m][q * 4], tile + (size_t)m * block + q * 4);
+        }
+        const float* xb = x + ((size_t)col_blk[t] * block + k0) * d;
+        for (int i = tid; i < BK * BN; i += THREADS) {
+            const int k = i / BN, n = i % BN;
+            const bool in = n0 + n < d;
+            cp_async4(&Xs[buf][k][n], in ? xb + (size_t)k * d + n0 + n : x, in);
+        }
+    };
+
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+    if (steps > 0) load(0, 0);
+    cp_async_commit();
+    int s = 0;
+    for (int g = 0; g < groups; ++g) {            // k_pack tiles per iteration
+        for (int j = 0; j < k_pack * chunks; ++j, ++s) {
+            if (s + 1 < steps) load(s + 1, (s + 1) & 1);
+            cp_async_commit();
+            cp_async_wait_one();                  // stage s has landed
+            __syncthreads();
+            const int buf = s & 1;
+#pragma unroll
+            for (int k = 0; k < BK; ++k) {
+                float a[TM], b[TN];
+#pragma unroll
+                for (int i = 0; i < TM; ++i) a[i] = As[buf][ty + i * (BM / TM)][k];
+#pragma unroll
+                for (int jj = 0; jj < TN; ++jj) b[jj] = Xs[buf][k][tx + jj * TX];
+#pragma unroll
+                for (int i = 0; i < TM; ++i)
+#pragma unroll
+                    for (int jj = 0; jj < TN; ++jj) acc[i][jj] = fmaf(a[i], b[jj], acc[i][jj]);
+            }
+            __syncthreads();                      // buffer free for step s + 2
+        }
+    }
+    float* yb = y + ((size_t)r * block + m0) * d;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+            const int n = n0 + tx + j * TX;
+            if (n < d) yb[(size_t)(ty + i * (BM / TM)) * d + n] = acc[i][j];
+        }
+}
+
 }  // namespace
 
 extern "C" {
@@ -181,6 +293,18 @@ int sddmm_bcsr_f32(const void* tiles, const void* row_of, const void* col_blk,
     sddmm_bcsr_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)tiles, (const int32_t*)row_of, (const int32_t*)col_blk,
         (const float*)dy, (const float*)x, (float*)out, block, d);
+    return (int)cudaGetLastError();
+}
+
+// y[n_row_blocks * block, d] = A @ x over a layout padded to k_pack tiles per
+// row block.  Returns cudaGetLastError() after the launch.
+int spmm_bcsr_packed_f32(const void* tiles, const void* col_blk, const void* row_ptr,
+                         const void* x, void* y, int n_row_blocks, int block, int d,
+                         int k_pack, void* stream) {
+    dim3 grid(n_row_blocks * (block / BM), (d + BN - 1) / BN);
+    spmm_bcsr_packed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)tiles, (const int32_t*)col_blk, (const int32_t*)row_ptr,
+        (const float*)x, (float*)y, block, d, k_pack);
     return (int)cudaGetLastError();
 }
 

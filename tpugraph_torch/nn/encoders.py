@@ -19,7 +19,7 @@ from torch import nn
 
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.nn.initializers import torch_linear_bias, torch_linear_kernel
-from tpugraph_torch.nn.layers import BCSRAdj, GraphConv
+from tpugraph_torch.nn.layers import Adjacency, GraphConv
 
 
 def _torch_dense(out_dim: int, in_dim: int,
@@ -78,7 +78,7 @@ class ConvStack(nn.Module):
             [conv(hidden_dim, hidden_dim, True) for _ in range(num_layers - 2)])
         self.conv_last = conv(hidden_dim, embedding_dim, False)
 
-    def forward(self, x: torch.Tensor, adj: BCSRAdj,
+    def forward(self, x: torch.Tensor, adj: Adjacency,
                 embedding_mask: Optional[torch.Tensor] = None):
         x, adj_att = self.conv_first(x, adj)
         x = torch.relu(x)
@@ -100,7 +100,8 @@ class ConvStack(nn.Module):
 class GcnEncoderNode(nn.Module):
     """Node classification encoder (``tpugraph/nn/encoders.py:227``):
     concatenated per-layer embeddings, per-node linear head.
-    ``x [N, D]`` + ``BCSRAdj`` -> ``(ypred [N, C], att_list)``.
+    ``x [N, D]`` + an adjacency (``BCSRAdj``, ``StackedAdj`` or
+    ``PacketAdj``) -> ``(ypred [N, C], att_list)``.
 
     Parameters are drawn from ``generator`` on the CPU, then the module
     moves to ``device`` (``None`` = CUDA)."""
@@ -131,7 +132,7 @@ class GcnEncoderNode(nn.Module):
                                    label_dim, generator=generator)
         self.to(device)
 
-    def forward(self, x: torch.Tensor, adj: BCSRAdj,
+    def forward(self, x: torch.Tensor, adj: Adjacency,
                 node_mask: Optional[torch.Tensor] = None):
         embedding, att_all = self.stack(x, adj, node_mask)
         return self.pred_model(embedding), att_all

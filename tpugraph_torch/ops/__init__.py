@@ -1,19 +1,49 @@
-"""BCSR layout and the block-sparse kernels (port of ``tpugraph/ops``)."""
+"""Sparse layouts and the hand-written kernels (port of ``tpugraph/ops``)."""
 
 from tpugraph_torch.ops.bcsr import (  # noqa: F401
     BCSR,
     BCSRTranspose,
     bcsr_from_coo,
+    bcsr_pad_rows,
     bcsr_sym_partner,
     bcsr_transpose_host,
     bcsr_transpose_plan,
+    choose_k_pack,
+    choose_k_pack_counts,
+    coo_tile_counts,
     transpose_tiles,
 )
 from tpugraph_torch.ops.bcsr_kernels import (  # noqa: F401
-    LAUNCHES,
     bcsr_matvec,
     bcsr_matvec_dw_pair,
-    reset_launch_counts,
     sddmm_bcsr,
     spmm_bcsr,
+    spmm_bcsr_packed,
 )
+from tpugraph_torch.ops.packets import (  # noqa: F401
+    EdgePackets,
+    pack_edges,
+    pack_edges_transpose,
+)
+from tpugraph_torch.ops.packets_kernels import packets_matvec, spmm_packets  # noqa: F401
+from tpugraph_torch.ops.resident_kernels import (  # noqa: F401
+    BCSRStacked,
+    pack_stacked_int4,
+    spmm_stacked_resident,
+    stack_bcsr,
+    stacked_matvec,
+)
+
+from tpugraph_torch.ops import bcsr_kernels, packets_kernels, resident_kernels  # noqa: E402
+
+_KERNEL_MODULES = (bcsr_kernels, resident_kernels, packets_kernels)
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, by kernel name, over all kernel modules."""
+    return {k: v for mod in _KERNEL_MODULES for k, v in mod.LAUNCHES.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNEL_MODULES:
+        mod.LAUNCHES.update(dict.fromkeys(mod.LAUNCHES, 0))

@@ -1,22 +1,24 @@
-"""Port of ``tpugraph/ops/pallas_spmm.py``: block-sparse SpMM (B1) and
+"""Port of ``tpugraph/ops/pallas_spmm.py``: block-sparse SpMM (B1, B3) and
 SDDMM (B2) and their autograd wrappers.
 
 * :func:`spmm_bcsr` — ``y = A @ x`` over BCSR tiles; replaces the Pallas
   kernel ``spmm_bcsr`` (``tpugraph/ops/pallas_spmm.py:98``).
+* :func:`spmm_bcsr_packed` — the same product on a layout padded to
+  ``k_pack`` tiles per row block; replaces ``spmm_bcsr_packed``
+  (``tpugraph/ops/pallas_spmm.py:312``).
 * :func:`sddmm_bcsr` — ``out[t] = (dy_row @ x_col^T) * (tiles[t] != 0)``;
   replaces ``sddmm_bcsr`` (``tpugraph/ops/pallas_spmm.py:175``).
 
 On a CUDA tensor each wrapper launches its hand-written kernel from
 ``tpugraph_torch/csrc/bcsr_kernels.cu`` (IEEE float32 FMA, no TF32) or
-raises; the kernels are built with ``nvcc`` for ``sm_90a`` into
-``build/tpugraph_torch/`` at first use and loaded with ``ctypes``.  On a
+raises; the kernels are built by :mod:`tpugraph_torch.ops._build`.  On a
 CPU tensor the wrapper runs the plain PyTorch version beside it, which
 walks the same ``row_ptr``/``col_blk``/``row_of`` structure with
 ``torch.bmm`` over tiles and ``index_add_`` over row blocks.  ``LAUNCHES``
 counts kernel launches (never plain-version calls).
 
 Only float32 tiles, x and output are ported; the bf16/int8 tile and
-``out_dtype`` variants of B1 are not.  ``D`` may be any width: the
+``out_dtype`` variants of B1 and B3 are not.  ``D`` may be any width: the
 TPU's lane padding of D to 128 is not needed here.
 """
 
@@ -24,102 +26,47 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
+from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
 from tpugraph_torch.ops.bcsr import BCSR
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "bcsr_kernels.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpugraph_torch"
 _TILE_MULTIPLE = 64  # the kernels' CTA slice of a tile (BM = BN = 64)
 
-LAUNCHES: Dict[str, int] = {"spmm_bcsr": 0, "sddmm_bcsr": 0}
-_lib: Optional[ctypes.CDLL] = None
+LAUNCHES: Dict[str, int] = {"spmm_bcsr": 0, "sddmm_bcsr": 0,
+                            "spmm_bcsr_packed": 0}
+_bound = False
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.isfile(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def build_kernels() -> float:
-    """Build (if needed) and load the kernel library; returns the seconds
-    spent.  The library name carries a hash of the source, so an edited
-    source is rebuilt."""
-    global _lib
-    if _lib is not None:
-        return 0.0
-    t0 = time.perf_counter()
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    so = _BUILD_DIR / f"libbcsr_kernels_{digest}.so"
-    if not so.is_file():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", str(tmp), str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.spmm_bcsr_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-    lib.spmm_bcsr_f32.restype = ci
-    lib.sddmm_bcsr_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-    lib.sddmm_bcsr_f32.restype = ci
-    _lib = lib
-    return time.perf_counter() - t0
-
-
-def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name}: expected {dtype} with {ndim} dims, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
+def _lib():
+    global _bound
+    lib = library("bcsr_kernels")
+    if not _bound:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.spmm_bcsr_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.spmm_bcsr_f32.restype = ci
+        lib.sddmm_bcsr_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.sddmm_bcsr_f32.restype = ci
+        lib.spmm_bcsr_packed_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                             ci, vp]
+        lib.spmm_bcsr_packed_f32.restype = ci
+        _bound = True
+    return lib
 
 
 def _check_layout(m: BCSR, device) -> None:
-    _check("tiles", m.tiles, torch.float32, 3, device)
-    _check("col_blk", m.col_blk, torch.int32, 1, device)
-    _check("row_ptr", m.row_ptr, torch.int32, 1, device)
-    _check("row_of", m.row_of, torch.int32, 1, device)
+    check_tensor("tiles", m.tiles, torch.float32, 3, device)
+    check_tensor("col_blk", m.col_blk, torch.int32, 1, device)
+    check_tensor("row_ptr", m.row_ptr, torch.int32, 1, device)
+    check_tensor("row_of", m.row_of, torch.int32, 1, device)
     b = m.block
     if tuple(m.tiles.shape[1:]) != (b, b) or b % _TILE_MULTIPLE:
         raise ValueError(f"tiles must be [T, B, B] with B % {_TILE_MULTIPLE} "
                          f"== 0, got {tuple(m.tiles.shape)}")
     if m.col_blk.shape[0] != m.num_tiles or m.row_of.shape[0] != m.num_tiles:
         raise ValueError("col_blk / row_of must have one entry per tile")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 # ---------------------------------------------------------------- B1 SpMM
@@ -144,7 +91,7 @@ def spmm_bcsr(m: BCSR, x: torch.Tensor) -> torch.Tensor:
     """``y[num_row_nodes, D] = A @ x`` with ``x [num_nodes, D]`` float32
     (``tpugraph/ops/pallas_spmm.py:98``, float32 output)."""
     _check_layout(m, x.device)
-    _check("x", x, torch.float32, 2, x.device)
+    check_tensor("x", x, torch.float32, 2, x.device)
     n, d = x.shape
     if n != m.num_nodes or d == 0:
         raise ValueError(f"x must be [{m.num_nodes}, D>0], got {tuple(x.shape)}")
@@ -152,18 +99,71 @@ def spmm_bcsr(m: BCSR, x: torch.Tensor) -> torch.Tensor:
         return spmm_bcsr_plain(m, x)
     if x.device.type != "cuda":
         raise ValueError(f"no spmm_bcsr kernel for device {x.device}")
-    build_kernels()
+    lib = _lib()
     y = torch.empty((m.num_row_nodes, d), dtype=torch.float32, device=x.device)
     if m.num_row_blocks == 0:
         return y
     with torch.cuda.device(x.device):
-        err = _lib.spmm_bcsr_f32(
+        err = lib.spmm_bcsr_f32(
             m.tiles.data_ptr(), m.col_blk.data_ptr(), m.row_ptr.data_ptr(),
             x.data_ptr(), y.data_ptr(), m.num_row_blocks, m.block, d,
-            _stream(x.device))
-    _raise_on(err, "spmm_bcsr")
+            stream(x.device))
+    raise_on(err, "spmm_bcsr")
     LAUNCHES["spmm_bcsr"] += 1
     return y
+
+
+# ------------------------------------------------------------ B3 packed SpMM
+
+
+def spmm_bcsr_packed_plain(m: BCSR, x: torch.Tensor, k_pack: int) -> torch.Tensor:
+    """Plain PyTorch ``A @ x`` over the ``k_pack``-padded layout: each row
+    block's tiles, ``k_pack`` at a time, ``bmm`` with their x blocks and
+    summed into the row block; dead tiles add zeros."""
+    b, d = m.block, x.shape[1]
+    n_rb = m.num_row_blocks
+    groups = m.tiles.reshape(-1, k_pack, b, b)
+    xb = x.reshape(-1, b, d)[m.col_blk.long()].reshape(-1, k_pack, b, d)
+    prod = torch.matmul(groups, xb).sum(dim=1)  # [T / k_pack, B, D]
+    rows = m.row_of.long()[::k_pack]
+    y = torch.zeros((n_rb, b, d), dtype=x.dtype, device=x.device)
+    y.index_add_(0, rows, prod)
+    return y.reshape(n_rb * b, d)
+
+
+def spmm_bcsr_packed(m: BCSR, x: torch.Tensor, k_pack: int = 4) -> torch.Tensor:
+    """``y[num_row_nodes, D] = A @ x`` with every row block of ``m`` holding
+    a multiple of ``k_pack`` tiles (``bcsr_from_coo(pad_rows_to=k_pack)``;
+    ``tpugraph/ops/pallas_spmm.py:312``, float32 output)."""
+    _check_layout(m, x.device)
+    check_tensor("x", x, torch.float32, 2, x.device)
+    n, d = x.shape
+    if n != m.num_nodes or d == 0:
+        raise ValueError(f"x must be [{m.num_nodes}, D>0], got {tuple(x.shape)}")
+    if k_pack < 1 or m.num_tiles % k_pack:
+        raise ValueError(f"pad tiles per row to a multiple of k_pack={k_pack}")
+    if x.device.type == "cpu":
+        return spmm_bcsr_packed_plain(m, x, k_pack)
+    if x.device.type != "cuda":
+        raise ValueError(f"no spmm_bcsr_packed kernel for device {x.device}")
+    lib = _lib()
+    y = torch.empty((m.num_row_nodes, d), dtype=torch.float32, device=x.device)
+    if m.num_row_blocks == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = lib.spmm_bcsr_packed_f32(
+            m.tiles.data_ptr(), m.col_blk.data_ptr(), m.row_ptr.data_ptr(),
+            x.data_ptr(), y.data_ptr(), m.num_row_blocks, m.block, d, k_pack,
+            stream(x.device))
+    raise_on(err, "spmm_bcsr_packed")
+    LAUNCHES["spmm_bcsr_packed"] += 1
+    return y
+
+
+def _spmm_any(m: BCSR, x: torch.Tensor, k_pack: int) -> torch.Tensor:
+    if k_pack > 1:
+        return spmm_bcsr_packed(m, x, k_pack)
+    return spmm_bcsr(m, x)
 
 
 # --------------------------------------------------------------- B2 SDDMM
@@ -181,8 +181,8 @@ def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Per-tile gradient ``float32[T, B, B]``; ``dy`` spans the row nodes,
     ``x`` the column nodes (``tpugraph/ops/pallas_spmm.py:175``)."""
     _check_layout(m, x.device)
-    _check("x", x, torch.float32, 2, x.device)
-    _check("dy", dy, torch.float32, 2, x.device)
+    check_tensor("x", x, torch.float32, 2, x.device)
+    check_tensor("dy", dy, torch.float32, 2, x.device)
     n, d = x.shape
     if n != m.num_nodes or d == 0 or tuple(dy.shape) != (m.num_row_nodes, d):
         raise ValueError(
@@ -192,16 +192,16 @@ def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return sddmm_bcsr_plain(m, dy, x)
     if x.device.type != "cuda":
         raise ValueError(f"no sddmm_bcsr kernel for device {x.device}")
-    build_kernels()
+    lib = _lib()
     out = torch.empty_like(m.tiles)
     if m.num_tiles == 0:
         return out
     with torch.cuda.device(x.device):
-        err = _lib.sddmm_bcsr_f32(
+        err = lib.sddmm_bcsr_f32(
             m.tiles.data_ptr(), m.row_of.data_ptr(), m.col_blk.data_ptr(),
             dy.data_ptr(), x.data_ptr(), out.data_ptr(), m.num_tiles, m.block,
-            d, _stream(x.device))
-    _raise_on(err, "sddmm_bcsr")
+            d, stream(x.device))
+    raise_on(err, "sddmm_bcsr")
     LAUNCHES["sddmm_bcsr"] += 1
     return out
 
@@ -210,17 +210,18 @@ def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 class BCSRMatvec(torch.autograd.Function):
-    """Static-weight ``A @ x``: forward B1 on ``m``, backward
-    ``dx = B1(m_t, g)`` (``tpugraph/ops/pallas_spmm.py:387``)."""
+    """Static-weight ``A @ x``: forward on ``m``, backward
+    ``dx = A^T g`` on ``m_t``, both through B3 when ``k_pack > 1`` and B1
+    otherwise (``tpugraph/ops/pallas_spmm.py:381-434``)."""
 
     @staticmethod
-    def forward(ctx, x, m, m_t):
-        ctx.m_t = m_t
-        return spmm_bcsr(m, x)
+    def forward(ctx, x, m, m_t, k_pack):
+        ctx.m_t, ctx.k_pack = m_t, k_pack
+        return _spmm_any(m, x, k_pack)
 
     @staticmethod
     def backward(ctx, g):
-        return spmm_bcsr(ctx.m_t, g.contiguous()), None, None
+        return _spmm_any(ctx.m_t, g.contiguous(), ctx.k_pack), None, None, None
 
 
 class BCSRMatvecDWPair(torch.autograd.Function):
@@ -248,9 +249,11 @@ class BCSRMatvecDWPair(torch.autograd.Function):
         return dtiles, dx, None, None
 
 
-def bcsr_matvec(m: BCSR, m_t: BCSR, x: torch.Tensor) -> torch.Tensor:
-    """Differentiable ``A @ x`` with static weights (gradient to ``x``)."""
-    return BCSRMatvec.apply(x, m, m_t)
+def bcsr_matvec(m: BCSR, m_t: BCSR, x: torch.Tensor,
+                k_pack: Optional[int] = None) -> torch.Tensor:
+    """Differentiable ``A @ x`` with static weights (gradient to ``x``);
+    ``k_pack > 1`` needs ``m`` and ``m_t`` padded to that multiple."""
+    return BCSRMatvec.apply(x, m, m_t, k_pack or 0)
 
 
 def bcsr_matvec_dw_pair(m: BCSR, m_t: BCSR, x: torch.Tensor) -> torch.Tensor:

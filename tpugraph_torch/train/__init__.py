@@ -8,6 +8,7 @@ from tpugraph_torch.train.checkpoint import (  # noqa: F401
 )
 from tpugraph_torch.train.loop import (  # noqa: F401
     TrainConfig,
+    resolve_bcsr_format,
     split_nodes,
     train_node_classifier,
 )

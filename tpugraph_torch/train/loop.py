@@ -1,12 +1,25 @@
 """Port of ``tpugraph/train/loop.py``: full-batch node classification on
-the BCSR path.
+the static-weight aggregation formats.
 
 The JAX loop fuses epochs into one ``lax.scan`` per device call; here it
 is an eager Python loop, one optimizer step per epoch, with the same node
 split RNG and the same per-epoch metrics (loss and accuracies of the
-training-mode forward, before the update).  Only the branch of
-``tpugraph/train/loop.py:454-467`` is ported: ``use_bcsr=True``,
-``bcsr_format="tiles"``, resident off, ``k_pack=0`` — the others raise.
+training-mode forward, before the update).
+
+``use_bcsr=True`` picks the format as ``tpugraph/train/loop.py:316-475``
+does (:func:`resolve_bcsr_format`):
+
+* ``bcsr_format="packets"`` — edge packets at ``packet_geom``, kernel B7;
+* ``bcsr_resident="on"`` — column-stacked tiles (``stack=1``, padded to
+  64), int8 when every weight is an integer in [-127, 127] and bf16
+  otherwise, kernel B4;
+* otherwise dense f32 tiles, kernel B1, or B3 with ``bcsr_k_pack > 1``
+  (``-1`` picks it from the tile counts).
+
+``"auto"`` resolves to tiles with resident off on the card, as the JAX
+package does on any device that is not a TPU; its TPU cost model is not
+ported.  The COO path raises; GAT (``att=True``) is not ported, so no
+model here takes the JAX package's GAT-on-BCSR branch.
 """
 
 from __future__ import annotations
@@ -20,17 +33,27 @@ import torch
 
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.core.graph import Graph
-from tpugraph_torch.nn.layers import BCSRAdj
+from tpugraph_torch.nn.layers import Adjacency, BCSRAdj, PacketAdj, StackedAdj
 from tpugraph_torch.nn.losses import node_cross_entropy
-from tpugraph_torch.ops.bcsr import bcsr_from_coo, bcsr_transpose_host
+from tpugraph_torch.ops.bcsr import (bcsr_from_coo, bcsr_transpose_host,
+                                     choose_k_pack_counts, coo_tile_counts)
+from tpugraph_torch.ops.packets import pack_edges, pack_edges_transpose
+from tpugraph_torch.ops.resident_kernels import stack_bcsr
 from tpugraph_torch.train.metrics import eval_node
 from tpugraph_torch.train.optim import OptimizerConfig, build_optimizer
 
 
+_RESIDENT_K_PACK = 64  # stacks padded to this multiple (tpugraph/train/loop.py:429)
+
+
 @dataclasses.dataclass
 class TrainConfig:
-    """The ``tpugraph`` ``TrainConfig`` fields this path reads.  The BCSR
-    fields default to the one ported branch."""
+    """The ``tpugraph`` ``TrainConfig`` fields this path reads
+    (``tpugraph/train/loop.py:35``), with ``use_bcsr`` on by default (the
+    COO path is not ported).  ``packet_compute_dtype`` is the port's own:
+    B7's compute dtype on the packet path (``None``: bf16 on a CUDA
+    device, f32 on the CPU, the JAX package's accelerator/interpret
+    default)."""
 
     num_epochs: int = 1000
     lr: float = 0.001
@@ -41,9 +64,83 @@ class TrainConfig:
     opt_scheduler: str = "none"
     use_bcsr: bool = True
     bcsr_block: int = 128
-    bcsr_k_pack: int = 0
-    bcsr_format: str = "tiles"
-    bcsr_resident: str = "off"
+    bcsr_k_pack: int = 0  # 0 off, >1 fixed, -1 chosen from the tile counts
+    packet_geom: Tuple[int, int, int] = (512, 256, 128)  # block_r, block_c, K
+    bcsr_format: str = "auto"    # "tiles", "packets" or "auto"
+    bcsr_resident: str = "auto"  # "on", "off" or "auto"
+    packet_compute_dtype: Optional[torch.dtype] = None
+
+
+def resolve_bcsr_format(cfg: TrainConfig, n_live: int, t_probe: int,
+                        density: float, low_locality: bool,
+                        on_tpu: bool, att: bool = False) -> str:
+    """The aggregation format (``tpugraph/train/loop.py:137``): an
+    attention model or ``bcsr_resident="on"`` forces ``"tiles"``; an
+    explicit ``bcsr_format`` wins next; ``"auto"`` is ``"tiles"`` unless
+    ``on_tpu`` and the graph is low-locality.  That last case is the JAX
+    package's cost model over TPU-measured rates; the port has no rates
+    of its own yet, so it raises there.  The port always passes
+    ``on_tpu=False``."""
+    if att or cfg.bcsr_resident == "on":
+        return "tiles"
+    fmt = cfg.bcsr_format
+    if fmt != "auto":
+        return fmt
+    if not (on_tpu and low_locality and density < 3e-3):
+        return "tiles"
+    raise NotImplementedError(
+        f"bcsr_format='auto' on a low-locality graph ({n_live} edges, "
+        f"{t_probe} tiles) needs a cost model with measured rates, which "
+        "is not ported; set bcsr_format")
+
+
+def build_adjacency(g: Graph, cfg: TrainConfig,
+                    device: torch.device) -> Tuple[Adjacency, int]:
+    """Pack ``g`` in the format ``cfg`` selects and move it to ``device``
+    (``tpugraph/train/loop.py:316-475``); returns the adjacency and the
+    padded node count it needs (a multiple of the block)."""
+    s_np = g.senders.numpy()
+    r_np = g.receivers.numpy()
+    w_np = g.edge_weight.numpy()
+    n_pad = g.num_nodes_padded
+    fmt = resolve_bcsr_format(cfg, int((w_np != 0).sum()), 1, 1.0, False,
+                              on_tpu=False)
+    if fmt not in ("tiles", "packets"):
+        raise ValueError(f"unknown bcsr_format {fmt!r}")
+    if fmt == "packets":
+        br, bc, kk = cfg.packet_geom
+        p = pack_edges(s_np, r_np, w_np, n_pad, block_r=br, block_c=bc, k=kk)
+        p_t = pack_edges_transpose(s_np, r_np, w_np, n_pad, block_r=br,
+                                   block_c=bc, k=kk)
+        return (PacketAdj(p.to(device), p_t.to(device),
+                          cfg.packet_compute_dtype), p.num_nodes)
+    block = cfg.bcsr_block
+    if cfg.bcsr_resident == "on":
+        integral = bool(np.all(w_np == np.rint(w_np))
+                        and np.abs(w_np).max(initial=0) <= 127)
+        tdt = torch.int8 if integral else torch.bfloat16
+        if not integral:
+            print("tpugraph_torch: the resident path quantizes non-integral "
+                  "adjacency weights to bf16 tiles (use bcsr_resident='off' "
+                  "for exact f32-tile aggregation)", flush=True)
+        m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block, tile_dtype=tdt)
+        st = stack_bcsr(m, stack=1, k_pack=_RESIDENT_K_PACK).to(device)
+        del m
+        m_t = bcsr_transpose_host(s_np, r_np, w_np, n_pad, block=block,
+                                  tile_dtype=tdt)
+        st_t = stack_bcsr(m_t, stack=1, k_pack=_RESIDENT_K_PACK).to(device)
+        return StackedAdj(st, st_t), st.num_nodes
+    if cfg.bcsr_k_pack < 0:
+        kp = choose_k_pack_counts(coo_tile_counts(s_np, r_np, n_pad,
+                                                  block=block, weights=w_np))
+    else:
+        kp = cfg.bcsr_k_pack
+    prt = kp if kp > 1 else None
+    m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block,
+                      pad_rows_to=prt).to(device)
+    m_t = bcsr_transpose_host(s_np, r_np, w_np, n_pad, block=block,
+                              pad_rows_to=prt).to(device)
+    return BCSRAdj(m, m_t, k_pack=kp if kp > 1 else 0), m.num_nodes
 
 
 def split_nodes(num_nodes: int, train_ratio: float,
@@ -53,16 +150,6 @@ def split_nodes(num_nodes: int, train_ratio: float,
     rng.shuffle(idx)
     num_train = int(num_nodes * train_ratio)
     return idx[:num_train], idx[num_train:]
-
-
-def _check_supported(cfg: TrainConfig) -> None:
-    if not cfg.use_bcsr:
-        raise NotImplementedError("the COO path (use_bcsr=False) is not "
-                                  "ported yet")
-    if (cfg.bcsr_format, cfg.bcsr_resident, cfg.bcsr_k_pack) != ("tiles", "off", 0):
-        raise NotImplementedError(
-            "only bcsr_format='tiles', bcsr_resident='off', bcsr_k_pack=0 "
-            "is ported")
 
 
 def train_node_classifier(
@@ -83,22 +170,21 @@ def train_node_classifier(
     ``init_params`` (a ``state_dict``) when given.  ``feat`` is
     ``float32[N_pad, D]``, ``labels`` ``int[N_real]``.  Returns params
     (the ``state_dict``), ``ypred [1, N_pad, C]``, the split, the metric
-    history, train/test results and the elapsed seconds.
+    history, train/test results, the seconds of the epoch loop
+    (``"elapsed"``) and of packing and uploading the adjacency
+    (``"pack_s"``), and the packed adjacency (``"adj"``).
     """
-    _check_supported(cfg)
+    if not cfg.use_bcsr:
+        raise NotImplementedError("the COO path (use_bcsr=False) is not "
+                                  "ported yet")
     device = default_device(device)
     rng = np.random.default_rng(seed)
     n_real = g.n_node
     train_idx, test_idx = split_nodes(n_real, cfg.train_ratio, rng)
 
-    s_np = g.senders.numpy()
-    r_np = g.receivers.numpy()
-    w_np = g.edge_weight.numpy()
-    n_pad = g.num_nodes_padded
-    m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=cfg.bcsr_block)
-    m_t = bcsr_transpose_host(s_np, r_np, w_np, n_pad, block=cfg.bcsr_block)
-    sp = BCSRAdj(m.to(device), m_t.to(device))
-    n_new = m.num_nodes  # node padding grows to a block multiple
+    t_pack = time.perf_counter()
+    sp, n_new = build_adjacency(g, cfg, device)
+    pack_s = time.perf_counter() - t_pack
 
     feat_pad = np.zeros((n_new, feat.shape[1]), dtype=np.float32)
     feat_pad[: feat.shape[0]] = feat
@@ -160,4 +246,6 @@ def train_node_classifier(
         "result_train": result_train,
         "result_test": result_test,
         "elapsed": elapsed,
+        "pack_s": pack_s,
+        "adj": sp,
     }
