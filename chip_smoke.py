@@ -19,7 +19,12 @@ nvcc per source, sm_90a, all started together), then:
    epochs on the BCSR path; first holds 20 epochs on the card against the
    CPU run from the same initial parameters;
 3. explain — writes and reloads the checkpoint, then ``explain_nodes_bcsr``
-   on five house nodes and the motif AUC;
+   on five house nodes and the motif AUC; the same five nodes again with
+   bf16 kernel tiles (the Explainer's private ``_spmm_dtype`` hook onto
+   ``run_bcsr_mask_optimization(spmm_dtype=bf16)``, AUC > 0.9 too); then ``bench_explain.py:60-116``'s configuration (a
+   65,536-node banded graph, degree 32, band 192, block 256,
+   ``GcnEncoderNode(10, 20, 20, 4, 3)``, 100 mask epochs) in f32 and bf16,
+   with B1 (bf16 tiles) and B2 (bf16 support) measured at that shape;
 4. lowloc — the repo's production-scale low-locality training
    configuration (``bench_train.py:84-99``): a Chung-Lu power-law graph of
    65,536 nodes and 2,097,152 directed unit-weight edges (32 neighbours a
@@ -32,10 +37,26 @@ nvcc per source, sm_90a, all started together), then:
    CPU from the same parameters; then the full graph trains 100 epochs in
    each format from one set of parameters, and each format's kernel is
    held against its plain version on that format's own packed adjacency
-   (D = 128).  Small-shape variants (B4 with bf16 tiles, stack=2, int4 and
-   a bf16 output; B7 with f32 compute) are checked on the reduced graph.
+   (D = 128).  Small-shape variants (B4 with bf16 tiles, stack=2, int4,
+   bf16 x and a bf16 output; B7 with f32 compute) are checked on the
+   reduced graph, and the B1/B3 dtype options (int8 tiles, bf16 x, f32
+   and bf16 outputs) on the full one;
+5. diffuse — the repo's diffusion configuration (``bench.py:263-283``) on
+   the same power-law graph: ``DiffusionOperator(g, block=256)``
+   sym-normalized (bf16 tiles, 8 hops) and unnormalized (int8 tiles,
+   ``hop_scale = 1/m^2``, 2 hops) on seeded N(0,1) bf16 x, D = 128.  Each
+   operator runs ``op(x, hops)`` (B6) and ``spmm_pair_resident`` (B5);
+   B5's f32 output is held against two f32 ``torch.sparse.mm`` calls
+   entry by entry within its rounding bound, and B5/B6 against their plain
+   versions, with pack seconds and diffusion edges/s (``2 * E * hops / t``,
+   ``bench.py:678``).
 
-Each phase fails the run if its check fails.  The last two lines are the
+Every kernel is held to its plain version entry by entry: within an f32
+reordering term and a bf16 ulp for each earlier rounding point, both
+scaled by the largest value of the entry's own output row (so light rows
+are not hidden behind the hub rows), plus an ulp of the entry itself for
+a bf16 output.  Each
+phase fails the run if its check fails.  The last two lines are the
 ``kernels`` JSON object and ``{"ok": true, "device": {...}}``.  Exits non-zero
 without a CUDA device.
 """
@@ -53,11 +74,25 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 BF16_REL = 2.0 ** -8        # one bf16 rounding (8 significant bits)
+BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative
+F32_U = 2.0 ** -24          # float32 unit roundoff
+TINY = 1.1754943508222875e-38  # smallest normal float32: the floor of a zero row
+# B6 against its plain version, besides the output's own rounding: one bf16
+# ulp of a row's largest value for the last hop's y, and two for flips at
+# earlier hops, which reach a row only through A_t A's averaging
+POWER_CARRIED = 3
 EPOCHS = 1000
 EXPLAIN_NODES = list(range(400, 700, 60))
 LOWLOC_NODES, LOWLOC_DEG, LOWLOC_D, LOWLOC_BLOCK = 65536, 32, 128, 256
 LOWLOC_EPOCHS = 100
 REDUCED_NODES, REDUCED_BLOCK, REDUCED_EPOCHS = 4096, 128, 10
+# bench_explain.py:61: banded graph, nodes, degree, band, block; 100 epochs
+BANDED_NODES, BANDED_DEG, BANDED_BAND, BANDED_BLOCK = 65536, 32, 192, 256
+BANDED_EPOCHS = 100
+# (tag, normalize, hops): the repo's diffusion configuration, bench.py:263-283
+# (DIFF_H = 8 on the sym-normalized operator) and the unnormalized int8
+# operator with hop_scale = 1/m^2 at 2 hops
+DIFF_CASES = (("normalized", True, 8), ("int8", False, 2))
 FORMATS = {  # TrainConfig fields of each static-weight format
     "tiles": {},
     "k_pack4": {"bcsr_k_pack": 4},
@@ -104,6 +139,22 @@ def banded_edges(n: int, band: int, degree: int, seed: int):
     ok = (send >= 0) & (send < n)
     w = rng.standard_normal(recv.size).astype(np.float32)
     return send[ok].astype(np.int32), recv[ok].astype(np.int32), w[ok]
+
+
+def make_banded_graph(n: int, deg: int, bandwidth: int, seed: int = 0):
+    """Symmetric graph whose edges stay within a node-id band (a copy of
+    ``bench.py:44``): ``deg / 2`` random forward offsets in ``[1, band)``
+    a node, both directions, unit weights."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    half = deg // 2
+    src = np.repeat(np.arange(n, dtype=np.int64), half)
+    off = rng.integers(1, bandwidth, size=src.shape[0])
+    dst = (src + off) % n
+    s = np.concatenate([src, dst]).astype(np.int32)
+    r = np.concatenate([dst, src]).astype(np.int32)
+    return s, r, np.ones(s.shape[0], dtype=np.float32)
 
 
 def make_powerlaw_graph(n: int, avg_deg: int, seed: int = 0,
@@ -155,12 +206,16 @@ def powerlaw_task(n: int, d: int, seed: int = 0):
 
 
 def library_spmm(m, x):
-    """One PyTorch call for y = A @ x: a BSR sparse tensor times x."""
+    """One PyTorch call for y = A @ x: a BSR sparse tensor of the widened
+    tiles times x cast as the kernel casts it."""
     import torch
 
-    a = torch.sparse_bsr_tensor(m.row_ptr, m.col_blk, m.tiles,
+    from tpugraph_torch.ops.bcsr_kernels import x_operand
+
+    a = torch.sparse_bsr_tensor(m.row_ptr, m.col_blk, m.tiles.float(),
                                 size=(m.num_row_nodes, m.num_nodes))
-    return lambda: a @ x
+    xr = x_operand(x, m.tiles.dtype)
+    return lambda: a @ xr
 
 
 def library_sddmm(m, dy, x):
@@ -179,25 +234,25 @@ def library_sddmm(m, dy, x):
 
 
 def library_stacked(st, x):
-    """One PyTorch call for B4's function: a BSR tensor of the widened
-    stack=1 tiles (all-zero padding stacks dropped) times the
-    bf16-rounded x."""
+    """One PyTorch call for B4's function: a BSR tensor whose blocks are
+    the widened stack slices (each ``[B, B]`` slice of a stack its own
+    block; all-zero slices dropped) times x cast as the kernel casts it."""
     import torch
 
+    from tpugraph_torch.ops.bcsr_kernels import x_operand
     from tpugraph_torch.ops.resident_kernels import widen_tiles
 
-    tiles = widen_tiles(st)
+    tiles = widen_tiles(st).reshape(-1, st.block, st.block)
+    cols = st.col_blk.long().repeat_interleave(st.stack)
     live = (tiles != 0).flatten(1).any(1)
-    rows = st.rows.long()[live]
-    order = torch.argsort(rows * (st.num_nodes // st.block)
-                          + st.col_blk.long()[live])
+    rows, cols = st.rows.long()[live], cols[live]
+    order = torch.argsort(rows * (st.num_nodes // st.block) + cols)
     crow = torch.zeros(st.num_row_blocks + 1, dtype=torch.int64,
                        device=x.device)
     crow[1:] = torch.cumsum(torch.bincount(rows, minlength=st.num_row_blocks), 0)
-    a = torch.sparse_bsr_tensor(crow, st.col_blk.long()[live][order],
-                                tiles[live][order],
+    a = torch.sparse_bsr_tensor(crow, cols[order], tiles[live][order],
                                 size=(st.num_row_nodes, st.num_nodes))
-    xr = x.to(torch.bfloat16).float()
+    xr = x_operand(x, st.tiles.dtype)
     return lambda: a @ xr
 
 
@@ -216,25 +271,46 @@ def library_packets(p, x):
 
 
 def measure_case(name, shape, d, run, plain, library, nbytes, ops, peak,
-                 tol_k, bf16_out=False, extra=None):
-    """One kernel against its plain version on one input: max |err| within
-    ``1e-5 * max|ref| * sqrt(tol_k)`` (f32 sums in another order; plus
-    one bf16 rounding for a bf16 output), then kernel, plain and library
-    times and the bound, the larger of bytes over HBM rate and ``ops``
-    over ``peak``."""
+                 tol_k, carried=0, extra=None, iters=21):
+    """One kernel against its plain version on one input, entry by entry:
+    ``|got - ref| <= rel * row + BF16_ULP * |ref|`` for a bf16 output (one
+    flip of its own rounding, at most an ulp of the entry itself; without
+    that term for f32), where ``row`` is the largest |ref| of the entry's
+    output row (the last axis) and ``rel = 1e-5 * sqrt(tol_k) + carried *
+    BF16_ULP`` (f32 sums of ``tol_k`` terms in another order, and one bf16
+    ulp for each earlier rounding point whose flips a later phase spreads
+    over the row).  A light row is held to its own scale, not the hub
+    rows'.  Then kernel, plain and library times (median of ``iters``) and
+    the bound, the larger of bytes over HBM rate and ``ops`` over
+    ``peak``."""
     import torch
 
     got = run()
     ref = plain()
     torch.cuda.synchronize()
-    err = float((got.float() - ref.float()).abs().max())
-    scale = float(ref.float().abs().max())
-    tol = 1e-5 * scale * math.sqrt(tol_k) + (BF16_REL * scale if bf16_out else 0.0)
-    check(err <= tol, f"{name} on {shape} D={d}: max |err| {err} > {tol}")
+    out_bf16 = ref.dtype == torch.bfloat16
+    ref = ref.float().reshape(-1, got.shape[-1])
+    diff = (got.float().reshape(ref.shape) - ref).abs()
+    del got
+    row = ref.abs().amax(1, keepdim=True)
+    rel = 1e-5 * math.sqrt(tol_k) + carried * BF16_ULP
+    tol = rel * row + TINY
+    if out_bf16:
+        tol = tol + BF16_ULP * ref.abs()
+    del ref
+    err = float(diff.max())
+    worst = float((diff / (row + TINY)).max())
+    used = float((diff / tol).max())
+    bad = int((diff > tol).sum())
+    del diff, row, tol
+    check(bad == 0, f"{name} on {shape} D={d}: {bad} entries leave their plain "
+          f"version by more than {rel:.3g} of their row's largest value"
+          f"{' plus an ulp of their own' if out_bf16 else ''} "
+          f"(at most {used:.3g} of that)")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     try:
-        lib_ms = time_ms(library()) if library is not None else None
+        lib_ms = time_ms(library(), iters=iters) if library is not None else None
     except (RuntimeError, NotImplementedError) as e:
         print(f"  {name}: library call unsupported here ({type(e).__name__}: "
               f"{str(e).splitlines()[0][:120]})")
@@ -242,36 +318,55 @@ def measure_case(name, shape, d, run, plain, library, nbytes, ops, peak,
     torch.cuda.empty_cache()
     rec = {
         "shape": shape, "d": d, **(extra or {}),
-        "max_abs_err": err, "tol": tol,
-        "ms": time_ms(run), "plain_ms": time_ms(plain),
+        "max_abs_err": err, "max_row_rel_err": worst, "row_rel_tol": rel,
+        "own_ulp_tol": int(out_bf16), "tol_used": used,
+        "ms": time_ms(run, iters=iters), "plain_ms": time_ms(plain, iters=iters),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms,
     }
     torch.cuda.empty_cache()
     extra_s = " ".join(f"{k}={v}" for k, v in (extra or {}).items())
-    print(f"  {name:21s} {shape:16s} D={d:<3d} {extra_s} "
+    print(f"  {name:21s} {shape:18s} D={d:<3d} {extra_s} "
           f"kernel_ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
           f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 4)} "
           f"bound_ms={rec['bound_ms']:.4f} ({rec['bound_by']}) "
-          f"max_abs_err={err:.3g} tol={tol:.3g}", flush=True)
+          f"max_abs_err={err:.3g} row_err={worst / BF16_ULP:.3g} ulp "
+          f"(tol {rel / BF16_ULP:.3g}{' + 1 own' if out_bf16 else ''}; "
+          f"used {used:.3g})", flush=True)
     return rec
 
 
-def measure_spmm(shape, m, x):
+def _dtype_extra(m, x, out_dtype):
+    """(bytes of tiles, x and output; peak; dtype labels) of one B1/B3
+    case: operations at the bf16 rate unless the tiles are f32."""
+    import torch
+
+    out_b = 2 if out_dtype == torch.bfloat16 else 4
+    name = lambda t: str(t).split(".")[1]
+    nbytes = (m.tiles.numel() * m.tiles.element_size()
+              + x.element_size() * m.num_nodes * x.shape[1]
+              + out_b * m.num_row_nodes * x.shape[1]
+              + 4 * (2 * m.num_tiles + m.num_row_blocks + 1))
+    peak = F32_FLOPS_PER_S if m.tiles.dtype == torch.float32 else BF16_FLOPS_PER_S
+    labels = {"tile": name(m.tiles.dtype), "x": name(x.dtype),
+              "out": "bf16" if out_b == 2 else "f32"}
+    return nbytes, peak, labels
+
+
+def measure_spmm(shape, m, x, out_dtype=None):
     """B1 against its plain version on one BCSR."""
     from tpugraph_torch.ops import bcsr_kernels as bk
 
     t, b, d = m.num_tiles, m.block, x.shape[1]
     nnz = int((m.tiles != 0).sum())
     max_row_tiles = int((m.row_ptr[1:] - m.row_ptr[:-1]).max())
+    nbytes, peak, labels = _dtype_extra(m, x, out_dtype)
     return measure_case(
-        "spmm_bcsr", shape, d, lambda: bk.spmm_bcsr(m, x),
-        lambda: bk.spmm_bcsr_plain(m, x), lambda: library_spmm(m, x),
-        4 * t * b * b + 4 * (m.num_nodes + m.num_row_nodes) * d
-        + 4 * (2 * t + m.num_row_blocks + 1),
-        2.0 * nnz * d, F32_FLOPS_PER_S, max_row_tiles * b,
-        extra={"tiles": t, "nnz": nnz})
+        "spmm_bcsr", shape, d, lambda: bk.spmm_bcsr(m, x, out_dtype),
+        lambda: bk.spmm_bcsr_plain(m, x, out_dtype), lambda: library_spmm(m, x),
+        nbytes, 2.0 * nnz * d, peak, max_row_tiles * b,
+        extra={"tiles": t, "nnz": nnz, **labels})
 
 
 def measure_kernels(shape_name, m, d, gen):
@@ -291,28 +386,30 @@ def measure_kernels(shape_name, m, d, gen):
             "sddmm_bcsr", shape_name, d, lambda: bk.sddmm_bcsr(m, dy, x),
             lambda: bk.sddmm_bcsr_plain(m, dy, x),
             lambda: library_sddmm(m, dy, x),
-            4 * 2 * t * b * b + 4 * (m.num_nodes + m.num_row_nodes) * d
+            (m.tiles.element_size() + 4) * t * b * b
+            + 4 * (m.num_nodes + m.num_row_nodes) * d
             + 4 * (2 * t + m.num_row_blocks + 1),
             2.0 * nnz * d, F32_FLOPS_PER_S, d,
-            extra={"tiles": t, "nnz": nnz}),
+            extra={"tiles": t, "nnz": nnz,
+                   "support": str(m.tiles.dtype).split(".")[1]}),
     }
 
 
-def measure_packed(shape, m, k_pack, x):
+def measure_packed(shape, m, k_pack, x, out_dtype=None):
     """B3 against its plain version on a k_pack-padded BCSR."""
     from tpugraph_torch.ops import bcsr_kernels as bk
 
     t, b, d = m.num_tiles, m.block, x.shape[1]
     nnz = int((m.tiles != 0).sum())
     max_row_tiles = int((m.row_ptr[1:] - m.row_ptr[:-1]).max())
+    nbytes, peak, labels = _dtype_extra(m, x, out_dtype)
     return measure_case(
-        "spmm_bcsr_packed", shape, d, lambda: bk.spmm_bcsr_packed(m, x, k_pack),
-        lambda: bk.spmm_bcsr_packed_plain(m, x, k_pack),
+        "spmm_bcsr_packed", shape, d,
+        lambda: bk.spmm_bcsr_packed(m, x, k_pack, out_dtype),
+        lambda: bk.spmm_bcsr_packed_plain(m, x, k_pack, out_dtype),
         lambda: library_spmm(m, x),
-        4 * t * b * b + 4 * (m.num_nodes + m.num_row_nodes) * d
-        + 4 * (2 * t + m.num_row_blocks + 1),
-        2.0 * nnz * d, F32_FLOPS_PER_S, max_row_tiles * b,
-        extra={"tiles": t, "nnz": nnz, "k_pack": k_pack})
+        nbytes, 2.0 * nnz * d, peak, max_row_tiles * b,
+        extra={"tiles": t, "nnz": nnz, "k_pack": k_pack, **labels})
 
 
 def measure_stacked(shape, st, x, out_dtype=None):
@@ -327,6 +424,7 @@ def measure_stacked(shape, st, x, out_dtype=None):
     del wide
     n_slices = st.num_tiles * st.stack
     tile_bytes = st.tiles.numel() * st.tiles.element_size()
+    x_b = x.element_size()
     out_b = 2 if out_dtype == torch.bfloat16 else 4
     per_rb = int((st.row_ptr[1:] - st.row_ptr[:-1]).max())
     peak = F32_FLOPS_PER_S if st.tiles.dtype == torch.float32 else BF16_FLOPS_PER_S
@@ -335,12 +433,12 @@ def measure_stacked(shape, st, x, out_dtype=None):
         "spmm_stacked_resident", shape, d,
         lambda: rk.spmm_stacked_resident(st, x, out_dtype=out_dtype),
         lambda: rk.spmm_stacked_resident_plain(st, x, out_dtype),
-        (lambda: library_stacked(st, x)) if st.stack == 1 else None,
-        tile_bytes + 4 * st.num_nodes * d + out_b * st.num_row_nodes * d
+        lambda: library_stacked(st, x),
+        tile_bytes + x_b * st.num_nodes * d + out_b * st.num_row_nodes * d
         + 4 * (st.num_tiles + 2 * n_slices + st.num_row_blocks + 1),
         2.0 * nnz * d, peak, per_rb * st.block,
-        bf16_out=out_dtype == torch.bfloat16,
         extra={"tiles": st.num_tiles, "stack": st.stack, "tile": kind,
+               "x": "bf16" if x_b == 2 else "f32",
                "out": "bf16" if out_b == 2 else "f32", "nnz": nnz})
 
 
@@ -421,6 +519,7 @@ def phase_lowloc(report, gen):
                         x_small, torch.bfloat16),
         measure_stacked(small, rk.pack_stacked_int4(
             rk.stack_bcsr(m_i8, stack=2)).to("cuda"), x_small, torch.bfloat16),
+        measure_stacked(small, small_st, x_small.to(torch.bfloat16)),
     ]
     p_small = packets.pack_edges(s, r, w, g.num_nodes_padded).to("cuda")
     xp = torch.randn((p_small.num_nodes, LOWLOC_D), generator=gen,
@@ -502,7 +601,242 @@ def phase_lowloc(report, gen):
           f"{json.dumps({**res_rates, **pkt_rates})}", flush=True)
     print(f"  full-size phase {time.perf_counter() - t0:.1f} s", flush=True)
     report["lowloc"] = {"launches": launches, "shapes": shapes,
-                        "variants": variants}
+                        "variants": variants, "graph": g}
+
+
+def dtype_cases(g):
+    """The B1/B3 dtype options on the power-law graph at block 256, D = 128:
+    B1 on int8 tiles with bf16 x, B3 (k_pack 4) on int8 tiles with f32 x,
+    each at an f32 and a bf16 output."""
+    import torch
+
+    from tpugraph_torch.ops import bcsr
+
+    s, r, w = (t.numpy() for t in (g.senders, g.receivers, g.edge_weight))
+    n = g.num_nodes_padded
+    shape = f"powerlaw-{n // 1024}k"
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((n, LOWLOC_D), generator=gen, device="cuda")
+    out = {"spmm_bcsr": [], "spmm_bcsr_packed": []}
+    m = bcsr.bcsr_from_coo(s, r, w, n, block=LOWLOC_BLOCK,
+                           tile_dtype=torch.int8).to("cuda")
+    for od in (torch.float32, torch.bfloat16):
+        out["spmm_bcsr"].append(measure_spmm(shape, m, x.to(torch.bfloat16), od))
+    m = bcsr.bcsr_from_coo(s, r, w, n, block=LOWLOC_BLOCK, tile_dtype=torch.int8,
+                           pad_rows_to=4).to("cuda")
+    for od in (torch.float32, torch.bfloat16):
+        out["spmm_bcsr_packed"].append(measure_packed(shape, m, 4, x, od))
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_explain_banded(gen):
+    """``bench_explain.py:60-116``'s configuration on the card: tile-space
+    mask optimization, 100 Adam epochs, on a 65,536-node banded graph
+    (degree 32, band 192, block 256) with ``GcnEncoderNode(10, 20, 20, 4,
+    3)`` (random weights, seed 0), in f32 and with bf16 kernel tiles; then
+    B1 (bf16 tiles, f32 x) and B2 (bf16 support) at this shape, D = 20."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.explain import ExplainConfig
+    from tpugraph_torch.explain.bcsr_explain import run_bcsr_mask_optimization
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.ops import bcsr
+
+    dev = torch.device("cuda")
+    n = BANDED_NODES
+    s, r, w = make_banded_graph(n, BANDED_DEG, BANDED_BAND)
+    m_host = bcsr.bcsr_from_coo(s, r, w, n, block=BANDED_BLOCK)
+    m = m_host.to(dev)
+    tp = bcsr.bcsr_transpose_plan(m_host).to(dev)
+    partner = torch.from_numpy(bcsr.bcsr_sym_partner(m_host)).long().to(dev)
+    print(f"  banded graph: {n} nodes, {s.size} directed edges, "
+          f"{m.num_tiles} tiles of {BANDED_BLOCK}^2", flush=True)
+    model = GcnEncoderNode(input_dim=10, hidden_dim=20, embedding_dim=20,
+                           label_dim=4, num_layers=3,
+                           generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (m.num_nodes, 10)).astype(np.float32)).to(dev)
+    pred_vec = torch.zeros((m.num_nodes,), dtype=torch.int32, device=dev)
+
+    def run(epochs, spmm_dtype):
+        return run_bcsr_mask_optimization(
+            model, m, tp, partner, x, node_idx=5, gt_label=1,
+            pred_label_vec=pred_vec, num_sub_nodes=n,
+            cfg=ExplainConfig(num_epochs=epochs),
+            generator=torch.Generator(device=dev).manual_seed(1),
+            spmm_dtype=spmm_dtype)
+
+    rates, launches = {}, {}
+    for tag, dt in (("f32", None), ("bf16", torch.bfloat16)):
+        run(2, dt)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, w_tiles, hist = run(BANDED_EPOCHS, dt)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches[tag] = ops.launch_counts()
+        rates[tag] = BANDED_EPOCHS / elapsed
+        total = hist["total"]
+        print(f"  banded explain {tag}: {rates[tag]:.2f} steps/s; loss "
+              f"{total[0]:.5f} -> {total[-1]:.5f}; launches "
+              f"{ {k: v for k, v in launches[tag].items() if v} }", flush=True)
+        check(bool(np.all(np.isfinite(total))) and bool(torch.isfinite(w_tiles).all()),
+              f"banded explain {tag}: non-finite loss or mask")
+        check(launches[tag]["spmm_bcsr"] > 0 and launches[tag]["sddmm_bcsr"] > 0,
+              f"banded explain {tag} did not launch B1 and B2")
+        del w_tiles
+    m16 = dataclasses.replace(m, tiles=m.tiles.to(torch.bfloat16))
+    shapes = measure_kernels("banded-64k", m16, 20, gen)
+    del m, m16, tp
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps_per_s": rates, "shapes": shapes}
+
+
+def pair_csr(pair):
+    """A's and A_t's halves of a pair as f32 CSR matrices of their widened
+    tile entries: the independent oracle of B5."""
+    import torch
+
+    b = pair.block
+
+    def csr(lo, hi, n_rows, n_cols):
+        tiles = pair.tiles[lo:hi]
+        t, i, j = (tiles != 0).nonzero(as_tuple=True)
+        rows = pair.rows[lo:hi].long()[t] * b + i
+        cols = pair.col_blk[lo:hi].long()[t] * b + j
+        return torch.sparse_coo_tensor(
+            torch.stack([rows, cols]), tiles[t, i, j].float(), (n_rows, n_cols)
+        ).coalesce().to_sparse_csr()
+
+    return (csr(0, pair.t1, pair.num_mid_nodes, pair.num_nodes),
+            csr(pair.t1, pair.num_tiles, pair.num_out_nodes, pair.num_mid_nodes))
+
+
+def oracle_check(tag, pair, x, z):
+    """B5's f32 output ``z`` against two f32 ``torch.sparse.mm`` calls,
+    entry by entry within the rounding bound: y's one bf16 rounding
+    (``2^-8 |y|`` carried by |A_t|) and f32 sums of at most ``k`` nonzeros
+    a row, in either order, in both phases of both sides
+    (``5 k u |A_t| |A| |x|``); and, as an extra check, within 3 bf16
+    roundings of max|ref|."""
+    import torch
+
+    a, a_t = pair_csr(pair)
+    k = max(int((c.crow_indices()[1:] - c.crow_indices()[:-1]).max())
+            for c in (a, a_t))
+    mod = lambda c: torch.sparse_csr_tensor(c.crow_indices(), c.col_indices(),
+                                            c.values().abs(), c.shape)
+    xf = x.float()
+    y = torch.sparse.mm(a, xf)
+    ref = torch.sparse.mm(a_t, y)
+    bound = (BF16_REL * torch.sparse.mm(mod(a_t), y.abs())
+             + 5 * k * F32_U * torch.sparse.mm(mod(a_t),
+                                                torch.sparse.mm(mod(a), xf.abs())))
+    diff = (z - ref).abs()
+    used = float((diff / (bound + TINY)).max())
+    err, scale = float(diff.max()), float(ref.abs().max())
+    print(f"  {tag}: B5 f32 vs torch.sparse.mm oracle max |err| {err:.4g} "
+          f"(max|ref| {scale:.4g}); at most {used:.3g} of each entry's rounding "
+          f"bound (k = {k})", flush=True)
+    check(bool((diff <= bound + TINY).all()),
+          f"{tag}: B5 leaves the oracle beyond the rounding bound ({used:.3g})")
+    check(err <= 3 * BF16_REL * scale,
+          f"{tag}: B5 leaves the oracle by {err}, over 3 bf16 roundings of max|ref|")
+
+
+def phase_diffuse(g):
+    """The diffusion path at full width: ``DiffusionOperator`` on the
+    power-law graph (block 256), seeded N(0, 1) bf16 x with D = 128, one
+    ``op(x, hops)`` (B6) and one ``spmm_pair_resident`` (B5) per operator,
+    B5's f32 output held against ``oracle_check``, and both kernels
+    against their plain versions with their bounds."""
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.ops import resident_kernels as rk
+    from tpugraph_torch.ops.diffusion import DiffusionOperator
+
+    n, d, b = g.num_nodes_padded, LOWLOC_D, LOWLOC_BLOCK
+    n_edges = int((g.edge_weight != 0).sum())
+    shape = f"powerlaw-{n // 1024}k"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    launches, recs = {}, {"spmm_pair_resident": [], "spmm_power_resident": []}
+    no_library = ("no single PyTorch call computes A_t (A x) with y rounded "
+                  "to bf16 between the two products")
+    for tag, normalize, hops in DIFF_CASES:
+        t0 = time.perf_counter()
+        op = DiffusionOperator(g, block=b, normalize=normalize)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        pair = op.pair
+        kind = str(pair.tiles.dtype).split(".")[1]
+        check(kind == ("bfloat16" if normalize else "int8"), f"{tag}: {kind} tiles")
+        ops.reset_launch_counts()
+        y = op(x, hops)
+        z = ops.spmm_pair_resident(pair, x, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        launches[f"diffuse_{tag}"] = ops.launch_counts()
+        y_max = float(y.float().abs().max())
+        lists = [int(p[1] - p[0]) for p in (pair.row_ptr1, pair.row_ptr2)]
+        longest = [int((p[1:] - p[:-1]).max()) for p in (pair.row_ptr1, pair.row_ptr2)]
+        print(f"  {tag}: pack {pack_s:.2f} s, {pair.num_tiles} {kind} tiles of "
+              f"{b}^2 ({pair.tiles.numel() * pair.tiles.element_size() / 1e9:.2f} "
+              f"GB) in the pair (t1 {pair.t1}); m = {1 / math.sqrt(op.hop_scale):.1f}, "
+              f"hop_scale {op.hop_scale:.6g}; hops {hops}: max|y| {y_max:.6g}; "
+              f"row block 0 lists {lists[0]} / {lists[1]} tiles (longest "
+              f"{longest[0]} / {longest[1]}); launches "
+              f"{ {k: v for k, v in launches[f'diffuse_{tag}'].items() if v} }",
+              flush=True)
+        check(y.shape == (n, d) and y.dtype == torch.bfloat16
+              and bool(torch.isfinite(y.float()).all()) and y_max > 0,
+              f"{tag}: diffusion output bad or all zero")
+        for k in ("spmm_pair_resident", "spmm_power_resident"):
+            check(launches[f"diffuse_{tag}"][k] > 0, f"{tag} did not launch {k}")
+        oracle_check(tag, pair, x, z)
+        del z, y
+        torch.cuda.empty_cache()
+
+        nnz = int((pair.tiles != 0).sum())
+        tile_bytes = pair.num_tiles * b * b * pair.tiles.element_size()
+        tol_k = max(longest) * b
+        extra = {"tile": kind, "x": "bf16", "tiles": pair.num_tiles, "nnz": nnz,
+                 "row_block0_tiles": lists, "pack_s": round(pack_s, 3)}
+        for od in (torch.float32, torch.bfloat16):
+            out_b = 2 if od == torch.bfloat16 else 4
+            rec = measure_case(
+                "spmm_pair_resident", shape, d,
+                lambda: rk.spmm_pair_resident(pair, x, out_dtype=od),
+                lambda: rk.spmm_pair_resident_plain(pair, x, od), None,
+                tile_bytes + 2 * n * d + out_b * n * d, 2.0 * nnz * d,
+                BF16_FLOPS_PER_S, tol_k, 1,
+                extra={**extra, "out": "bf16" if out_b == 2 else "f32"}, iters=11)
+            rec["library_null_reason"] = no_library
+            rec["edges_per_s"] = 2 * n_edges / (rec["ms"] / 1e3)
+            recs["spmm_pair_resident"].append(rec)
+        rec = measure_case(
+            "spmm_power_resident", shape, d, lambda: op(x, hops),
+            lambda: rk.spmm_power_resident_plain(pair, x, hops, torch.bfloat16,
+                                                 op.hop_scale), None,
+            hops * tile_bytes + 2 * n * d + 2 * n * d, 2.0 * hops * nnz * d,
+            BF16_FLOPS_PER_S, tol_k, POWER_CARRIED,
+            extra={**extra, "hops": hops, "hop_scale": op.hop_scale,
+                   "out": "bf16"}, iters=5)
+        rec["library_null_reason"] = no_library
+        rec["diffusion_edges_per_s"] = 2 * n_edges * hops / (rec["ms"] / 1e3)
+        print(f"  {tag}: diffusion {rec['diffusion_edges_per_s']:.4g} edges/s "
+              f"(2 * {n_edges} edges * {hops} hops / {rec['ms']:.3f} ms)", flush=True)
+        recs["spmm_power_resident"].append(rec)
+        del op, pair
+        torch.cuda.empty_cache()
+    return {"launches": launches, **recs}
 
 
 def main() -> int:
@@ -622,42 +956,87 @@ def main() -> int:
     for k in ("spmm_bcsr", "sddmm_bcsr"):
         check(explain_launches[k] > 0, f"explanation did not launch {k}")
 
+    # the same five nodes with bf16 kernel tiles: the explainer's private
+    # hook onto run_bcsr_mask_optimization(spmm_dtype=...), which tpugraph's
+    # Explainer does not expose either
+    ex._spmm_dtype = torch.bfloat16
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results16 = ex.explain_nodes_bcsr(EXPLAIN_NODES)
+    torch.cuda.synchronize()
+    bf16_s = time.perf_counter() - t0
+    bf16_launches = ops.launch_counts()
+    ex._spmm_dtype = None
+    auc16, _, _ = explanation_auc([res["masked_adj"] for res in results16],
+                                  [res["node_idx_new"] for res in results16],
+                                  "syn1")
+    print(f"  spmm_dtype=bf16: AUC {auc16:.4f}; {bf16_s / len(EXPLAIN_NODES):.3f} "
+          f"s a node; launches {bf16_launches}", flush=True)
+    check(auc16 > 0.9, f"bf16 explanation AUC {auc16} <= 0.9")
+    for k in ("spmm_bcsr", "sddmm_bcsr"):
+        check(bf16_launches[k] > 0, f"bf16 explanation did not launch {k}")
+    banded = phase_explain_banded(gen)
+
     # ---- phase 4: low-locality training in every static-weight format
     print("phase lowloc", flush=True)
     low = {}
     phase_lowloc(low, gen)
     low = low["lowloc"]
+    dtypes = dtype_cases(low["graph"])
+
+    # ---- phase 5: diffusion on the power-law graph
+    print("phase diffuse", flush=True)
+    t0 = time.perf_counter()
+    diff = phase_diffuse(low.pop("graph"))
+    print(f"  diffuse phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- report
     paths = {"train": train_launches, "explain": explain_launches,
-             **{f"lowloc_{f}": c for f, c in low["launches"].items()}}
+             "explain_bf16": bf16_launches,
+             **{f"explain_banded_{k}": c for k, c in banded["launches"].items()},
+             **{f"lowloc_{f}": c for f, c in low["launches"].items()},
+             **diff["launches"]}
     meta = {
         "spmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
-                      [sh["spmm_bcsr"] for sh in shapes] + [low["shapes"]["tiles"]]),
+                      [sh["spmm_bcsr"] for sh in shapes] + [low["shapes"]["tiles"],
+                       banded["shapes"]["spmm_bcsr"]] + dtypes["spmm_bcsr"]),
         "sddmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                        "tpugraph/ops/pallas_spmm.py:175", shapes[1]["sddmm_bcsr"],
-                       [sh["sddmm_bcsr"] for sh in shapes]),
+                       [sh["sddmm_bcsr"] for sh in shapes]
+                       + [banded["shapes"]["sddmm_bcsr"]]),
         "spmm_bcsr_packed": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                              "tpugraph/ops/pallas_spmm.py:312",
-                             low["shapes"]["k_pack4"], [low["shapes"]["k_pack4"]]),
+                             low["shapes"]["k_pack4"],
+                             [low["shapes"]["k_pack4"]] + dtypes["spmm_bcsr_packed"]),
         "spmm_stacked_resident": (
             "tpugraph_torch/csrc/resident_kernels.cu",
             "tpugraph/ops/pallas_resident.py:281", low["shapes"]["resident"],
-            [low["shapes"]["resident"]] + low["variants"][:3]),
+            [low["shapes"]["resident"]] + low["variants"][:4]),
+        "spmm_pair_resident": ("tpugraph_torch/csrc/resident_kernels.cu",
+                               "tpugraph/ops/pallas_resident.py:476",
+                               diff["spmm_pair_resident"][0],
+                               diff["spmm_pair_resident"]),
+        "spmm_power_resident": ("tpugraph_torch/csrc/resident_kernels.cu",
+                                "tpugraph/ops/pallas_resident.py:622",
+                                diff["spmm_power_resident"][0],
+                                diff["spmm_power_resident"]),
         "spmm_packets": ("tpugraph_torch/csrc/packets_kernels.cu",
                          "tpugraph/ops/pallas_packets.py:146",
                          low["shapes"]["packets"],
-                         [low["shapes"]["packets"], low["variants"][3]]),
+                         [low["shapes"]["packets"], low["variants"][4]]),
     }
     report = []
     for name, (src, replaces, main_shape, all_shapes) in meta.items():
         by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        check(sum(by_path.values()) > 0, f"{name} was never launched on its path")
         report.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **{k: main_shape[k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by", "library_ms")},
+            **({"library_null_reason": main_shape["library_null_reason"]}
+               if "library_null_reason" in main_shape else {}),
             "shapes": all_shapes,
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels B1 (spmm_bcsr), B2 (sddmm_bcsr), B3
-(spmm_bcsr_packed), B4 (spmm_stacked_resident) and B7 (spmm_packets)
-against their plain PyTorch versions on the card.  This file imports no
+(spmm_bcsr_packed), B4 (spmm_stacked_resident), B5 (spmm_pair_resident),
+B6 (spmm_power_resident) and B7 (spmm_packets) against their plain
+PyTorch versions on the card, with every tile / x / output dtype they
+take.  This file imports no
 JAX (nor does it need ``tests/conftest.py``, which does), so it runs on a
 machine without JAX:
 
@@ -18,6 +20,9 @@ from tpugraph_torch.ops import bcsr, bcsr_kernels, packets, packets_kernels
 from tpugraph_torch.ops import resident_kernels as rk
 
 BF16_REL = 2.0 ** -8  # one bf16 rounding of a value (8 significant bits)
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
+FLOATS = [torch.float32, torch.bfloat16]
+TILES = [torch.float32, torch.bfloat16, torch.int8]
 
 
 @pytest.fixture
@@ -219,3 +224,149 @@ def test_autograd_wrappers_on_card_match_cpu(cuda_device):
             outs.append((y.detach().cpu(), dx.cpu()))
         for got, ref in zip(outs[1], outs[0]):  # same inputs: order only
             assert float((got - ref).abs().max()) <= _f32_tol(ref, 3 * 128), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_pack", [1, 4])
+@pytest.mark.parametrize("tile_dtype", TILES)
+def test_spmm_bcsr_dtypes_match_plain(cuda_device, k_pack, tile_dtype):
+    """B1 (k_pack 1) and B3 (k_pack 4) with every x and output dtype, at
+    D = 128 and a ragged D = 20."""
+    s, r, w = _coo(640, 6000, seed=k_pack, integer=tile_dtype == torch.int8)
+    m = bcsr.bcsr_from_coo(s, r, w, 640, block=128, tile_dtype=tile_dtype,
+                           pad_rows_to=k_pack if k_pack > 1 else None
+                           ).to(cuda_device)
+    name = "spmm_bcsr_packed" if k_pack > 1 else "spmm_bcsr"
+    for d in (128, 20):
+        for x_dtype in FLOATS:
+            x = _x(m.num_nodes, d, d, cuda_device).to(x_dtype)
+            for out_dtype in FLOATS:
+                before = bcsr_kernels.LAUNCHES[name]
+                if k_pack > 1:
+                    y = bcsr_kernels.spmm_bcsr_packed(m, x, k_pack, out_dtype)
+                    ref = bcsr_kernels.spmm_bcsr_packed_plain(m, x, k_pack)
+                else:
+                    y = bcsr_kernels.spmm_bcsr(m, x, out_dtype)
+                    ref = bcsr_kernels.spmm_bcsr_plain(m, x)
+                torch.cuda.synchronize()
+                assert bcsr_kernels.LAUNCHES[name] == before + 1
+                assert y.dtype == out_dtype and y.shape == (640, d)
+                tol = _f32_tol(ref, 8 * 128)
+                if out_dtype == torch.bfloat16:
+                    tol = tol + BF16_ULP * ref.abs()
+                err = (y.float() - ref).abs()
+                assert bool((err <= tol).all()), (x_dtype, out_dtype, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_dtype", TILES)
+def test_sddmm_bcsr_support_dtypes_match_plain(cuda_device, tile_dtype):
+    m, x, dy = _case(384, 384, 24, seed=6)
+    m = bcsr.BCSR(m.tiles.to(tile_dtype), m.col_blk, m.row_ptr, m.row_of,
+                  m.num_nodes, m.block).to(cuda_device)
+    xd, dyd = torch.from_numpy(x).to(cuda_device), torch.from_numpy(dy).to(cuda_device)
+    g = bcsr_kernels.sddmm_bcsr(m, dyd, xd)
+    ref = bcsr_kernels.sddmm_bcsr_plain(m, dyd, xd)
+    assert g.dtype == torch.float32
+    assert float((g - ref).abs().max()) <= _f32_tol(ref, 24)
+    assert bool((g[m.tiles == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_dtype", TILES)
+def test_spmm_stacked_resident_bf16_x_matches_plain(cuda_device, tile_dtype):
+    s, r, w = _coo(512, 3000, seed=3, integer=tile_dtype == torch.int8)
+    m = bcsr.bcsr_from_coo(s, r, w, 512, block=128, tile_dtype=tile_dtype)
+    st = rk.stack_bcsr(m, stack=2, k_pack=4).to(cuda_device)
+    x = _x(st.num_nodes, 128, 2, cuda_device).to(torch.bfloat16)
+    y = rk.spmm_stacked_resident(st, x)
+    ref = rk.spmm_stacked_resident_plain(st, x)
+    assert float((y - ref).abs().max()) <= _f32_tol(ref, 4 * 128)
+
+
+def _pair(tile_dtype, n_rows, n_cols, seed):
+    """The pair of A (n_cols -> n_rows) and A^T at block 128."""
+    rng = np.random.default_rng(seed)
+    e = 4000
+    s = rng.integers(0, n_cols, e).astype(np.int32)
+    r = rng.integers(0, n_rows, e).astype(np.int32)
+    w = (rng.integers(1, 4, e) if tile_dtype == torch.int8
+         else rng.standard_normal(e)).astype(np.float32)
+    kw = {} if n_rows == n_cols else {"num_col_nodes": n_cols}
+    kw_t = {} if n_rows == n_cols else {"num_col_nodes": n_rows}
+    st = rk.stack_bcsr(bcsr.bcsr_from_coo(s, r, w, n_rows, block=128,
+                                          tile_dtype=tile_dtype, **kw), 1, 4)
+    st_t = rk.stack_bcsr(bcsr.bcsr_from_coo(r, s, w, n_cols, block=128,
+                                            tile_dtype=tile_dtype, **kw_t), 1, 4)
+    return rk.pack_pair(st, st_t)
+
+
+def _pair_tol(ref, n_roundings):
+    """Per output row: f32 sums in another order (as ``_f32_tol``), and one
+    bf16 ulp of the row's largest |value| for every bf16 rounding the values
+    passed (a sum near a tie may round the other way)."""
+    row = ref.abs().amax(1, keepdim=True)
+    return (1e-5 * math.sqrt(16 * 128) + n_roundings * BF16_ULP) * row + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rect", [False, True])
+@pytest.mark.parametrize("tile_dtype", TILES)
+def test_spmm_pair_resident_matches_plain(cuda_device, tile_dtype, rect):
+    pair = _pair(tile_dtype, 640, 384 if rect else 640, seed=1).to(cuda_device)
+    for d in (128, 20):
+        for x_dtype in FLOATS:
+            x = _x(pair.num_nodes, d, d, cuda_device).to(x_dtype)
+            for out_dtype in FLOATS:
+                before = rk.LAUNCHES["spmm_pair_resident"]
+                y = rk.spmm_pair_resident(pair, x, k_pack=4, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                assert rk.LAUNCHES["spmm_pair_resident"] == before + 2
+                assert y.dtype == out_dtype and y.shape == (pair.num_out_nodes, d)
+                ref = rk.spmm_pair_resident_plain(pair, x, out_dtype).float()
+                err = (y.float() - ref).abs()
+                assert bool((err <= _pair_tol(ref, 2)).all()), (
+                    x_dtype, out_dtype, d, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hops,hop_scale", [(1, 1.0), (3, 0.0625)])
+@pytest.mark.parametrize("tile_dtype", TILES)
+def test_spmm_power_resident_matches_plain(cuda_device, tile_dtype, hops,
+                                           hop_scale):
+    pair = _pair(tile_dtype, 640, 640, seed=2).to(cuda_device)
+    for x_dtype in FLOATS:
+        x = _x(pair.num_nodes, 128, 5, cuda_device).to(x_dtype)
+        for out_dtype in FLOATS:
+            before = rk.LAUNCHES["spmm_power_resident"]
+            y = rk.spmm_power_resident(pair, x, hops, k_pack=4,
+                                       out_dtype=out_dtype, hop_scale=hop_scale)
+            torch.cuda.synchronize()
+            assert rk.LAUNCHES["spmm_power_resident"] == before + 2 * hops
+            ref = rk.spmm_power_resident_plain(pair, x, hops, out_dtype,
+                                               hop_scale).float()
+            err = (y.float() - ref).abs()
+            assert bool((err <= _pair_tol(ref, 2 * hops + 1)).all()), (
+                x_dtype, out_dtype, float(err.max()))
+
+
+@pytest.mark.cuda
+def test_diffusion_operator_on_card_matches_cpu(cuda_device):
+    """DiffusionOperator (normalized bf16 tiles, and int8 tiles with
+    hop_scale) on the card against the same operator on the CPU."""
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.ops.diffusion import DiffusionOperator, diffuse
+
+    s, r, _ = _coo(700, 5000, seed=4)
+    g = graph_from_edges(np.concatenate([s, r]), np.concatenate([r, s]), 700)
+    x = _x(700, 64, 6, "cpu")
+    for normalize in (True, False):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            op = DiffusionOperator(g, block=128, normalize=normalize, device=dev)
+            x_p = torch.zeros((op.num_nodes, 64))
+            x_p[:700] = x
+            outs.append(op(x_p.to(dev), 3).float().cpu())
+        assert bool(((outs[1] - outs[0]).abs() <= _pair_tol(outs[0], 7)).all())
+    y = diffuse(g, x, 2, block=128)
+    assert y.device.type == "cuda" and y.shape == (700, 64)

@@ -235,3 +235,75 @@ def test_plain_kernels_no_row_blocks():
     assert bcsr_kernels.spmm_bcsr(m, x).shape == (0, 8)
     assert bcsr_kernels.sddmm_bcsr(m, dy, x).shape == (0, 128, 128)
     assert bcsr_kernels.spmm_bcsr_packed(m, x, 4).shape == (0, 8)
+
+
+JAX_DT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+          torch.int8: jnp.int8}
+BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative (8 significant bits)
+
+
+def _typed_case(tile_dtype, pad_rows_to, seed):
+    """384 nodes, block 128, rows < 256 (an empty row block), tiles at
+    ``tile_dtype`` (int8: integer weights, some summed past one), D = 128."""
+    rng = np.random.default_rng(seed)
+    n, e = 384, 2000
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = rng.integers(0, 256, e).astype(np.int32)
+    w = (rng.integers(-3, 4, e) if tile_dtype == torch.int8
+         else rng.standard_normal(e)).astype(np.float32)
+    kw = dict(block=128, pad_rows_to=pad_rows_to)
+    m_j = jax_bcsr.bcsr_from_coo(s, r, w, n, tile_dtype=JAX_DT[tile_dtype],
+                                 device=False, **kw)
+    m_t = bcsr.bcsr_from_coo(s, r, w, n, tile_dtype=tile_dtype, **kw).to("cpu")
+    x = rng.standard_normal((n, 128)).astype(np.float32)
+    dy = rng.standard_normal((n, 128)).astype(np.float32)
+    return m_j, m_t, x, dy
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("k_pack", [1, 4])
+def test_spmm_dtype_options_match_pallas(k_pack, tile_dtype, x_dtype, out_dtype):
+    """B1 (k_pack 1) and B3 (k_pack 4) for every tile x x x out dtype JAX
+    takes, against spmm_bcsr / spmm_bcsr_packed in interpret mode (their
+    cast variants for a bf16 output): 1e-5 * max|ref| * sqrt(K) for f32
+    sums of K = 3 * 128 products in another order, plus one bf16 ulp of
+    the value for a bf16 output."""
+    m_j, m_t, x, _ = _typed_case(tile_dtype, k_pack if k_pack > 1 else None,
+                                 seed=k_pack + 3 * len(str(tile_dtype)))
+    xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    if x_dtype == torch.bfloat16:
+        xj, xt = xj.astype(jnp.bfloat16), xt.to(torch.bfloat16)
+    if k_pack > 1:
+        ref = jax_spmm.spmm_bcsr_packed(m_j, xj, k_pack=k_pack, interpret=True,
+                                        out_dtype=JAX_DT[out_dtype])
+        y = bcsr_kernels.spmm_bcsr_packed(m_t, xt, k_pack, out_dtype=out_dtype)
+    else:
+        ref = jax_spmm.spmm_bcsr(m_j, xj, interpret=True,
+                                 out_dtype=JAX_DT[out_dtype])
+        y = bcsr_kernels.spmm_bcsr(m_t, xt, out_dtype=out_dtype)
+    assert y.dtype == out_dtype and y.shape == (384, 128)
+    ref = np.asarray(ref.astype(jnp.float32))
+    tol = TOL * np.abs(ref).max() * np.sqrt(3 * 128)
+    if out_dtype == torch.bfloat16:
+        tol = tol + BF16_ULP * np.abs(ref)
+    assert np.all(np.abs(y.float().numpy() - ref) <= tol)
+    np.testing.assert_array_equal(y[256:].float(), 0.0)
+
+
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_sddmm_support_dtypes_match_pallas(tile_dtype):
+    """B2 reads only the support of bf16 / int8 tiles; dy, x and the
+    output stay f32 (1e-5 * max|ref| * sqrt(128))."""
+    m_j, m_t, x, dy = _typed_case(tile_dtype, None, seed=9)
+    ref = np.asarray(jax_spmm.sddmm_bcsr(m_j, jnp.asarray(dy), jnp.asarray(x),
+                                         interpret=True))
+    g = bcsr_kernels.sddmm_bcsr(m_t, torch.from_numpy(dy), torch.from_numpy(x))
+    assert g.dtype == torch.float32
+    np.testing.assert_allclose(g.numpy(), ref, rtol=0,
+                               atol=TOL * np.abs(ref).max() * np.sqrt(128))
+    assert np.all(g.numpy()[(m_t.tiles == 0).numpy()] == 0)
+    with pytest.raises(ValueError):
+        bcsr_kernels.sddmm_bcsr(m_t, torch.from_numpy(dy).bfloat16(),
+                                torch.from_numpy(x))

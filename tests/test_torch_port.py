@@ -78,3 +78,20 @@ def test_package_imports_neither_jax_nor_tpugraph():
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 20
+
+
+def test_diffusion_entry_points_raise_without_cuda(no_cuda):
+    """DiffusionOperator and diffuse default to CUDA like every entry
+    point; device="cpu" runs them on the plain kernel versions."""
+    import torch
+
+    from tpugraph_torch.ops import DiffusionOperator, diffuse
+
+    g = graph_from_edge_list(6, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5)])
+    x = torch.ones((6, 4))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DiffusionOperator(g, block=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        diffuse(g, x, 1, block=8)
+    y = diffuse(g, x, 2, block=8, device="cpu")
+    assert y.shape == (6, 4) and bool(torch.isfinite(y.float()).all())

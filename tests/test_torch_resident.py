@@ -153,6 +153,25 @@ def test_plain_matches_pallas(tile_dtype, stack, out_dtype):
     assert np.all(np.abs(y.float().numpy() - ref) <= tol)
 
 
+@pytest.mark.parametrize("tile_dtype", [None, torch.bfloat16, torch.int8])
+def test_plain_bf16_x_matches_pallas(tile_dtype):
+    """B4 takes bf16 x as the Pallas kernel does (``pallas_resident.py:
+    265-267``): widened exactly for f32 tiles, used as is for bf16/int8
+    tiles; f32 sums in another order (1e-5)."""
+    n, d = 512, 128
+    s, r, w = _coo(n, 1500, seed=10, integer=tile_dtype == torch.int8)
+    m_j, m_t = _both(s, r, w, n, 128, tile_dtype)
+    x = np.random.default_rng(4).standard_normal((n, d)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    ref = np.asarray(jax_res.spmm_stacked_resident(
+        jax_res.stack_bcsr(m_j, 2, 4), jnp.asarray(x).astype(jnp.bfloat16),
+        k_pack=4, interpret=True))
+    y = rk.spmm_stacked_resident(rk.stack_bcsr(m_t, 2, 4).to("cpu"), xb)
+    assert y.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0,
+                               atol=TOL * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_plain_int4_matches_pallas(out_dtype):
     n, d = 512, 128
@@ -208,6 +227,8 @@ def test_wrapper_rejects_bad_inputs():
         rk.spmm_stacked_resident(st, torch.ones(255, 8))
     with pytest.raises(ValueError):
         rk.spmm_stacked_resident(st, torch.ones(256, 8, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        rk.spmm_stacked_resident(st, torch.ones(256, 8, dtype=torch.float16))
     with pytest.raises(ValueError, match="out_dtype"):
         rk.spmm_stacked_resident(st, torch.ones(256, 8), out_dtype=torch.float16)
     meta = st.to("meta")

@@ -11,8 +11,10 @@ imported.  Entry points take ``device=None``, meaning CUDA; without a
 card they raise unless the caller passes ``device="cpu"``.
 
 Ported so far: syn1 generation, the BCSR layout, ``GcnEncoderNode`` on
-``BCSRAdj``, full-batch node training, the checkpoint + cg bundle, and
-the tile-space GNNExplainer with its motif AUC.
+``BCSRAdj``, full-batch node training in every static-weight format, the
+checkpoint + cg bundle, the tile-space GNNExplainer (with bf16 kernel
+tiles) and its motif AUC, and graph diffusion (``ops.DiffusionOperator``,
+``ops.diffuse``).
 """
 
 __version__ = "0.1.0"

@@ -2,52 +2,62 @@
 // for Hopper (sm_90a).  Plain C interface, loaded with ctypes by
 // tpugraph_torch/ops/bcsr_kernels.py, which checks every argument first.
 //
-// Layout: tiles float32[T, B, B] (row = receiver, col = sender), col_blk int32[T],
-// row_of int32[T], row_ptr int32[R+1]; tiles of one row block are consecutive.
+// Layout: tiles[T, B, B] (row = receiver, col = sender) in f32, bf16 bits or int8
+// (tile_kind 0, 1, 2), col_blk int32[T], row_of int32[T], row_ptr int32[R+1]; tiles
+// of one row block are consecutive.  x is f32 or bf16 bits (x_bf16), the output
+// f32 or bf16 bits (out_bf16), with the dtype rules of tile_dtypes.cuh: int8 tiles
+// widen exactly, x is rounded to bf16 for bf16/int8 tiles, sums are f32 and a bf16
+// output is rounded once, at the write.
 //
-// spmm_bcsr_f32 replaces the Pallas kernel tpugraph/ops/pallas_spmm.py:spmm_bcsr
-// (_spmm_kernel): y[R*B, D] = A @ x.
-//   Bound on the H100: bytes.  Every tile is read once (T*B*B*4 bytes) while
+// spmm_bcsr replaces the Pallas kernel tpugraph/ops/pallas_spmm.py:spmm_bcsr
+// (_spmm_kernel and its out_dtype twin _spmm_kernel_cast_factory): y[R*B, D] = A @ x.
+//   Bound on the H100: bytes.  Every tile is read once (T*B*B*itemsize bytes) while
 //   the useful work is 2*nnz*D flops, far below the 67 TFLOP/s f32 rate.
 //   Design: the Pallas kernel carries a row block across a sequential grid;
 //   here one CTA owns a (row block, 64 rows, 64 columns of D) slice of the
 //   output and loops over row_ptr[r]..row_ptr[r+1] itself.  Each step stages
-//   a 64x32 slice of the tile and the matching 32x64 slice of x[col_blk[t]]
-//   in shared memory; each of 256 threads keeps a 4x4 block of the output in
-//   registers.  The output is written once, without atomics, with a fixed
-//   summation order; a row block without tiles gets zeros.  The products are
-//   IEEE float32 FMAs (no TF32), so results agree with the CPU float32
-//   reference to rounding.
+//   a 64x32 slice of the tile (widened to f32) and the matching 32x64 slice of
+//   x[col_blk[t]] (cast to the tile compute type) in shared memory; each of 256
+//   threads keeps a 4x4 block of the output in registers.  The output is written
+//   once, without atomics, with a fixed summation order; a row block without tiles
+//   gets zeros.  The products are IEEE float32 FMAs (no TF32); bf16 x bf16 products
+//   are exact in f32, so results agree with the CPU reference to rounding.
 //
-// sddmm_bcsr_f32 replaces tpugraph/ops/pallas_spmm.py:sddmm_bcsr (_sddmm_kernel):
-//   out[t] = (dy[row_of[t] block] @ x[col_blk[t] block]^T) * (tiles[t] != 0).
-//   Bound on the H100: bytes (tiles read for the support, out written:
-//   2*T*B*B*4 bytes; useful work 2*nnz*D flops).
+// sddmm_bcsr replaces tpugraph/ops/pallas_spmm.py:sddmm_bcsr (_sddmm_kernel):
+//   out[t] = (dy[row_of[t] block] @ x[col_blk[t] block]^T) * (tiles[t] != 0), with
+//   dy, x and out f32 and the tiles of any kind (only their support is read).
+//   Bound on the H100: bytes (tiles read for the support, out written; useful work
+//   2*nnz*D flops).
 //   Design: one CTA per 64x64 sub-tile of one tile; it walks D in chunks of
 //   32, staging 64x32 slices of dy and x in shared memory, 4x4 outputs per
 //   thread in registers, then multiplies by the support of the current tile
 //   values (entries that are exactly 0 get 0) and writes float32.
 //
-// spmm_bcsr_packed_f32 replaces tpugraph/ops/pallas_spmm.py:spmm_bcsr_packed
-// (_spmm_packed_kernel_factory): the same y = A @ x on a layout whose row
-// blocks each hold a multiple of k_pack tiles (bcsr_from_coo(pad_rows_to=k)).
+// spmm_bcsr_packed replaces tpugraph/ops/pallas_spmm.py:spmm_bcsr_packed
+// (_spmm_packed_kernel_factory and its cast twin _spmm_packed_kernel_cast_factory):
+// the same y = A @ x on a layout whose row blocks each hold a multiple of k_pack
+// tiles (bcsr_from_coo(pad_rows_to=k)).
 //   Bound on the H100: bytes, as B1.
 //   Design: the TPU kernel takes k_pack tiles per grid step and double-buffers
 //   the x-block DMAs by hand.  Here each CTA owns B1's (row block, 64 rows, 64
 //   columns of D) output slice and walks its row block k_pack tiles at a time;
-//   every 64x32 tile slice and 32x64 x slice is fetched with cp.async into one
-//   of two shared-memory stages while the other stage is multiplied, so the
-//   next loads (across tile and group boundaries) overlap the FMAs.  Dead tiles
-//   of the padded layout (all zero, column block 0) add zeros.  IEEE f32 FMA,
-//   fixed summation order, no atomics, every row block written.
+//   every 64x32 tile slice (its raw bytes, widened when read) and 32x64 f32 x slice
+//   is fetched with cp.async into one of two shared-memory stages while the other
+//   stage is multiplied, so the next loads (across tile and group boundaries)
+//   overlap the FMAs.  A bf16 x slice (no 2-byte cp.async) is loaded and widened
+//   by the threads into the free stage instead.  Dead tiles of the padded layout
+//   (all zero, column block 0) add zeros.  IEEE f32 FMA, fixed summation order, no
+//   atomics, every row block written.
 //
 // All kernels need B % 64 == 0 and launch on the caller's stream; each entry
-// point returns cudaGetLastError() right after its launch.
+// point returns cudaGetLastError() right after its launch, or
+// cudaErrorInvalidValue for an unknown tile_kind.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tile_dtypes.cuh"
 
 namespace {
+
+using namespace tpg;
 
 constexpr int BM = 64;   // output rows per CTA
 constexpr int BN = 64;   // output columns per CTA
@@ -57,10 +67,11 @@ constexpr int TN = 4;    // columns per thread
 constexpr int TX = BN / TN;            // 16 threads across columns
 constexpr int THREADS = (BM / TM) * TX;  // 256
 
+template <int KIND, bool X_BF16, bool OUT_BF16>
 __global__ void __launch_bounds__(THREADS)
-spmm_bcsr_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ col_blk,
-                 const int32_t* __restrict__ row_ptr, const float* __restrict__ x,
-                 float* __restrict__ y, int block, int d) {
+spmm_bcsr_kernel(const void* __restrict__ tiles, const int32_t* __restrict__ col_blk,
+                 const int32_t* __restrict__ row_ptr, const void* __restrict__ x,
+                 void* __restrict__ y, int block, int d) {
     __shared__ float As[BK][BM + 1];  // tile slice, k-major (+1: no bank conflicts on store)
     __shared__ float Xs[BK][BN];
     const int subs = block / BM;
@@ -76,18 +87,21 @@ spmm_bcsr_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ co
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
+    using T = tile_t<KIND>;
+    using X = std::conditional_t<X_BF16, uint16_t, float>;
     const int t_lo = row_ptr[r], t_hi = row_ptr[r + 1];
     for (int t = t_lo; t < t_hi; ++t) {
-        const float* tile = tiles + ((size_t)t * block + m0) * block;
-        const float* xb = x + (size_t)col_blk[t] * block * d;
+        const T* tile = (const T*)tiles + ((size_t)t * block + m0) * block;
+        const X* xb = (const X*)x + (size_t)col_blk[t] * block * d;
         for (int k0 = 0; k0 < block; k0 += BK) {
             for (int i = tid; i < BM * BK; i += THREADS) {
                 const int m = i / BK, k = i % BK;
-                As[k][m] = tile[(size_t)m * block + k0 + k];
+                As[k][m] = tile_elem<KIND>(tile, (size_t)m * block + k0 + k);
             }
             for (int i = tid; i < BK * BN; i += THREADS) {
                 const int k = i / BN, n = i % BN;
-                Xs[k][n] = (n0 + n < d) ? xb[(size_t)(k0 + k) * d + n0 + n] : 0.f;
+                Xs[k][n] = (n0 + n < d)
+                    ? x_operand<KIND, X_BF16>(xb, (size_t)(k0 + k) * d + n0 + n) : 0.f;
             }
             __syncthreads();
 #pragma unroll
@@ -105,18 +119,20 @@ spmm_bcsr_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ co
             __syncthreads();
         }
     }
-    float* yb = y + ((size_t)r * block + m0) * d;
+    const size_t base = ((size_t)r * block + m0) * d;
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
             const int n = n0 + tx + j * TX;
-            if (n < d) yb[(size_t)(ty + i * (BM / TM)) * d + n] = acc[i][j];
+            if (n < d) store_out<OUT_BF16>(y, base + (size_t)(ty + i * (BM / TM)) * d + n,
+                                           acc[i][j]);
         }
 }
 
+template <int KIND>
 __global__ void __launch_bounds__(THREADS)
-sddmm_bcsr_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ row_of,
+sddmm_bcsr_kernel(const void* __restrict__ tiles, const int32_t* __restrict__ row_of,
                   const int32_t* __restrict__ col_blk, const float* __restrict__ dy,
                   const float* __restrict__ x, float* __restrict__ out, int block, int d) {
     __shared__ float Ds[BK][BM + 1];
@@ -167,7 +183,7 @@ sddmm_bcsr_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ r
         for (int j = 0; j < TN; ++j) {
             const size_t off = base + (size_t)(i0 + ty + i * (BM / TM)) * block
                                + j0 + tx + j * TX;
-            out[off] = acc[i][j] * (tiles[off] != 0.f ? 1.f : 0.f);
+            out[off] = acc[i][j] * (tile_nonzero<KIND>(tiles, off) ? 1.f : 0.f);
         }
 }
 
@@ -195,10 +211,15 @@ __device__ __forceinline__ void cp_async_wait_one() {
     asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+template <int KIND, bool X_BF16, bool OUT_BF16>
 __global__ void __launch_bounds__(THREADS)
-spmm_bcsr_packed_kernel(const float* __restrict__ tiles, const int32_t* __restrict__ col_blk,
-                        const int32_t* __restrict__ row_ptr, const float* __restrict__ x,
-                        float* __restrict__ y, int block, int d, int k_pack) {
+spmm_bcsr_packed_kernel(const void* __restrict__ tiles, const int32_t* __restrict__ col_blk,
+                        const int32_t* __restrict__ row_ptr, const void* __restrict__ x,
+                        void* __restrict__ y, int block, int d, int k_pack) {
+    using T = tile_t<KIND>;
+    constexpr int EPC = 16 / sizeof(T);      // tile elements per 16-byte copy
+    constexpr bool ROUND_X = KIND != F32 && !X_BF16;
+    // a staged row holds BK f32 values, or the raw bytes of BK narrower ones
     __shared__ __align__(16) float As[2][BM][AP];
     __shared__ __align__(16) float Xs[2][BK][BN];
     const int subs = block / BM;
@@ -216,16 +237,23 @@ spmm_bcsr_packed_kernel(const float* __restrict__ tiles, const int32_t* __restri
     auto load = [&](int s, int buf) {
         const int t = t_lo + s / chunks;
         const int k0 = (s % chunks) * BK;
-        const float* tile = tiles + ((size_t)t * block + m0) * block + k0;
-        for (int i = tid; i < BM * (BK / 4); i += THREADS) {
-            const int m = i / (BK / 4), q = i % (BK / 4);
-            cp_async16(&As[buf][m][q * 4], tile + (size_t)m * block + q * 4);
+        const T* tile = (const T*)tiles + ((size_t)t * block + m0) * block + k0;
+        for (int i = tid; i < BM * (BK / EPC); i += THREADS) {
+            const int m = i / (BK / EPC), q = i % (BK / EPC);
+            cp_async16((T*)As[buf][m] + q * EPC, tile + (size_t)m * block + q * EPC);
         }
-        const float* xb = x + ((size_t)col_blk[t] * block + k0) * d;
+        const size_t xrow = ((size_t)col_blk[t] * block + k0) * d;
         for (int i = tid; i < BK * BN; i += THREADS) {
             const int k = i / BN, n = i % BN;
             const bool in = n0 + n < d;
-            cp_async4(&Xs[buf][k][n], in ? xb + (size_t)k * d + n0 + n : x, in);
+            if (X_BF16) {
+                const uint16_t* xb = (const uint16_t*)x + xrow;
+                Xs[buf][k][n] = in ? bf16_widen(xb[(size_t)k * d + n0 + n]) : 0.f;
+            } else {
+                const float* xb = (const float*)x + xrow;
+                cp_async4(&Xs[buf][k][n], in ? xb + (size_t)k * d + n0 + n : (const float*)x,
+                          in);
+            }
         }
     };
 
@@ -249,9 +277,15 @@ spmm_bcsr_packed_kernel(const float* __restrict__ tiles, const int32_t* __restri
             for (int k = 0; k < BK; ++k) {
                 float a[TM], b[TN];
 #pragma unroll
-                for (int i = 0; i < TM; ++i) a[i] = As[buf][ty + i * (BM / TM)][k];
+                for (int i = 0; i < TM; ++i) {
+                    const int m = ty + i * (BM / TM);
+                    a[i] = KIND == F32 ? As[buf][m][k] : tile_elem<KIND>(As[buf][m], k);
+                }
 #pragma unroll
-                for (int jj = 0; jj < TN; ++jj) b[jj] = Xs[buf][k][tx + jj * TX];
+                for (int jj = 0; jj < TN; ++jj) {
+                    const float v = Xs[buf][k][tx + jj * TX];
+                    b[jj] = ROUND_X ? bf16_round(v) : v;
+                }
 #pragma unroll
                 for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -260,13 +294,14 @@ spmm_bcsr_packed_kernel(const float* __restrict__ tiles, const int32_t* __restri
             __syncthreads();                      // buffer free for step s + 2
         }
     }
-    float* yb = y + ((size_t)r * block + m0) * d;
+    const size_t base = ((size_t)r * block + m0) * d;
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
             const int n = n0 + tx + j * TX;
-            if (n < d) yb[(size_t)(ty + i * (BM / TM)) * d + n] = acc[i][j];
+            if (n < d) store_out<OUT_BF16>(y, base + (size_t)(ty + i * (BM / TM)) * d + n,
+                                           acc[i][j]);
         }
 }
 
@@ -274,38 +309,46 @@ spmm_bcsr_packed_kernel(const float* __restrict__ tiles, const int32_t* __restri
 
 extern "C" {
 
-// y[n_row_blocks * block, d] = A @ x.  Returns cudaGetLastError() after the launch.
-int spmm_bcsr_f32(const void* tiles, const void* col_blk, const void* row_ptr,
-                  const void* x, void* y, int n_row_blocks, int block, int d,
-                  void* stream) {
-    dim3 grid(n_row_blocks * (block / BM), (d + BN - 1) / BN);
-    spmm_bcsr_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)tiles, (const int32_t*)col_blk, (const int32_t*)row_ptr,
-        (const float*)x, (float*)y, block, d);
-    return (int)cudaGetLastError();
+// y[n_row_blocks * block, d] = A @ x.
+int spmm_bcsr(const void* tiles, int tile_kind, const void* col_blk, const void* row_ptr,
+              const void* x, int x_bf16, void* y, int out_bf16, int n_row_blocks, int block,
+              int d, void* stream) {
+    const dim3 grid(n_row_blocks * (block / BM), (d + BN - 1) / BN);
+    const bool known = dispatch<false>(tile_kind, x_bf16, out_bf16, [&](auto k, auto xb, auto ob) {
+        spmm_bcsr_kernel<decltype(k)::value, decltype(xb)::value, decltype(ob)::value>
+            <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+                tiles, (const int32_t*)col_blk, (const int32_t*)row_ptr, x, y, block, d);
+    });
+    return known ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
-// out[num_tiles, block, block] = per-tile (dy @ x^T) * (tiles != 0).
-int sddmm_bcsr_f32(const void* tiles, const void* row_of, const void* col_blk,
-                   const void* dy, const void* x, void* out, int num_tiles, int block,
-                   int d, void* stream) {
-    dim3 grid(num_tiles * (block / BM) * (block / BN));
-    sddmm_bcsr_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)tiles, (const int32_t*)row_of, (const int32_t*)col_blk,
-        (const float*)dy, (const float*)x, (float*)out, block, d);
-    return (int)cudaGetLastError();
+// out[num_tiles, block, block] = per-tile (dy @ x^T) * (tiles != 0), all f32 but
+// the tiles.
+int sddmm_bcsr(const void* tiles, int tile_kind, const void* row_of, const void* col_blk,
+               const void* dy, const void* x, void* out, int num_tiles, int block, int d,
+               void* stream) {
+    const dim3 grid(num_tiles * (block / BM) * (block / BN));
+    const bool known = dispatch<false>(tile_kind, false, false, [&](auto k, auto, auto) {
+        sddmm_bcsr_kernel<decltype(k)::value><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+            tiles, (const int32_t*)row_of, (const int32_t*)col_blk, (const float*)dy,
+            (const float*)x, (float*)out, block, d);
+    });
+    return known ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 // y[n_row_blocks * block, d] = A @ x over a layout padded to k_pack tiles per
-// row block.  Returns cudaGetLastError() after the launch.
-int spmm_bcsr_packed_f32(const void* tiles, const void* col_blk, const void* row_ptr,
-                         const void* x, void* y, int n_row_blocks, int block, int d,
-                         int k_pack, void* stream) {
-    dim3 grid(n_row_blocks * (block / BM), (d + BN - 1) / BN);
-    spmm_bcsr_packed_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)tiles, (const int32_t*)col_blk, (const int32_t*)row_ptr,
-        (const float*)x, (float*)y, block, d, k_pack);
-    return (int)cudaGetLastError();
+// row block.
+int spmm_bcsr_packed(const void* tiles, int tile_kind, const void* col_blk,
+                     const void* row_ptr, const void* x, int x_bf16, void* y, int out_bf16,
+                     int n_row_blocks, int block, int d, int k_pack, void* stream) {
+    const dim3 grid(n_row_blocks * (block / BM), (d + BN - 1) / BN);
+    const bool known = dispatch<false>(tile_kind, x_bf16, out_bf16, [&](auto k, auto xb, auto ob) {
+        spmm_bcsr_packed_kernel<decltype(k)::value, decltype(xb)::value, decltype(ob)::value>
+            <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+                tiles, (const int32_t*)col_blk, (const int32_t*)row_ptr, x, y, block, d,
+                k_pack);
+    });
+    return known ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

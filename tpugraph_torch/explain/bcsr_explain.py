@@ -9,7 +9,8 @@ backward gives the mask gradient with the SDDMM kernel (B2) and ``dx``
 with the SpMM kernel (B1).  Loss terms and init follow the JAX module;
 the JAX ``lax.scan`` of Adam steps is a Python loop of
 ``torch.optim.Adam`` steps (same defaults and bias correction).
-The ``spmm_dtype`` option (bf16 tiles) is not ported.
+``spmm_dtype`` (e.g. ``torch.bfloat16``) is the dtype the kernels read
+the masked tiles at; the mask logits, the loss and Adam stay float32.
 """
 
 from __future__ import annotations
@@ -138,11 +139,18 @@ def bcsr_mask_loss(
     pred_label_vec: torch.Tensor,
     num_sub_nodes: int,
     node_keep: Optional[torch.Tensor] = None,
+    spmm_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One evaluation of the objective: masked tiles, the frozen model's
     forward on them, and :func:`bcsr_explain_loss` (the ``loss_fn`` of
     ``run_bcsr_mask_optimization``, ``:204``).  The transposed masked
-    tiles are computed once for all layers and carry no gradient."""
+    tiles are computed once for all layers and carry no gradient.
+
+    ``spmm_dtype`` casts the tiles the kernels read (``:215``): B1 and B2
+    read ``m.tiles`` at it through ``BCSRAdj.spmm_dtype``, and the
+    transposed tiles are the transpose of the cast tiles, which the
+    float32 ``keep`` of the transpose plan widens back to float32, as in
+    ``tpugraph``.  The loss terms read the float32 tiles."""
     w_tiles, gate, keep = masked_tiles(base, sym_partner, state, cfg,
                                        node_keep)
     xx = x
@@ -151,12 +159,15 @@ def bcsr_mask_loss(
                      else state.feat_logits)
         xx = x * feat_gate
     masked = dataclasses.replace(base, tiles=w_tiles)
+    w_run = w_tiles.detach()
+    if spmm_dtype is not None:
+        w_run = w_run.to(spmm_dtype)
     masked_t = BCSR(
-        tiles=transpose_tiles(w_tiles.detach(), tp), col_blk=tp.col_blk,
+        tiles=transpose_tiles(w_run, tp), col_blk=tp.col_blk,
         row_ptr=tp.row_ptr, row_of=tp.row_of, num_nodes=tp.num_nodes,
         block=tp.block,
     )
-    ypred, _ = model(xx, BCSRAdj(masked, masked_t, tp))
+    ypred, _ = model(xx, BCSRAdj(masked, masked_t, tp, spmm_dtype=spmm_dtype))
     probs = torch.softmax(ypred[node_idx], dim=-1)
     total, terms = bcsr_explain_loss(
         probs, w_tiles, gate, base, state, cfg, gt_label, pred_label_vec,
@@ -179,8 +190,10 @@ def run_bcsr_mask_optimization(
     generator: Optional[torch.Generator] = None,
     node_keep: Optional[torch.Tensor] = None,
     init_state: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    spmm_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[BCSRMaskState, torch.Tensor, Dict[str, np.ndarray]]:
-    """``cfg.num_epochs`` Adam steps on the tile-space mask (``:169``).
+    """``cfg.num_epochs`` Adam steps on the tile-space mask (``:169``);
+    ``spmm_dtype`` as in :func:`bcsr_mask_loss`.
 
     The initial state is ``init_state`` (numpy ``(tile_logits,
     feat_logits)``) when given, else :func:`init_tile_masks` with
@@ -203,7 +216,7 @@ def run_bcsr_mask_optimization(
         opt.zero_grad(set_to_none=True)
         total, terms = bcsr_mask_loss(
             model, base, tp, sym_partner, x, state, cfg, node_idx, gt_label,
-            pred_label_vec, num_sub_nodes, node_keep)
+            pred_label_vec, num_sub_nodes, node_keep, spmm_dtype)
         total.backward()
         opt.step()
         for k, v in terms.items():

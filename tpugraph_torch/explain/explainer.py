@@ -80,6 +80,9 @@ class Explainer:
         self.seed = seed
         self._graphs: Dict[int, Graph] = {}
         self._bcsr_pack_cache: Dict = {}
+        # the kernels' tile dtype (run_bcsr_mask_optimization's spmm_dtype);
+        # private, as tpugraph's Explainer exposes no such option
+        self._spmm_dtype: Optional[torch.dtype] = None
 
     def _graph(self, graph_idx: int) -> Graph:
         if graph_idx not in self._graphs:
@@ -178,6 +181,7 @@ class Explainer:
                 pred_label_vec=pred_vec, num_sub_nodes=num_sub,
                 cfg=self.cfg, generator=gen,
                 node_keep=torch.from_numpy(keep).to(self.device),
+                spmm_dtype=self._spmm_dtype,
             )
             w_edges = tiles_to_edge_weights(m_host, w_tiles.cpu().numpy(), s, r)
             neighbors = np.nonzero(keep_np)[0]

@@ -40,12 +40,16 @@ class BCSRAdj:
     BCSR of its transpose ``m_t`` on the same device; ``tp`` (a transpose
     plan) marks the differentiable-weights path, where gradients flow
     into ``m.tiles``.  ``k_pack > 1`` routes the static-weight product
-    through the packed kernel; ``m``/``m_t`` must be padded to it."""
+    through the packed kernel; ``m``/``m_t`` must be padded to it.
+    ``spmm_dtype`` is the dtype the differentiable path's kernels read
+    ``m.tiles`` at (the explainer's ``spmm_dtype``; ``tpugraph`` casts the
+    tiles themselves, which would round their gradient here)."""
 
     m: BCSR
     m_t: Optional[BCSR] = None
     tp: Optional[BCSRTranspose] = None
     k_pack: int = 0
+    spmm_dtype: Optional[torch.dtype] = None
 
 
 @dataclasses.dataclass
@@ -118,7 +122,7 @@ class GraphConv(nn.Module):
                 "BCSRAdj needs m_t (the transposed tiles); the per-layer "
                 "transpose path (bcsr_matvec_dw) is not ported yet")
         elif adj.tp is not None:
-            y = bcsr_matvec_dw_pair(adj.m, adj.m_t, x)
+            y = bcsr_matvec_dw_pair(adj.m, adj.m_t, x, adj.spmm_dtype)
         else:
             y = bcsr_matvec(adj.m, adj.m_t, x, k_pack=adj.k_pack)
         y = torch.matmul(y, self.weight)

@@ -20,6 +20,7 @@ from tpugraph_torch.ops.bcsr_kernels import (  # noqa: F401
     spmm_bcsr,
     spmm_bcsr_packed,
 )
+from tpugraph_torch.ops.diffusion import DiffusionOperator, diffuse  # noqa: F401
 from tpugraph_torch.ops.packets import (  # noqa: F401
     EdgePackets,
     pack_edges,
@@ -27,8 +28,12 @@ from tpugraph_torch.ops.packets import (  # noqa: F401
 )
 from tpugraph_torch.ops.packets_kernels import packets_matvec, spmm_packets  # noqa: F401
 from tpugraph_torch.ops.resident_kernels import (  # noqa: F401
+    BCSRPair,
     BCSRStacked,
+    pack_pair,
     pack_stacked_int4,
+    spmm_pair_resident,
+    spmm_power_resident,
     spmm_stacked_resident,
     stack_bcsr,
     stacked_matvec,

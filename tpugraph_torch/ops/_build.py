@@ -4,7 +4,8 @@
 Every ``*.cu`` source under ``tpugraph_torch/csrc/`` is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/tpugraph_torch/`` at first use: one
 ``nvcc`` process per source, all started together.  Each library name
-carries a hash of its source, so an edited source is rebuilt.  The
+carries a hash of its source and of the shared ``*.cuh`` headers, so an
+edited source or header is rebuilt.  The
 libraries have a plain C interface and are loaded with ``ctypes``.
 """
 
@@ -45,10 +46,11 @@ def build_kernels() -> float:
     if _libs:
         return 0.0
     t0 = time.perf_counter()
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     targets = {}
     for src in sorted(_CSRC.glob("*.cu")):
-        digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode()
-                                ).hexdigest()[:12]
+        digest = hashlib.sha256(src.read_bytes() + headers
+                                + " ".join(_FLAGS).encode()).hexdigest()[:12]
         targets[src] = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
     jobs = []
     for src, so in targets.items():

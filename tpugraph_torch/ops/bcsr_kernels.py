@@ -17,9 +17,13 @@ walks the same ``row_ptr``/``col_blk``/``row_of`` structure with
 ``torch.bmm`` over tiles and ``index_add_`` over row blocks.  ``LAUNCHES``
 counts kernel launches (never plain-version calls).
 
-Only float32 tiles, x and output are ported; the bf16/int8 tile and
-``out_dtype`` variants of B1 and B3 are not.  ``D`` may be any width: the
-TPU's lane padding of D to 128 is not needed here.
+Tiles may be float32, bfloat16 or int8, ``x`` float32 or bfloat16 and
+the output float32 or bfloat16 (``out_dtype``), with JAX's conversion
+rule (``pallas_spmm.py:55-61``): int8 tiles widen exactly and compute as
+bf16, ``x`` is cast to the tile compute type (rounded to bf16 for bf16 or
+int8 tiles, widened for f32 tiles), sums are f32 and a bf16 output is
+rounded once.  ``D`` may be any width: the TPU's lane padding of D to 128
+is not needed here.
 """
 
 from __future__ import annotations
@@ -34,10 +38,35 @@ from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
 from tpugraph_torch.ops.bcsr import BCSR
 
 _TILE_MULTIPLE = 64  # the kernels' CTA slice of a tile (BM = BN = 64)
+TILE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_FLOATS = (torch.float32, torch.bfloat16)
 
 LAUNCHES: Dict[str, int] = {"spmm_bcsr": 0, "sddmm_bcsr": 0,
                             "spmm_bcsr_packed": 0}
 _bound = False
+
+
+def x_operand(x: torch.Tensor, tile_dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as it enters a product with tiles of ``tile_dtype``, as f32:
+    rounded to bf16 unless the tiles are f32 (the plain versions' half of
+    the conversion rule)."""
+    if tile_dtype == torch.float32:
+        return x.float()
+    return x.to(torch.bfloat16).float()
+
+
+def check_float(name: str, t: torch.Tensor, ndim: int, device) -> None:
+    """``t`` is a float32 or bfloat16 tensor of this rank on ``device``."""
+    if t.dtype not in _FLOATS:
+        raise ValueError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    check_tensor(name, t, t.dtype, ndim, device)
+
+
+def out_dtype_of(out_dtype: Optional[torch.dtype]) -> torch.dtype:
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    return out_dtype
 
 
 def _lib():
@@ -45,19 +74,22 @@ def _lib():
     lib = library("bcsr_kernels")
     if not _bound:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.spmm_bcsr_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.spmm_bcsr_f32.restype = ci
-        lib.sddmm_bcsr_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.sddmm_bcsr_f32.restype = ci
-        lib.spmm_bcsr_packed_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                             ci, vp]
-        lib.spmm_bcsr_packed_f32.restype = ci
+        lib.spmm_bcsr.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci, ci, vp]
+        lib.spmm_bcsr.restype = ci
+        lib.sddmm_bcsr.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.sddmm_bcsr.restype = ci
+        lib.spmm_bcsr_packed.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci,
+                                         ci, ci, vp]
+        lib.spmm_bcsr_packed.restype = ci
         _bound = True
     return lib
 
 
 def _check_layout(m: BCSR, device) -> None:
-    check_tensor("tiles", m.tiles, torch.float32, 3, device)
+    if m.tiles.dtype not in TILE_KIND:
+        raise ValueError(f"tiles must be one of {tuple(TILE_KIND)}, got "
+                         f"{m.tiles.dtype}")
+    check_tensor("tiles", m.tiles, m.tiles.dtype, 3, device)
     check_tensor("col_blk", m.col_blk, torch.int32, 1, device)
     check_tensor("row_ptr", m.row_ptr, torch.int32, 1, device)
     check_tensor("row_of", m.row_of, torch.int32, 1, device)
@@ -69,45 +101,56 @@ def _check_layout(m: BCSR, device) -> None:
         raise ValueError("col_blk / row_of must have one entry per tile")
 
 
+def _check_spmm(m: BCSR, x: torch.Tensor, out_dtype) -> torch.dtype:
+    _check_layout(m, x.device)
+    check_float("x", x, 2, x.device)
+    n, d = x.shape
+    if n != m.num_nodes or d == 0:
+        raise ValueError(f"x must be [{m.num_nodes}, D>0], got {tuple(x.shape)}")
+    return out_dtype_of(out_dtype)
+
+
 # ---------------------------------------------------------------- B1 SpMM
 
 
-def spmm_bcsr_plain(m: BCSR, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch ``A @ x``: per-tile ``bmm`` with the x block of
-    ``col_blk[t]``, summed into row blocks taken from ``row_ptr``."""
+def spmm_bcsr_plain(m: BCSR, x: torch.Tensor,
+                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Plain PyTorch ``A @ x``: per-tile ``bmm`` of the widened tiles with
+    the x block of ``col_blk[t]`` (cast as the kernel casts it), summed
+    into row blocks taken from ``row_ptr``, one final cast."""
     b, d = m.block, x.shape[1]
     n_rb = m.num_row_blocks
     counts = (m.row_ptr[1:] - m.row_ptr[:-1]).long()
     rows = torch.repeat_interleave(
         torch.arange(n_rb, device=x.device), counts)
-    xb = x.reshape(-1, b, d)[m.col_blk.long()]
-    prod = torch.bmm(m.tiles, xb)[: rows.numel()]
-    y = torch.zeros((n_rb, b, d), dtype=x.dtype, device=x.device)
+    xb = x_operand(x, m.tiles.dtype).reshape(-1, b, d)[m.col_blk.long()]
+    prod = torch.bmm(m.tiles.float(), xb)[: rows.numel()]
+    y = torch.zeros((n_rb, b, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, rows, prod)
-    return y.reshape(n_rb * b, d)
+    return y.reshape(n_rb * b, d).to(out_dtype or torch.float32)
 
 
-def spmm_bcsr(m: BCSR, x: torch.Tensor) -> torch.Tensor:
-    """``y[num_row_nodes, D] = A @ x`` with ``x [num_nodes, D]`` float32
-    (``tpugraph/ops/pallas_spmm.py:98``, float32 output)."""
-    _check_layout(m, x.device)
-    check_tensor("x", x, torch.float32, 2, x.device)
-    n, d = x.shape
-    if n != m.num_nodes or d == 0:
-        raise ValueError(f"x must be [{m.num_nodes}, D>0], got {tuple(x.shape)}")
+def spmm_bcsr(m: BCSR, x: torch.Tensor,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``y[num_row_nodes, D] = A @ x`` with ``x [num_nodes, D]`` float32 or
+    bfloat16, ``y`` at ``out_dtype`` (default float32;
+    ``tpugraph/ops/pallas_spmm.py:98``)."""
+    out_dtype = _check_spmm(m, x, out_dtype)
     if x.device.type == "cpu":
-        return spmm_bcsr_plain(m, x)
+        return spmm_bcsr_plain(m, x, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no spmm_bcsr kernel for device {x.device}")
     lib = _lib()
-    y = torch.empty((m.num_row_nodes, d), dtype=torch.float32, device=x.device)
+    d = x.shape[1]
+    y = torch.empty((m.num_row_nodes, d), dtype=out_dtype, device=x.device)
     if m.num_row_blocks == 0:
         return y
     with torch.cuda.device(x.device):
-        err = lib.spmm_bcsr_f32(
-            m.tiles.data_ptr(), m.col_blk.data_ptr(), m.row_ptr.data_ptr(),
-            x.data_ptr(), y.data_ptr(), m.num_row_blocks, m.block, d,
-            stream(x.device))
+        err = lib.spmm_bcsr(
+            m.tiles.data_ptr(), TILE_KIND[m.tiles.dtype], m.col_blk.data_ptr(),
+            m.row_ptr.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+            y.data_ptr(), int(out_dtype == torch.bfloat16), m.num_row_blocks,
+            m.block, d, stream(x.device))
     raise_on(err, "spmm_bcsr")
     LAUNCHES["spmm_bcsr"] += 1
     return y
@@ -116,45 +159,46 @@ def spmm_bcsr(m: BCSR, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------ B3 packed SpMM
 
 
-def spmm_bcsr_packed_plain(m: BCSR, x: torch.Tensor, k_pack: int) -> torch.Tensor:
+def spmm_bcsr_packed_plain(m: BCSR, x: torch.Tensor, k_pack: int,
+                           out_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
     """Plain PyTorch ``A @ x`` over the ``k_pack``-padded layout: each row
     block's tiles, ``k_pack`` at a time, ``bmm`` with their x blocks and
     summed into the row block; dead tiles add zeros."""
     b, d = m.block, x.shape[1]
     n_rb = m.num_row_blocks
-    groups = m.tiles.reshape(-1, k_pack, b, b)
-    xb = x.reshape(-1, b, d)[m.col_blk.long()].reshape(-1, k_pack, b, d)
-    prod = torch.matmul(groups, xb).sum(dim=1)  # [T / k_pack, B, D]
+    groups = m.tiles.float().reshape(-1, k_pack, b, b)
+    xb = x_operand(x, m.tiles.dtype).reshape(-1, b, d)[m.col_blk.long()]
+    prod = torch.matmul(groups, xb.reshape(-1, k_pack, b, d)).sum(dim=1)
     rows = m.row_of.long()[::k_pack]
-    y = torch.zeros((n_rb, b, d), dtype=x.dtype, device=x.device)
+    y = torch.zeros((n_rb, b, d), dtype=torch.float32, device=x.device)
     y.index_add_(0, rows, prod)
-    return y.reshape(n_rb * b, d)
+    return y.reshape(n_rb * b, d).to(out_dtype or torch.float32)
 
 
-def spmm_bcsr_packed(m: BCSR, x: torch.Tensor, k_pack: int = 4) -> torch.Tensor:
+def spmm_bcsr_packed(m: BCSR, x: torch.Tensor, k_pack: int = 4,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``y[num_row_nodes, D] = A @ x`` with every row block of ``m`` holding
     a multiple of ``k_pack`` tiles (``bcsr_from_coo(pad_rows_to=k_pack)``;
-    ``tpugraph/ops/pallas_spmm.py:312``, float32 output)."""
-    _check_layout(m, x.device)
-    check_tensor("x", x, torch.float32, 2, x.device)
-    n, d = x.shape
-    if n != m.num_nodes or d == 0:
-        raise ValueError(f"x must be [{m.num_nodes}, D>0], got {tuple(x.shape)}")
+    ``tpugraph/ops/pallas_spmm.py:312``); dtypes as :func:`spmm_bcsr`."""
+    out_dtype = _check_spmm(m, x, out_dtype)
     if k_pack < 1 or m.num_tiles % k_pack:
         raise ValueError(f"pad tiles per row to a multiple of k_pack={k_pack}")
     if x.device.type == "cpu":
-        return spmm_bcsr_packed_plain(m, x, k_pack)
+        return spmm_bcsr_packed_plain(m, x, k_pack, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no spmm_bcsr_packed kernel for device {x.device}")
     lib = _lib()
-    y = torch.empty((m.num_row_nodes, d), dtype=torch.float32, device=x.device)
+    d = x.shape[1]
+    y = torch.empty((m.num_row_nodes, d), dtype=out_dtype, device=x.device)
     if m.num_row_blocks == 0:
         return y
     with torch.cuda.device(x.device):
-        err = lib.spmm_bcsr_packed_f32(
-            m.tiles.data_ptr(), m.col_blk.data_ptr(), m.row_ptr.data_ptr(),
-            x.data_ptr(), y.data_ptr(), m.num_row_blocks, m.block, d, k_pack,
-            stream(x.device))
+        err = lib.spmm_bcsr_packed(
+            m.tiles.data_ptr(), TILE_KIND[m.tiles.dtype], m.col_blk.data_ptr(),
+            m.row_ptr.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+            y.data_ptr(), int(out_dtype == torch.bfloat16), m.num_row_blocks,
+            m.block, d, k_pack, stream(x.device))
     raise_on(err, "spmm_bcsr_packed")
     LAUNCHES["spmm_bcsr_packed"] += 1
     return y
@@ -179,7 +223,8 @@ def sddmm_bcsr_plain(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor
 
 def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Per-tile gradient ``float32[T, B, B]``; ``dy`` spans the row nodes,
-    ``x`` the column nodes (``tpugraph/ops/pallas_spmm.py:175``)."""
+    ``x`` the column nodes, both float32; the tiles (of any dtype) give
+    only their support (``tpugraph/ops/pallas_spmm.py:175``)."""
     _check_layout(m, x.device)
     check_tensor("x", x, torch.float32, 2, x.device)
     check_tensor("dy", dy, torch.float32, 2, x.device)
@@ -193,14 +238,14 @@ def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"no sddmm_bcsr kernel for device {x.device}")
     lib = _lib()
-    out = torch.empty_like(m.tiles)
+    out = torch.empty(m.tiles.shape, dtype=torch.float32, device=x.device)
     if m.num_tiles == 0:
         return out
     with torch.cuda.device(x.device):
-        err = lib.sddmm_bcsr_f32(
-            m.tiles.data_ptr(), m.row_of.data_ptr(), m.col_blk.data_ptr(),
-            dy.data_ptr(), x.data_ptr(), out.data_ptr(), m.num_tiles, m.block,
-            d, stream(x.device))
+        err = lib.sddmm_bcsr(
+            m.tiles.data_ptr(), TILE_KIND[m.tiles.dtype], m.row_of.data_ptr(),
+            m.col_blk.data_ptr(), dy.data_ptr(), x.data_ptr(), out.data_ptr(),
+            m.num_tiles, m.block, d, stream(x.device))
     raise_on(err, "sddmm_bcsr")
     LAUNCHES["sddmm_bcsr"] += 1
     return out
@@ -228,25 +273,32 @@ class BCSRMatvecDWPair(torch.autograd.Function):
     """``A @ x`` differentiable in the tile values and ``x``, with the
     transposed tiles ``m_t`` supplied by the caller and treated as a
     constant: forward B1(``m``), backward ``dx = B1(m_t, g)`` and
-    ``dtiles = B2(m, g, x)`` (``tpugraph/ops/pallas_spmm.py:511``)."""
+    ``dtiles = B2(m, g, x)`` (``tpugraph/ops/pallas_spmm.py:511``).
+
+    ``spmm_dtype`` casts the tiles for B1 and B2 inside the forward, as
+    ``tpugraph``'s explainer casts ``w_run`` (``tpugraph/explain/
+    bcsr_explain.py:215``).  The float32 tiles stay the autograd input:
+    torch rounds a gradient to its input's dtype, and JAX hands the f32
+    tile cotangent through unrounded."""
 
     @staticmethod
-    def forward(ctx, tiles, x, m, m_t):
-        m = dataclasses.replace(m, tiles=tiles)
-        ctx.save_for_backward(tiles, x)
+    def forward(ctx, tiles, x, m, m_t, spmm_dtype):
+        run = tiles if spmm_dtype is None else tiles.to(spmm_dtype)
+        m = dataclasses.replace(m, tiles=run)
+        ctx.save_for_backward(run, x)
         ctx.m, ctx.m_t = m, m_t
         return spmm_bcsr(m, x)
 
     @staticmethod
     def backward(ctx, g):
-        tiles, x = ctx.saved_tensors
+        run, x = ctx.saved_tensors
         g = g.contiguous()
         dtiles = dx = None
         if ctx.needs_input_grad[0]:
-            dtiles = sddmm_bcsr(dataclasses.replace(ctx.m, tiles=tiles), g, x)
+            dtiles = sddmm_bcsr(dataclasses.replace(ctx.m, tiles=run), g, x)
         if ctx.needs_input_grad[1]:
             dx = spmm_bcsr(ctx.m_t, g)
-        return dtiles, dx, None, None
+        return dtiles, dx, None, None, None
 
 
 def bcsr_matvec(m: BCSR, m_t: BCSR, x: torch.Tensor,
@@ -256,7 +308,11 @@ def bcsr_matvec(m: BCSR, m_t: BCSR, x: torch.Tensor,
     return BCSRMatvec.apply(x, m, m_t, k_pack or 0)
 
 
-def bcsr_matvec_dw_pair(m: BCSR, m_t: BCSR, x: torch.Tensor) -> torch.Tensor:
+def bcsr_matvec_dw_pair(m: BCSR, m_t: BCSR, x: torch.Tensor,
+                        spmm_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
     """Differentiable ``A @ x`` in both ``m.tiles`` and ``x``; ``m_t`` holds
-    the tiles of A's transpose and gets no gradient."""
-    return BCSRMatvecDWPair.apply(m.tiles, x, m, m_t)
+    the tiles of A's transpose and gets no gradient.  ``spmm_dtype``
+    (e.g. ``torch.bfloat16``) is the dtype the kernels read ``m.tiles``
+    at; the gradient to ``m.tiles`` keeps their dtype."""
+    return BCSRMatvecDWPair.apply(m.tiles, x, m, m_t, spmm_dtype)

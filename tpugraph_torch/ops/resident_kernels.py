@@ -1,20 +1,30 @@
-"""Port of ``tpugraph/ops/pallas_resident.py`` for the training path: the
-column-stacked layout and its SpMM (B4), with the autograd wrapper.
+"""Port of ``tpugraph/ops/pallas_resident.py``: the column-stacked layout
+and its SpMM (B4) with the autograd wrapper, and the pair layout with the
+fused pair (B5) and power (B6) propagation kernels.
 
 * :class:`BCSRStacked`, :func:`stack_bcsr`, :func:`pack_stacked_int4` and
   :func:`tile_window_bytes_for` — host-side layout, byte-identical to
   ``tpugraph``'s (``:62``, ``:122``, ``:102``, ``:723``).
 * :func:`spmm_stacked_resident` — ``y = A @ x`` over the stacks; replaces
-  the Pallas kernel ``spmm_stacked_resident`` (``:281``).  On a CUDA
-  tensor it launches the hand-written kernel of
-  ``tpugraph_torch/csrc/resident_kernels.cu`` or raises; on a CPU tensor
-  it runs :func:`spmm_stacked_resident_plain`.
+  the Pallas kernel ``spmm_stacked_resident`` (``:281``).
 * :class:`StackedMatvec` — ``A @ x`` with ``dx = A^T g`` through the same
   kernel on the transposed stacks (``:747-794``).
+* :class:`BCSRPair` and :func:`pack_pair` — A's and A_t's stack=1 tiles
+  back to back (``:355``, ``:395``).
+* :func:`spmm_pair_resident` — ``A_t @ bf16(A @ x)``; replaces
+  ``spmm_pair_resident`` (``:476``).
+* :func:`spmm_power_resident` — ``(hop_scale * A_t A)^hops @ x`` with bf16
+  at every phase and hop boundary; replaces ``spmm_power_resident``
+  (``:622``).
 
-The TPU kernel keeps x and the output resident in VMEM, which the H100
+On a CUDA tensor each kernel wrapper launches the hand-written kernels of
+``tpugraph_torch/csrc/resident_kernels.cu`` or raises; on a CPU tensor it
+runs its ``_plain`` twin, which walks the same tiles/``col_blk``/``rows``
+structure with ``bmm`` and ``index_add_`` and repeats every rounding.
+
+The TPU kernels keep x and the output resident in VMEM, which the H100
 has no counterpart for; the VMEM budget (``resident_fits``) is therefore
-not ported.  The CUDA kernel instead owns output row blocks, so each
+not ported.  The CUDA kernels instead own output row blocks, so each
 layout carries a row-block-major inverse index (``row_ptr``/``slots``)
 derived once from ``rows``.  Tiles are a torch tensor (bfloat16 needs
 one); the index arrays are numpy on the host and tensors on a device.
@@ -31,12 +41,15 @@ import torch
 
 from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
 from tpugraph_torch.ops.bcsr import BCSR, _host, _to
+from tpugraph_torch.ops.bcsr_kernels import (TILE_KIND, check_float,
+                                             out_dtype_of, x_operand)
 
 Array = Union[np.ndarray, torch.Tensor]
 _TILE_MULTIPLE = 64  # the kernel's CTA slice of a tile (BM = BN = 64)
-_TILE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-LAUNCHES: Dict[str, int] = {"spmm_stacked_resident": 0}
+LAUNCHES: Dict[str, int] = {"spmm_stacked_resident": 0,
+                            "spmm_pair_resident": 0,
+                            "spmm_power_resident": 0}
 _bound = False
 
 
@@ -222,9 +235,7 @@ def spmm_stacked_resident_plain(m: BCSRStacked, x: torch.Tensor,
     block (x rounded to bf16 unless the tiles are f32), slices summed
     into their row blocks with ``index_add_``, one final cast."""
     b, d = m.block, x.shape[1]
-    if m.tiles.dtype != torch.float32:
-        x = x.to(torch.bfloat16).float()
-    xb = x.reshape(-1, b, d)[m.col_blk.long()]
+    xb = x_operand(x, m.tiles.dtype).reshape(-1, b, d)[m.col_blk.long()]
     prod = torch.bmm(widen_tiles(m), xb).reshape(-1, b, d)
     y = torch.zeros((m.num_row_blocks, b, d), dtype=torch.float32,
                     device=x.device)
@@ -237,15 +248,23 @@ def _lib():
     lib = library("resident_kernels")
     if not _bound:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.spmm_stacked_resident.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci,
-                                              ci, ci, ci, ci, vp]
-        lib.spmm_stacked_resident.restype = ci
+        cf = ctypes.c_float
+        lib.spmm_stacked_resident.argtypes = [vp, ci, vp, vp, vp, vp, ci, vp,
+                                              ci, ci, ci, ci, ci, vp]
+        lib.spmm_pair_resident.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci,
+                                           vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.spmm_power_resident.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci,
+                                            vp, vp, vp, ci, ci, cf, ci, ci, ci,
+                                            ci, vp]
+        for fn in (lib.spmm_stacked_resident, lib.spmm_pair_resident,
+                   lib.spmm_power_resident):
+            fn.restype = ci
         _bound = True
     return lib
 
 
 def _check_layout(m: BCSRStacked, device) -> None:
-    kinds = (torch.int8,) if m.packed4 else tuple(_TILE_KIND)
+    kinds = (torch.int8,) if m.packed4 else tuple(TILE_KIND)
     if m.tiles.dtype not in kinds:
         raise ValueError(f"tiles must be one of {kinds}, got {m.tiles.dtype}")
     check_tensor("tiles", m.tiles, m.tiles.dtype, 3, device)
@@ -268,16 +287,14 @@ def spmm_stacked_resident(m: BCSRStacked, x: torch.Tensor,
                           out_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
     """``y[num_row_nodes, D] = A @ x`` over the stacks, ``x [num_nodes, D]``
-    float32, ``y`` at ``out_dtype`` (float32 or bfloat16;
+    float32 or bfloat16, ``y`` at ``out_dtype`` (float32 or bfloat16;
     ``tpugraph/ops/pallas_resident.py:281``)."""
     _check_layout(m, x.device)
-    check_tensor("x", x, torch.float32, 2, x.device)
+    check_float("x", x, 2, x.device)
     n, d = x.shape
     if n != m.num_nodes or d == 0:
         raise ValueError(f"x must be [{m.num_nodes}, D>0], got {tuple(x.shape)}")
-    out_dtype = out_dtype or torch.float32
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    out_dtype = out_dtype_of(out_dtype)
     if x.device.type == "cpu":
         return spmm_stacked_resident_plain(m, x, out_dtype)
     if x.device.type != "cuda":
@@ -286,13 +303,14 @@ def spmm_stacked_resident(m: BCSRStacked, x: torch.Tensor,
     y = torch.empty((m.num_row_nodes, d), dtype=out_dtype, device=x.device)
     if m.num_row_blocks == 0:
         return y
-    kind = 3 if m.packed4 else _TILE_KIND[m.tiles.dtype]
+    kind = 3 if m.packed4 else TILE_KIND[m.tiles.dtype]
     with torch.cuda.device(x.device):
         err = lib.spmm_stacked_resident(
             m.tiles.data_ptr(), kind, m.col_blk.data_ptr(),
             m.row_ptr.data_ptr(), m.slots.data_ptr(), x.data_ptr(),
-            y.data_ptr(), int(out_dtype == torch.bfloat16), m.num_row_blocks,
-            m.block, m.stack, d, stream(x.device))
+            int(x.dtype == torch.bfloat16), y.data_ptr(),
+            int(out_dtype == torch.bfloat16), m.num_row_blocks, m.block,
+            m.stack, d, stream(x.device))
     raise_on(err, "spmm_stacked_resident")
     LAUNCHES["spmm_stacked_resident"] += 1
     return y
@@ -319,3 +337,208 @@ def stacked_matvec(st: BCSRStacked, st_t: BCSRStacked,
     """Differentiable ``A @ x`` (gradient to ``x``); ``st_t`` holds the
     stacks of ``A^T``."""
     return StackedMatvec.apply(x, st, st_t)
+
+
+# ------------------------------------------------------- B5 / B6 pair layout
+
+
+def _cat(a: Array, b: Array) -> Array:
+    if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+        return np.concatenate([a, b])
+    return torch.cat([_as_tensor(a), _as_tensor(b)])
+
+
+@dataclasses.dataclass
+class BCSRPair:
+    """Pair layout (``tpugraph/ops/pallas_resident.py:355``): A's ``t1``
+    stack=1 tiles then A_t's, in one array, for ``A_t @ (A @ x)``.  A maps
+    ``num_nodes`` columns to ``num_mid_nodes`` rows, A_t ``num_mid_nodes``
+    to ``num_out_nodes``.  ``row_ptr1``/``slots1`` are the inverse index of
+    A's half over its row blocks, ``row_ptr2``/``slots2`` that of A_t's half
+    (slots offset by ``t1``): the lists the CUDA phases walk.  Build with
+    :func:`pack_pair`."""
+
+    tiles: Array         # [t1 + t2, B, B] f32/bf16/int8
+    col_blk: Array       # int32[t1 + t2]
+    rows: Array          # int32[t1 + t2]
+    t1: int
+    num_nodes: int
+    num_mid_nodes: int
+    num_out_nodes: int
+    block: int
+    row_ptr1: Array      # int32[num_mid_nodes / B + 1]
+    slots1: Array        # int32[t1], in [0, t1)
+    row_ptr2: Array      # int32[num_out_nodes / B + 1]
+    slots2: Array        # int32[t2], in [t1, t1 + t2)
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tiles.shape[0]
+
+    def to(self, device) -> "BCSRPair":
+        return dataclasses.replace(self, **{
+            f: _to(getattr(self, f), device)
+            for f in ("tiles", "col_blk", "rows", "row_ptr1", "slots1",
+                      "row_ptr2", "slots2")})
+
+
+def pack_pair(st: BCSRStacked, st_t: BCSRStacked) -> BCSRPair:
+    """Concatenate two stack=1 layouts, A then A_t, into a :class:`BCSRPair`
+    (``tpugraph/ops/pallas_resident.py:395``), on the device they are on;
+    the inverse indexes are the two layouts' own."""
+    if st.stack != 1 or st_t.stack != 1:
+        raise ValueError("pack_pair needs two stack=1 layouts")
+    if st.packed4 or st_t.packed4:
+        raise ValueError("pack_pair does not take int4-packed tiles")
+    if st.block != st_t.block:
+        raise ValueError(f"blocks differ: {st.block} and {st_t.block}")
+    if st_t.num_nodes != st.num_row_nodes:
+        raise ValueError("A_t columns must be A rows")
+    return BCSRPair(
+        tiles=_cat(st.tiles, st_t.tiles), col_blk=_cat(st.col_blk, st_t.col_blk),
+        rows=_cat(st.rows, st_t.rows), t1=st.num_tiles, num_nodes=st.num_nodes,
+        num_mid_nodes=st.num_row_nodes, num_out_nodes=st_t.num_row_nodes,
+        block=st.block, row_ptr1=st.row_ptr, slots1=st.slots,
+        row_ptr2=st_t.row_ptr, slots2=st_t.slots + st.num_tiles)
+
+
+def _phase_plain(pair: BCSRPair, src: torch.Tensor, lo: int, hi: int,
+                 n_rows: int) -> torch.Tensor:
+    """f32 ``A_half @ src`` over tiles ``[lo, hi)`` of the pair into
+    ``n_rows`` rows: ``bmm`` of the widened tiles with their src blocks
+    (cast to the tile compute type), summed with ``index_add_``."""
+    b, d = pair.block, src.shape[1]
+    tiles = pair.tiles[lo:hi]
+    xb = x_operand(src, tiles.dtype).reshape(-1, b, d)[pair.col_blk[lo:hi].long()]
+    prod = torch.bmm(tiles.float(), xb)
+    y = torch.zeros((n_rows // b, b, d), dtype=torch.float32, device=src.device)
+    y.index_add_(0, pair.rows[lo:hi].long(), prod)
+    return y.reshape(n_rows, d)
+
+
+def spmm_pair_resident_plain(pair: BCSRPair, x: torch.Tensor,
+                             out_dtype: torch.dtype = torch.bfloat16
+                             ) -> torch.Tensor:
+    """Plain PyTorch B5: phase 1 over A's tiles, ``y`` rounded to bf16,
+    phase 2 over A_t's tiles, one cast to ``out_dtype``."""
+    y = _phase_plain(pair, x, 0, pair.t1, pair.num_mid_nodes)
+    return _phase_plain(pair, y.to(torch.bfloat16), pair.t1, pair.num_tiles,
+                        pair.num_out_nodes).to(out_dtype)
+
+
+def spmm_power_resident_plain(pair: BCSRPair, x: torch.Tensor, hops: int,
+                              out_dtype: torch.dtype = torch.bfloat16,
+                              hop_scale: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch B6: ``hops`` pairs, ``y`` rounded to bf16 at each phase
+    boundary, each hop's f32 sum times ``hop_scale`` (in f32) rounded to
+    bf16, the last one cast to ``out_dtype`` instead."""
+    scale = float(np.float32(hop_scale))
+    h = x
+    for i in range(hops):
+        y = _phase_plain(pair, h, 0, pair.t1, pair.num_mid_nodes)
+        acc = _phase_plain(pair, y.to(torch.bfloat16), pair.t1, pair.num_tiles,
+                           pair.num_out_nodes) * scale
+        h = acc.to(out_dtype if i == hops - 1 else torch.bfloat16)
+    return h
+
+
+def _check_pair(pair: BCSRPair, x: torch.Tensor, k_pack: int,
+                out_dtype) -> torch.dtype:
+    device = x.device
+    if pair.tiles.dtype not in TILE_KIND:
+        raise ValueError(f"tiles must be one of {tuple(TILE_KIND)}, got "
+                         f"{pair.tiles.dtype}")
+    check_tensor("tiles", pair.tiles, pair.tiles.dtype, 3, device)
+    for name in ("col_blk", "rows", "row_ptr1", "slots1", "row_ptr2", "slots2"):
+        check_tensor(name, getattr(pair, name), torch.int32, 1, device)
+    b, t, t1 = pair.block, pair.num_tiles, pair.t1
+    sizes = (pair.num_nodes, pair.num_mid_nodes, pair.num_out_nodes)
+    if (tuple(pair.tiles.shape[1:]) != (b, b) or min(sizes) <= 0
+            or any(v % b for v in sizes)):
+        raise ValueError(f"tiles must be [T, B, B] over node counts that are "
+                         f"positive multiples of B, got {tuple(pair.tiles.shape)} "
+                         f"and {sizes}")
+    if (pair.col_blk.shape[0] != t or pair.rows.shape[0] != t
+            or not 0 <= t1 <= t or pair.slots1.shape[0] != t1
+            or pair.slots2.shape[0] != t - t1
+            or pair.row_ptr1.shape[0] != pair.num_mid_nodes // b + 1
+            or pair.row_ptr2.shape[0] != pair.num_out_nodes // b + 1):
+        raise ValueError("col_blk / rows / row_ptr / slots do not match the tiles")
+    if k_pack < 1 or t1 % k_pack or (t - t1) % k_pack:
+        raise ValueError(f"both halves ({t1}, {t - t1} tiles) must be multiples "
+                         f"of k_pack={k_pack}")
+    check_float("x", x, 2, device)
+    if x.shape[0] != pair.num_nodes or x.shape[1] == 0:
+        raise ValueError(f"x must be [{pair.num_nodes}, D>0], got {tuple(x.shape)}")
+    out_dtype = out_dtype_of(out_dtype)
+    if device.type == "cuda" and b % _TILE_MULTIPLE:
+        raise ValueError(f"the kernels need B % {_TILE_MULTIPLE} == 0, got {b}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no pair kernels for device {device}")
+    return out_dtype
+
+
+def _pair_args(pair: BCSRPair, x: torch.Tensor) -> tuple:
+    return (pair.tiles.data_ptr(), TILE_KIND[pair.tiles.dtype],
+            pair.col_blk.data_ptr(), pair.row_ptr1.data_ptr(),
+            pair.slots1.data_ptr(), pair.row_ptr2.data_ptr(),
+            pair.slots2.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16))
+
+
+def spmm_pair_resident(pair: BCSRPair, x: torch.Tensor, k_pack: int = 128,
+                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``out[num_out_nodes, D] = A_t @ (A @ x)`` in one call, ``y = A @ x``
+    rounded to bf16 once (``tpugraph/ops/pallas_resident.py:476``); ``x``
+    float32 or bfloat16, ``out`` at ``out_dtype``.  ``k_pack`` is kept as
+    the layout contract (both halves are multiples of it); the CUDA
+    schedule does not use it.  Not differentiable."""
+    out_dtype = _check_pair(pair, x, k_pack, out_dtype)
+    if x.device.type == "cpu":
+        return spmm_pair_resident_plain(pair, x, out_dtype)
+    lib = _lib()
+    d, b = x.shape[1], pair.block
+    ybuf = torch.empty((pair.num_mid_nodes, d), dtype=torch.bfloat16,
+                       device=x.device)
+    out = torch.empty((pair.num_out_nodes, d), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.spmm_pair_resident(
+            *_pair_args(pair, x), ybuf.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), pair.num_mid_nodes // b,
+            pair.num_out_nodes // b, b, d, stream(x.device))
+    raise_on(err, "spmm_pair_resident")
+    LAUNCHES["spmm_pair_resident"] += 2  # one phase kernel per phase
+    return out
+
+
+def spmm_power_resident(pair: BCSRPair, x: torch.Tensor, hops: int,
+                        k_pack: int = 128,
+                        out_dtype: torch.dtype = torch.bfloat16,
+                        hop_scale: float = 1.0) -> torch.Tensor:
+    """``(hop_scale * A_t A)^hops @ x`` in one call
+    (``tpugraph/ops/pallas_resident.py:622``): bf16 at every phase and hop
+    boundary, ``hop_scale`` applied in f32 before each hop's rounding and
+    to the output.  Needs a square pair (``num_out_nodes == num_nodes``);
+    ``x`` float32 or bfloat16.  Not differentiable."""
+    out_dtype = _check_pair(pair, x, k_pack, out_dtype)
+    if int(hops) != hops or hops < 1:
+        raise ValueError(f"hops must be a positive integer, got {hops}")
+    if pair.num_out_nodes != pair.num_nodes:
+        raise ValueError("power iteration needs a square pair")
+    if x.device.type == "cpu":
+        return spmm_power_resident_plain(pair, x, hops, out_dtype, hop_scale)
+    lib = _lib()
+    d, b = x.shape[1], pair.block
+    mid = torch.empty((pair.num_mid_nodes, d), dtype=torch.bfloat16,
+                      device=x.device)
+    hop = torch.empty((pair.num_out_nodes, d), dtype=torch.bfloat16,
+                      device=x.device)
+    out = torch.empty((pair.num_out_nodes, d), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.spmm_power_resident(
+            *_pair_args(pair, x), mid.data_ptr(), hop.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), int(hops),
+            float(hop_scale), pair.num_mid_nodes // b, pair.num_out_nodes // b,
+            b, d, stream(x.device))
+    raise_on(err, "spmm_power_resident")
+    LAUNCHES["spmm_power_resident"] += 2 * int(hops)  # two phases a hop
+    return out
