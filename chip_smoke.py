@@ -271,7 +271,7 @@ def library_packets(p, x):
 
 
 def measure_case(name, shape, d, run, plain, library, nbytes, ops, peak,
-                 tol_k, carried=0, extra=None, iters=21):
+                 tol_k, carried=0, extra=None, iters=21, scale=None):
     """One kernel against its plain version on one input, entry by entry:
     ``|got - ref| <= rel * row + BF16_ULP * |ref|`` for a bf16 output (one
     flip of its own rounding, at most an ulp of the entry itself; without
@@ -280,7 +280,10 @@ def measure_case(name, shape, d, run, plain, library, nbytes, ops, peak,
     BF16_ULP`` (f32 sums of ``tol_k`` terms in another order, and one bf16
     ulp for each earlier rounding point whose flips a later phase spreads
     over the row).  A light row is held to its own scale, not the hub
-    rows'.  Then kernel, plain and library times (median of ``iters``) and
+    rows'.  ``scale`` (a function giving a tensor of the output's shape)
+    replaces ``row`` with a per-entry scale: for a dot product, the sum of
+    its terms' magnitudes, which bounds its f32 rounding where cancellation
+    leaves the value itself far below its terms.  Then kernel, plain and library times (median of ``iters``) and
     the bound, the larger of bytes over HBM rate and ``ops`` over
     ``peak``."""
     import torch
@@ -292,7 +295,8 @@ def measure_case(name, shape, d, run, plain, library, nbytes, ops, peak,
     ref = ref.float().reshape(-1, got.shape[-1])
     diff = (got.float().reshape(ref.shape) - ref).abs()
     del got
-    row = ref.abs().amax(1, keepdim=True)
+    row = (ref.abs().amax(1, keepdim=True) if scale is None
+           else scale().float().reshape(ref.shape))
     rel = 1e-5 * math.sqrt(tol_k) + carried * BF16_ULP
     tol = rel * row + TINY
     if out_bf16:
@@ -303,8 +307,9 @@ def measure_case(name, shape, d, run, plain, library, nbytes, ops, peak,
     used = float((diff / tol).max())
     bad = int((diff > tol).sum())
     del diff, row, tol
+    what = "row's largest value" if scale is None else "sum of |terms|"
     check(bad == 0, f"{name} on {shape} D={d}: {bad} entries leave their plain "
-          f"version by more than {rel:.3g} of their row's largest value"
+          f"version by more than {rel:.3g} of their {what}"
           f"{' plus an ulp of their own' if out_bf16 else ''} "
           f"(at most {used:.3g} of that)")
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -391,8 +396,102 @@ def measure_kernels(shape_name, m, d, gen):
             + 4 * (2 * t + m.num_row_blocks + 1),
             2.0 * nnz * d, F32_FLOPS_PER_S, d,
             extra={"tiles": t, "nnz": nnz,
-                   "support": str(m.tiles.dtype).split(".")[1]}),
+                   "support": str(m.tiles.dtype).split(".")[1]},
+            scale=lambda: bk.sddmm_bcsr_plain(m, dy.abs(), x.abs())),
     }
+
+
+def random_tiles(n_tiles, density, tile_dtype, gen, n_rb=512, per_rb=4):
+    """``n_tiles`` 128^2 tiles on the card, ``per_rb`` a row block over
+    ``n_rb`` row blocks (65,536 nodes), at random column blocks, each
+    entry nonzero with probability ``density`` (a number or one per
+    tile); N(0,1) values, integers in [-3, 3] for int8."""
+    import torch
+
+    from tpugraph_torch.ops import bcsr
+
+    dev = torch.device("cuda")
+    dens = torch.as_tensor(density, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
+    keep = torch.rand((n_tiles, 128, 128), generator=gen, device=dev) < dens
+    if tile_dtype == torch.int8:
+        vals = torch.randint(-3, 4, (n_tiles, 128, 128), generator=gen, device=dev)
+    else:
+        vals = torch.randn((n_tiles, 128, 128), generator=gen, device=dev)
+    tiles = (vals * keep).to(tile_dtype)
+    t = torch.arange(n_tiles, device=dev, dtype=torch.int32)
+    return bcsr.BCSR(
+        tiles=tiles, col_blk=torch.randint(0, n_rb, (n_tiles,), generator=gen,
+                                           device=dev, dtype=torch.int32),
+        row_ptr=torch.arange(0, n_tiles + 1, per_rb, device=dev, dtype=torch.int32),
+        row_of=t // per_rb, num_nodes=n_rb * 128, block=128)
+
+
+def b2_branches(gen):
+    """B2 against its plain version where one launch runs both branches:
+    256 tiles whose support densities run from 0 (dead tiles) to 90%, so
+    their 64^2 sub-tiles fall on both sides of the crossover; every support
+    dtype at D = 10, 20 and 128."""
+    import torch
+
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    dens = torch.tensor([0.0, 0.002, 0.01, 0.05, 0.2, 0.5, 0.9, 0.03]).repeat(32)
+    recs = []
+    for tile_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        m = random_tiles(256, dens, tile_dtype, gen, n_rb=64)
+        nnz = int((m.tiles != 0).sum())
+        for d in (10, 20, 128):
+            x = torch.randn((m.num_nodes, d), generator=gen, device="cuda")
+            dy = torch.randn((m.num_row_nodes, d), generator=gen, device="cuda")
+            recs.append(measure_case(
+                "sddmm_bcsr", "b2-mixed", d, lambda: bk.sddmm_bcsr(m, dy, x),
+                lambda: bk.sddmm_bcsr_plain(m, dy, x), None,
+                (m.tiles.element_size() + 4) * 256 * 128 * 128
+                + 4 * (m.num_nodes + m.num_row_nodes) * d, 2.0 * nnz * d,
+                F32_FLOPS_PER_S, d, iters=5,
+                extra={"tiles": 256, "nnz": nnz,
+                       "support": str(tile_dtype).split(".")[1]},
+                scale=lambda: bk.sddmm_bcsr_plain(m, dy.abs(), x.abs())))
+            off = m.tiles == 0
+            got = bk.sddmm_bcsr(m, dy, x)
+            check(bool((got[off] == 0).all()) and not bool(torch.signbit(got[off]).any()),
+                  "sddmm_bcsr wrote other than +0.0 off the support")
+    return recs
+
+
+def b2_crossover(gen):
+    """The support density at which B2's sparse branch stops beating its
+    dense one: 2,048 f32 tiles of 128^2 (65,536 nodes) at a uniform random
+    density, each branch forced, D = 20 and 128.  Returns the nonzeros a
+    64^2 sub-tile holds where the two times cross (interpolated), per D."""
+    import torch
+
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    out = {}
+    for d in (20, 128):
+        rows = []
+        for dens in (0.01, 0.03, 0.1, 0.2, 0.3, 0.45, 0.6):
+            m = random_tiles(2048, dens, torch.float32, gen)
+            x = torch.randn((m.num_nodes, d), generator=gen, device="cuda")
+            dy = torch.randn((m.num_row_nodes, d), generator=gen, device="cuda")
+            sp = time_ms(lambda: bk._sddmm_bcsr_crossover(m, dy, x, 64 * 64), iters=11)
+            de = time_ms(lambda: bk._sddmm_bcsr_crossover(m, dy, x, -1), iters=11)
+            rows.append((dens * 4096, sp, de))
+            del m, x, dy
+        torch.cuda.empty_cache()
+        cross = None
+        for (n0, s0, d0), (n1, s1, d1) in zip(rows, rows[1:]):
+            if s0 <= d0 and s1 > d1:
+                f = (d0 - s0) / ((d0 - s0) + (s1 - d1))
+                cross = n0 + f * (n1 - n0)
+                break
+        out[d] = {"nnz_per_subtile": cross, "sweep": [
+            {"nnz_per_subtile": n, "sparse_ms": s, "dense_ms": e} for n, s, e in rows]}
+        print(f"  B2 crossover D={d}: sparse below ~{cross} nonzeros a 64^2 sub-tile; "
+              + " ".join(f"{n:.0f}:{s:.3f}/{e:.3f}" for n, s, e in rows)
+              + " (nnz: sparse/dense ms)", flush=True)
+    return out
 
 
 def measure_packed(shape, m, k_pack, x, out_dtype=None):
@@ -455,6 +554,7 @@ def measure_packets(shape, p, x, compute_dtype):
     per_row = int(torch.bincount(rows_g).max()) if e else 1
     hub = int(torch.bincount(rows_g // p.block_r).max()) / e if e else 0.0
     bf16 = compute_dtype == torch.bfloat16
+    wl = pk.work_list(p)
     return measure_case(
         "spmm_packets", shape, d,
         lambda: pk.spmm_packets(p, x, compute_dtype=compute_dtype),
@@ -465,7 +565,22 @@ def measure_packets(shape, p, x, compute_dtype):
         2.0 * e * d, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S, per_row,
         extra={"packets": p.num_packets, "edges": e,
                "compute": "bf16" if bf16 else "f32",
-               "heaviest_block_share": round(hub, 4)})
+               "heaviest_block_share": round(hub, 4),
+               "chunks": int(wl.items.shape[0]),
+               "split_blocks": int(wl.splits.shape[0]),
+               "split_chunks": wl.num_parts})
+
+
+def packets_ablation(p, x, full_ms):
+    """D2's counterpart: B7 (bf16 compute, f32 output) timed in each of its
+    diagnostic modes on one packet layout, beside B7's own time."""
+    from tpugraph_torch.ops import packets_kernels as pk
+
+    times = {m: time_ms(lambda m=m: pk._spmm_packets_ablation(p, x, m))
+             for m in pk.ABLATIONS}
+    rec = {"spmm_packets_ms": full_ms, **{f"{m}_ms": t for m, t in times.items()}}
+    print(f"  packets_ablation {json.dumps(rec)}", flush=True)
+    return rec
 
 
 def phase_lowloc(report, gen):
@@ -588,7 +703,16 @@ def phase_lowloc(report, gen):
             res_rates = {"res_edges_per_s": n_live / (pair_ms / 1e3),
                          "res_pack_s_per_tile": out["pack_s"] / adj.st.num_tiles}
         else:
+            check(launches[fmt]["spmm_packets_reduce"] > 0,
+                  "packets did not launch B7's reduce pass (no split block)")
             shapes[fmt] = measure_packets(shape, adj.p, x, torch.bfloat16)
+            wl = pk.work_list(adj.p)
+            print(f"  B7 work list: {wl.items.shape[0]} chunks of at most "
+                  f"{pk.CHUNK_SLOTS // adj.p.k} packets over {adj.p.num_row_blocks} "
+                  f"receiver blocks; {wl.splits.shape[0]} blocks split into "
+                  f"{wl.num_parts} chunks (block 0: "
+                  f"{int(adj.p.row_ptr[1] - adj.p.row_ptr[0])} packets)", flush=True)
+            ablation = packets_ablation(adj.p, x, shapes[fmt]["ms"])
             pair_ms = time_ms(lambda: (pk.spmm_packets(adj.p, x),
                                        pk.spmm_packets(adj.p_t, x)))
             pkt_rates = {"pkt_edges_per_s": n_live / (pair_ms / 1e3),
@@ -601,7 +725,8 @@ def phase_lowloc(report, gen):
           f"{json.dumps({**res_rates, **pkt_rates})}", flush=True)
     print(f"  full-size phase {time.perf_counter() - t0:.1f} s", flush=True)
     report["lowloc"] = {"launches": launches, "shapes": shapes,
-                        "variants": variants, "graph": g}
+                        "variants": variants, "graph": g,
+                        "packets_ablation": ablation}
 
 
 def dtype_cases(g):
@@ -853,6 +978,7 @@ def main() -> int:
     from tpugraph_torch.explain import Explainer, explanation_auc
     from tpugraph_torch.nn import GcnEncoderNode
     from tpugraph_torch.ops import bcsr
+    from tpugraph_torch.ops import bcsr_kernels as bk
     from tpugraph_torch.ops._build import build_kernels
     from tpugraph_torch.train import (TrainConfig, gen_prefix, load_checkpoint,
                                       save_checkpoint, train_node_classifier)
@@ -890,6 +1016,12 @@ def main() -> int:
     shapes.append(measure_kernels("scaled", m_big, 128, gen))
     del m_big
     torch.cuda.empty_cache()
+    b2_mixed = b2_branches(gen)
+    crossover = b2_crossover(gen)
+    print(f"  B2 crossover in the wrapper: "
+          f"{ {d: bk.sddmm_crossover(d) for d in crossover} } nonzeros a 64^2 "
+          f"sub-tile by D (measured here: "
+          f"{ {d: c['nnz_per_subtile'] for d, c in crossover.items()} })", flush=True)
 
     # ---- phase 2: training (first 20 epochs held against the CPU)
     print("phase train", flush=True)
@@ -1004,7 +1136,7 @@ def main() -> int:
         "sddmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                        "tpugraph/ops/pallas_spmm.py:175", shapes[1]["sddmm_bcsr"],
                        [sh["sddmm_bcsr"] for sh in shapes]
-                       + [banded["shapes"]["sddmm_bcsr"]]),
+                       + [banded["shapes"]["sddmm_bcsr"]] + b2_mixed),
         "spmm_bcsr_packed": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                              "tpugraph/ops/pallas_spmm.py:312",
                              low["shapes"]["k_pack4"],
@@ -1026,6 +1158,13 @@ def main() -> int:
                          low["shapes"]["packets"],
                          [low["shapes"]["packets"], low["variants"][4]]),
     }
+    extras = {
+        "sddmm_bcsr": {"crossover": {d: bk.sddmm_crossover(d) for d in crossover},
+                       "crossover_measured": crossover},
+        "spmm_packets": {
+            "reduce_launches": sum(c["spmm_packets_reduce"] for c in paths.values()),
+            "packets_ablation": low["packets_ablation"]},
+    }
     report = []
     for name, (src, replaces, main_shape, all_shapes) in meta.items():
         by_path = {p: c[name] for p, c in paths.items() if c[name]}
@@ -1038,6 +1177,7 @@ def main() -> int:
             **({"library_null_reason": main_shape["library_null_reason"]}
                if "library_null_reason" in main_shape else {}),
             "shapes": all_shapes,
+            **extras.get(name, {}),
         })
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))

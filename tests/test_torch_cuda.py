@@ -175,7 +175,7 @@ def test_spmm_packets_matches_plain(cuda_device, geom, compute_dtype,
     s, r, w = _coo(1000, 20000, seed=br)
     p = packets.pack_edges(s, r, w, 1000, block_r=br, block_c=bc,
                            k=k).to(cuda_device)
-    for d in (128, 20):
+    for d in (128, 20, 10):
         x = _x(p.num_nodes, d, d, cuda_device)
         before = packets_kernels.LAUNCHES["spmm_packets"]
         y = packets_kernels.spmm_packets(p, x, out_dtype=out_dtype,
@@ -188,6 +188,118 @@ def test_spmm_packets_matches_plain(cuda_device, geom, compute_dtype,
         if out_dtype == torch.bfloat16:
             tol = tol + BF16_REL * ref.abs()
         assert bool((err <= tol).all()), float(err.max())
+
+
+def _hub_packets(device):
+    """A hub-heavy graph at the training geometry (512, 256, 128): receiver
+    block 0 holds over half the 60,000 edges, in more packets than one
+    chunk of the work list, so B7 splits it; returns the packets and the
+    largest in-degree."""
+    rng = np.random.default_rng(9)
+    n, e = 4096, 60000
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = np.where(rng.random(e) < 0.6, rng.integers(0, 512, e),
+                 rng.integers(0, n, e)).astype(np.int32)
+    w = rng.standard_normal(e).astype(np.float32)
+    p = packets.pack_edges(s, r, w, n, block_r=512, block_c=256, k=128)
+    return p.to(device), int(np.bincount(r, minlength=n).max())
+
+
+def _row_tol(ref, k, out_dtype):
+    """Per output row: f32 sums of k terms in another order (1e-5 * sqrt(k)
+    of the row's largest |value|), plus one bf16 ulp of the value for a
+    bf16 output (its own rounding may flip)."""
+    tol = 1e-5 * math.sqrt(k) * ref.abs().amax(1, keepdim=True) + 1e-6
+    return tol + BF16_ULP * ref.abs() if out_dtype == torch.bfloat16 else tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", FLOATS)
+@pytest.mark.parametrize("out_dtype", FLOATS)
+def test_spmm_packets_hub_split_matches_plain(cuda_device, compute_dtype,
+                                              out_dtype):
+    """B7 on a hub graph whose receiver block 0 is split over several CTAs:
+    the main pass and the reduce pass each launch once, and the result
+    equals the plain version and the schedule-walking plain version."""
+    p, k_row = _hub_packets(cuda_device)
+    wl = packets_kernels.work_list(p)
+    assert wl.splits.shape[0] >= 1 and int(wl.splits[:, 2].max()) >= 2
+    for d in (128, 20, 10):
+        x = _x(p.num_nodes, d, d, cuda_device)
+        before = dict(packets_kernels.LAUNCHES)
+        y = packets_kernels.spmm_packets(p, x, out_dtype, compute_dtype)
+        torch.cuda.synchronize()
+        assert packets_kernels.LAUNCHES == {
+            k: v + 1 for k, v in before.items()}
+        assert y.dtype == out_dtype and y.shape == (p.num_nodes, d)
+        for ref in (packets_kernels.spmm_packets_plain(p, x, None, compute_dtype),
+                    packets_kernels.spmm_packets_schedule_plain(
+                        p, x, None, compute_dtype)):
+            err = (y.float() - ref).abs()
+            assert bool((err <= _row_tol(ref, k_row, out_dtype)).all()), (
+                d, float(err.max()))
+
+
+@pytest.mark.cuda
+def test_spmm_packets_ablations_run(cuda_device):
+    """Every diagnostic mode of B7 runs and keeps the output's shape; the
+    ``full`` mode is B7 itself; none counts a launch."""
+    p, k_row = _hub_packets(cuda_device)
+    x = _x(p.num_nodes, 128, 3, cuda_device)
+    before = dict(packets_kernels.LAUNCHES)
+    outs = {m: packets_kernels._spmm_packets_ablation(p, x, m)
+            for m in packets_kernels.ABLATIONS}
+    torch.cuda.synchronize()
+    assert packets_kernels.LAUNCHES == before
+    for m, y in outs.items():
+        assert y.shape == (p.num_nodes, 128) and y.dtype == torch.float32, m
+        assert bool(torch.isfinite(y).all()), m
+    ref = packets_kernels.spmm_packets_plain(p, x, None, torch.bfloat16)
+    err = (outs["full"] - ref).abs()
+    assert bool((err <= _row_tol(ref, k_row, torch.float32)).all())
+    with pytest.raises(ValueError, match="ablations"):
+        packets_kernels._spmm_packets_ablation(p, x[:, :10].contiguous(), "full")
+
+
+def _b2_mixed(tile_dtype, device):
+    """Six 128^2 tiles over three row blocks (384 nodes) whose 64^2
+    sub-tiles span the support densities B2 branches on: 90% (tile 0),
+    0.5%, all zero (a dead tile), 30%, 2% and 10%."""
+    rng = np.random.default_rng(4)
+    dens = [0.9, 0.005, 0.0, 0.3, 0.02, 0.1]
+    vals = rng.standard_normal((6, 128, 128))
+    if tile_dtype == torch.int8:
+        vals = rng.integers(-3, 4, (6, 128, 128))
+    keep = rng.random((6, 128, 128)) < np.array(dens)[:, None, None]
+    tiles = torch.from_numpy((vals * keep).astype(np.float32)).to(tile_dtype)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)
+    return bcsr.BCSR(tiles=tiles, col_blk=i32([0, 2, 1, 2, 0, 1]),
+                     row_ptr=i32([0, 2, 4, 6]), row_of=i32([0, 0, 1, 1, 2, 2]),
+                     num_nodes=384, block=128).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_dtype", TILES)
+def test_sddmm_bcsr_branches_match_plain(cuda_device, tile_dtype):
+    """B2's sparse and dense branches, each forced and by the default
+    crossover, on sub-tiles from empty to 90% full: the plain version's
+    values on the support within f32 reordering (1e-5 * sqrt(D) of
+    max|ref|), and +0.0 off it."""
+    m = _b2_mixed(tile_dtype, cuda_device)
+    off = m.tiles == 0
+    for d in (128, 20, 10):
+        x = _x(384, d, d, cuda_device)
+        dy = _x(384, d, d + 1, cuda_device)
+        ref = bcsr_kernels.sddmm_bcsr_plain(m, dy, x)
+        before = bcsr_kernels.LAUNCHES["sddmm_bcsr"]
+        outs = [bcsr_kernels.sddmm_bcsr(m, dy, x)]
+        outs += [bcsr_kernels._sddmm_bcsr_crossover(m, dy, x, c) for c in (-1, 4096)]
+        torch.cuda.synchronize()
+        assert bcsr_kernels.LAUNCHES["sddmm_bcsr"] == before + 1
+        for g in outs:
+            assert g.dtype == torch.float32 and g.shape == m.tiles.shape
+            assert float((g - ref).abs().max()) <= _f32_tol(ref, d), d
+            assert bool((g[off] == 0).all()) and not bool(torch.signbit(g[off]).any())
 
 
 @pytest.mark.cuda

@@ -217,6 +217,9 @@ def test_wrappers_reject_bad_inputs():
         row_ptr=m_t.row_ptr.to("meta"), row_of=m_t.row_of.to("meta"))
     with pytest.raises(ValueError, match="no spmm_bcsr kernel"):
         bcsr_kernels.spmm_bcsr(meta, torch.from_numpy(x).to("meta"))
+    xt = torch.from_numpy(x)
+    with pytest.raises(ValueError, match="CUDA device only"):
+        bcsr_kernels._sddmm_bcsr_crossover(m_t, xt, xt, 64)
 
 
 def _no_row_blocks(device):
@@ -290,6 +293,61 @@ def test_spmm_dtype_options_match_pallas(k_pack, tile_dtype, x_dtype, out_dtype)
         tol = tol + BF16_ULP * np.abs(ref)
     assert np.all(np.abs(y.float().numpy() - ref) <= tol)
     np.testing.assert_array_equal(y[256:].float(), 0.0)
+
+
+def _support_case(tile_dtype, d, seed):
+    """A rectangular matrix (384 row nodes, 256 column nodes, rows < 256)
+    at ``tile_dtype`` with explicit zero entries inside live tiles (zero
+    weights, and an edge pair at (7, 5) that cancels) and dead tiles
+    (``pad_rows_to=2`` and the empty row block), plus x and dy."""
+    rng = np.random.default_rng(seed)
+    n_rows, n_cols, e = 384, 256, 1500
+    s = rng.integers(0, n_cols, e)
+    r = rng.integers(0, 256, e)
+    keep = ~((r == 7) & (s == 5))
+    w = (rng.integers(-3, 4, e) if tile_dtype == torch.int8
+         else rng.standard_normal(e))
+    w[::7] = 0.0
+    s = np.append(s[keep], [5, 5]).astype(np.int32)
+    r = np.append(r[keep], [7, 7]).astype(np.int32)
+    w = np.append(w[keep], [2.0, -2.0]).astype(np.float32)
+    kw = dict(block=128, pad_rows_to=2, num_col_nodes=n_cols)
+    m_j = jax_bcsr.bcsr_from_coo(s, r, w, n_rows, tile_dtype=JAX_DT[tile_dtype],
+                                 device=False, **kw)
+    m_t = bcsr.bcsr_from_coo(s, r, w, n_rows, tile_dtype=tile_dtype, **kw).to("cpu")
+    x = rng.standard_normal((n_cols, d)).astype(np.float32)
+    dy = rng.standard_normal((n_rows, d)).astype(np.float32)
+    return m_j, m_t, x, dy
+
+
+@pytest.mark.parametrize("d", [10, 20, 128])
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_sddmm_support_plain_matches_plain_and_pallas(tile_dtype, d):
+    """The support-driven plain B2 (the kernel's sparse branch: one dot a
+    nonzero, +0.0 elsewhere) equals the dense-masked plain version and
+    JAX's kernel in interpret mode (D zero-padded to 128 lanes, which
+    changes no dot): 1e-5 * max|ref| * sqrt(D), f32 sums in another
+    order."""
+    m_j, m_t, x, dy = _support_case(tile_dtype, d, seed=d)
+    tiles = m_t.tiles
+    dead = (tiles == 0).flatten(1).all(1)
+    assert bool(dead.any()) and bool((~dead).any())
+    assert tiles.shape[0] % 2 == 0 and m_t.num_nodes == 256
+    t0 = int(m_t.row_ptr[0])  # tile (row block 0, column block 0)
+    assert int(m_t.col_blk[t0]) == 0 and float(tiles[t0, 7, 5]) == 0.0
+    dyt, xt = torch.from_numpy(dy), torch.from_numpy(x)
+    g = bcsr_kernels.sddmm_bcsr_support_plain(m_t, dyt, xt)
+    assert g.dtype == torch.float32 and g.shape == tiles.shape
+    ref_plain = bcsr_kernels.sddmm_bcsr_plain(m_t, dyt, xt).numpy()
+    ref_jax = np.asarray(jax_spmm.sddmm_bcsr(
+        m_j, jnp.asarray(_pad_lanes(dy)), jnp.asarray(_pad_lanes(x)),
+        interpret=True))
+    for ref in (ref_plain, ref_jax):
+        np.testing.assert_allclose(g.numpy(), ref, rtol=0,
+                                   atol=TOL * np.abs(ref).max() * np.sqrt(d))
+    off = (tiles == 0).numpy()
+    assert np.all(g.numpy()[off] == 0) and not np.any(np.signbit(g.numpy()[off]))
+    assert bool((g[~(tiles == 0)] != 0).all())  # random dots are not 0
 
 
 @pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16, torch.int8])

@@ -141,6 +141,105 @@ def test_packets_matvec_grad_matches_jax(compute_dtype):
                                atol=TOL * np.abs(ref).max())
 
 
+def _hub_packets(seed, br=32, bc=32, k=8, n=256, e=3000):
+    """A hub-heavy graph: over half its edges land in receiver block 0,
+    spread over every sender block, and the receiver blocks of the upper
+    half get no edge (one dead packet group each)."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = np.where(rng.random(e) < 0.6, rng.integers(0, br, e),
+                 rng.integers(0, n // 2, e)).astype(np.int32)
+    w = rng.standard_normal(e).astype(np.float32)
+    p = packets.pack_edges(s, r, w, n, block_r=br, block_c=bc, k=k)
+    p_j = jax_packets.pack_edges(s, r, w, n, block_r=br, block_c=bc, k=k)
+    return p, p_j, s, r, w
+
+
+@pytest.mark.parametrize("chunk_slots", [64, 200, 1 << 20])
+def test_work_list_covers_every_packet_once(chunk_slots):
+    """Every packet lies in exactly one chunk, chunks of a block are in
+    packet order, only blocks over the chunk size are split, and each
+    split block's partial slots are consecutive from its first one."""
+    p, _, s, r, w = _hub_packets(seed=1)
+    counts = np.diff(p.row_ptr)
+    assert counts[0] > 0.5 * p.num_packets  # the hub block
+    wl = packets_kernels.packet_work_list(p.row_ptr, p.k, chunk_slots)
+    items = wl.items.astype(np.int64)
+    sizes = items[:, 2] - items[:, 1]
+    assert np.all(np.diff(sizes) <= 0)  # largest first
+    by_pos = items[np.lexsort((items[:, 1], items[:, 0]))]
+    covered = np.concatenate([np.arange(lo, hi) for _, lo, hi, _ in by_pos])
+    np.testing.assert_array_equal(covered, np.arange(p.num_packets))
+    chunk = max(1, chunk_slots // p.k)
+    for rb in range(p.num_row_blocks):
+        mine = by_pos[by_pos[:, 0] == rb]
+        assert mine[0, 1] == p.row_ptr[rb] and mine[-1, 2] == p.row_ptr[rb + 1]
+        assert np.all(mine[:, 2] - mine[:, 1] <= chunk)
+        split = counts[rb] > chunk
+        assert len(mine) == (-(-counts[rb] // chunk) if split else 1)
+        if split:
+            (row,) = wl.splits[wl.splits[:, 0] == rb]
+            np.testing.assert_array_equal(mine[:, 3],
+                                          row[1] + np.arange(row[2]))
+        else:
+            assert mine[0, 3] == -1 and rb not in wl.splits[:, 0]
+    assert wl.num_parts == int(np.sum(wl.splits[:, 2]))
+    assert (len(wl.splits) > 0) == (chunk_slots < counts.max() * p.k)
+
+
+def test_work_list_empty_receiver_block():
+    """A receiver block without packets, and one of dead packets only, is
+    one chunk whose rows come out as zeros."""
+    p, _, _, _, _ = _hub_packets(seed=2)
+    dead = p.num_row_blocks - 1
+    assert not np.any(p.w[p.row_ptr[dead]:p.row_ptr[dead + 1]])
+    x = torch.from_numpy(_x(p.num_nodes, 16, 0))
+    y = packets_kernels.spmm_packets_schedule_plain(p.to("cpu"), x,
+                                                    chunk_slots=64)
+    assert not bool(y[dead * p.block_r:].any())
+    # drop the dead block's packets: a block of zero packets
+    lo = int(p.row_ptr[dead])
+    bare = packets.EdgePackets(
+        rows=p.rows[:lo], cols=p.cols[:lo], w=p.w[:lo], row_of=p.row_of[:lo],
+        col_blk=p.col_blk[:lo], row_ptr=np.minimum(p.row_ptr, lo),
+        num_nodes=p.num_nodes, block_r=p.block_r, block_c=p.block_c)
+    wl = packets_kernels.packet_work_list(bare.row_ptr, bare.k, 64)
+    (item,) = wl.items[wl.items[:, 0] == dead]
+    assert item[1] == item[2] == lo and item[3] == -1
+    y2 = packets_kernels.spmm_packets_schedule_plain(bare.to("cpu"), x,
+                                                     chunk_slots=64)
+    np.testing.assert_array_equal(y2.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_schedule_plain_matches_plain_and_pallas(compute_dtype, out_dtype):
+    """The plain version that walks B7's work list (f32 chunk partials
+    summed in chunk order, one rounding at the end) equals the one-pass
+    plain version and JAX's kernel in interpret mode on the hub graph:
+    f32 sums in another order (1e-5 of each row's largest |value| times
+    sqrt of the row's edge count), plus one bf16 ulp of the value for a
+    bf16 output."""
+    p, p_j, s, r, w = _hub_packets(seed=3)
+    x = _x(p.num_nodes, 24, 5)
+    pt, xt = p.to("cpu"), torch.from_numpy(x)
+    y = packets_kernels.spmm_packets_schedule_plain(pt, xt, out_dtype,
+                                                    compute_dtype, chunk_slots=64)
+    assert y.dtype == out_dtype and y.shape == (p.num_nodes, 24)
+    assert len(packets_kernels.packet_work_list(p.row_ptr, p.k, 64).splits) > 1
+    ref_plain = packets_kernels.spmm_packets_plain(pt, xt, None, compute_dtype)
+    ref_jax = np.asarray(jax_pk.spmm_packets(
+        p_j, jnp.asarray(np.pad(x, ((0, 0), (0, 104)))), interpret=True,
+        compute_dtype=JAX_CD[compute_dtype]))[:, :24]
+    k = np.bincount(r[w != 0], minlength=p.num_nodes).max()
+    for ref in (ref_plain.numpy(), ref_jax):
+        row = np.abs(ref).max(1, keepdims=True)
+        tol = TOL * np.sqrt(k) * row + 1e-30
+        if out_dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -7 * np.abs(ref)
+        assert np.all(np.abs(y.float().numpy() - ref) <= tol)
+
+
 def test_wrapper_rejects_bad_inputs():
     s, r, w = _coo(64, 100, seed=6)
     p = packets.pack_edges(s, r, w, 64, 32, 32, 8).to("cpu")
@@ -151,6 +250,10 @@ def test_wrapper_rejects_bad_inputs():
                                      compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="no spmm_packets kernel"):
         packets_kernels.spmm_packets(p.to("meta"), torch.ones(64, 4, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device only"):
+        packets_kernels._spmm_packets_ablation(p, torch.ones(64, 4), "full")
+    with pytest.raises(ValueError, match="mode"):
+        packets_kernels._spmm_packets_ablation(p, torch.ones(64, 4), "nodma")
 
 
 ARGS = dict(n_live=2_100_000, t_probe=21_000, density=0.0015,

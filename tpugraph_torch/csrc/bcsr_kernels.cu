@@ -26,12 +26,25 @@
 // sddmm_bcsr replaces tpugraph/ops/pallas_spmm.py:sddmm_bcsr (_sddmm_kernel):
 //   out[t] = (dy[row_of[t] block] @ x[col_blk[t] block]^T) * (tiles[t] != 0), with
 //   dy, x and out f32 and the tiles of any kind (only their support is read).
-//   Bound on the H100: bytes (tiles read for the support, out written; useful work
-//   2*nnz*D flops).
-//   Design: one CTA per 64x64 sub-tile of one tile; it walks D in chunks of
-//   32, staging 64x32 slices of dy and x in shared memory, 4x4 outputs per
-//   thread in registers, then multiplies by the support of the current tile
-//   values (entries that are exactly 0 get 0) and writes float32.
+//   An entry whose tile value is exactly 0 (or -0) gets +0.0; JAX writes prod * 0,
+//   which is -0.0 for a negative product and NaN for a non-finite one, so the two
+//   differ only for non-finite inputs.
+//   Bound on the H100: bytes.  The contract makes the kernel read the tiles for
+//   the support and write the dense f32 [T, B, B] output; the useful work is
+//   2*nnz*D flops (0.27 GFLOP at the scaled shape, against 36 GFLOP for dense
+//   sub-tile products).
+//   Design: one CTA per 64x64 sub-tile of one tile.  It reads the sub-tile's
+//   support once with 16-byte streaming loads (4 f32, 8 bf16 or 16 int8 entries
+//   a load), keeps its bits in shared memory and counts its nonzeros.  Up to a
+//   crossover count (the wrapper's sddmm_crossover(D), measured on the card:
+//   494 nonzeros at D = 20, 882 at D = 128) it takes the sparse branch: it lists
+//   the nonzeros, and groups of 8 lanes each take one dot product of dy[row] and
+//   x[col] over D (16-byte loads where D % 4 == 0 and both are 16-byte aligned,
+//   else scalar; a shuffle sum), into a
+//   zeroed shared stage that is written with 16-byte streaming stores; a dead
+//   padding tile costs one read and one write.  Above it (dense branch) the CTA
+//   walks D in chunks of 32, staging 64x32 slices of dy and x in shared memory
+//   with 4x4 outputs a thread in registers, and writes them on the support.
 //
 // spmm_bcsr_packed replaces tpugraph/ops/pallas_spmm.py:spmm_bcsr_packed
 // (_spmm_packed_kernel_factory and its cast twin _spmm_packed_kernel_cast_factory):
@@ -130,13 +143,45 @@ spmm_bcsr_kernel(const void* __restrict__ tiles, const int32_t* __restrict__ col
         }
 }
 
+// bit e set where entry e of the 16 bytes in v is not zero (a -0 is zero)
 template <int KIND>
+__device__ __forceinline__ uint32_t nonzero_bits(uint4 v) {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t bits = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        if (KIND == F32) {
+            bits |= (uint32_t)((w[i] & 0x7fffffffu) != 0) << i;
+        } else if (KIND == BF16) {
+            bits |= (uint32_t)((w[i] & 0x7fffu) != 0) << (2 * i);
+            bits |= (uint32_t)((w[i] & 0x7fff0000u) != 0) << (2 * i + 1);
+        } else {
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+                bits |= (uint32_t)(((w[i] >> (8 * b)) & 0xffu) != 0) << (4 * i + b);
+        }
+    }
+    return bits;
+}
+
+constexpr int GROUP = 8;  // lanes that share one dot product in the sparse branch
+
+template <int KIND, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 sddmm_bcsr_kernel(const void* __restrict__ tiles, const int32_t* __restrict__ row_of,
                   const int32_t* __restrict__ col_blk, const float* __restrict__ dy,
-                  const float* __restrict__ x, float* __restrict__ out, int block, int d) {
+                  const float* __restrict__ x, float* __restrict__ out, int block, int d,
+                  int crossover) {
+    using T = tile_t<KIND>;
+    constexpr int EPL = 16 / sizeof(T);              // support entries a 16-byte load
+    constexpr int PER_ROW = BN / EPL;                // loads a sub-tile row
+    constexpr int LOADS = BM * PER_ROW / THREADS;    // loads a thread: f32 4, bf16 2, int8 1
     __shared__ float Ds[BK][BM + 1];
     __shared__ float Xs[BK][BN + 1];
+    __shared__ __align__(16) float Os[BM * BN];      // the sparse branch's output stage
+    __shared__ uint16_t nz[BM * BN];                 // (i << 6) | j of each nonzero
+    __shared__ uint32_t mask[BM][2];                 // support bits of each row
+    __shared__ int count, listed;
     const int subs = block / BM;
     const int per_tile = subs * subs;
     const int t = blockIdx.x / per_tile;
@@ -145,6 +190,71 @@ sddmm_bcsr_kernel(const void* __restrict__ tiles, const int32_t* __restrict__ ro
     const int j0 = (rem % subs) * BN;
     const int tid = threadIdx.x;
     const int tx = tid % TX, ty = tid / TX;
+    float* o = out + ((size_t)t * block + i0) * block + j0;
+
+    // the support of this sub-tile, read once with 16-byte streaming loads
+    if (tid < BM * 2) mask[tid / 2][tid % 2] = 0;
+    if (tid == 0) count = listed = 0;
+    __syncthreads();
+    const T* sup = (const T*)tiles + ((size_t)t * block + i0) * block + j0;
+    uint32_t bits = 0;  // bit l * EPL + e: entry e of this thread's load l
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+        const int li = tid + l * THREADS, row = li / PER_ROW, col = (li % PER_ROW) * EPL;
+        const uint32_t b = nonzero_bits<KIND>(__ldcs((const uint4*)(sup + (size_t)row * block + col)));
+        if (b) atomicOr(&mask[row][col >> 5], b << (col & 31));
+        bits |= b << (l * EPL);
+    }
+    const int mine = __reduce_add_sync(0xffffffffu, __popc(bits));
+    if ((tid & 31) == 0 && mine) atomicAdd(&count, mine);
+    __syncthreads();
+    const int nnz = count;
+
+    if (nnz <= crossover) {
+        // sparse branch: a dot product over D for each nonzero, zeros elsewhere
+        for (int i = tid; i < BM * BN / 4; i += THREADS)
+            ((float4*)Os)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (uint32_t b = bits; b; b &= b - 1) {
+            const int bit = __ffs(b) - 1, li = tid + (bit / EPL) * THREADS;
+            nz[atomicAdd(&listed, 1)] = (uint16_t)(((li / PER_ROW) << 6)
+                                                  | ((li % PER_ROW) * EPL + bit % EPL));
+        }
+        __syncthreads();
+        const int g = tid / GROUP, gl = tid % GROUP;
+        const float* dyb = dy + ((size_t)row_of[t] * block + i0) * d;
+        const float* xb = x + ((size_t)col_blk[t] * block + j0) * d;
+        for (int base = 0; base < nnz; base += THREADS / GROUP) {  // uniform trip count
+            const int n = base + g;
+            float s = 0.f;
+            int ij = 0;
+            if (n < nnz) {
+                ij = nz[n];
+                const float* a = dyb + (size_t)(ij >> 6) * d;
+                const float* c = xb + (size_t)(ij & 63) * d;
+                if (VEC) {
+                    for (int k = 4 * gl; k < d; k += 4 * GROUP) {
+                        const float4 av = *(const float4*)(a + k), cv = *(const float4*)(c + k);
+                        s = fmaf(av.x, cv.x, s);
+                        s = fmaf(av.y, cv.y, s);
+                        s = fmaf(av.z, cv.z, s);
+                        s = fmaf(av.w, cv.w, s);
+                    }
+                } else {
+                    for (int k = gl; k < d; k += GROUP) s = fmaf(a[k], c[k], s);
+                }
+            }
+#pragma unroll
+            for (int off = GROUP / 2; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+            if (n < nnz && gl == 0) Os[ij] = s;
+        }
+        __syncthreads();
+        for (int i = tid; i < BM * BN / 4; i += THREADS)
+            __stcs((float4*)(o + (size_t)(i / (BN / 4)) * block + (i % (BN / 4)) * 4),
+                   ((const float4*)Os)[i]);
+        return;
+    }
+
+    // dense branch: the register-blocked dy_sub @ x_sub^T over all of D
     const float* dyb = dy + ((size_t)row_of[t] * block + i0) * d;
     const float* xb = x + ((size_t)col_blk[t] * block + j0) * d;
 
@@ -176,14 +286,12 @@ sddmm_bcsr_kernel(const void* __restrict__ tiles, const int32_t* __restrict__ ro
         }
         __syncthreads();
     }
-    const size_t base = (size_t)t * block * block;
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-            const size_t off = base + (size_t)(i0 + ty + i * (BM / TM)) * block
-                               + j0 + tx + j * TX;
-            out[off] = acc[i][j] * (tile_nonzero<KIND>(tiles, off) ? 1.f : 0.f);
+            const int r = ty + i * (BM / TM), c = tx + j * TX;
+            o[(size_t)r * block + c] = (mask[r][c >> 5] >> (c & 31)) & 1u ? acc[i][j] : 0.f;
         }
 }
 
@@ -323,15 +431,18 @@ int spmm_bcsr(const void* tiles, int tile_kind, const void* col_blk, const void*
 }
 
 // out[num_tiles, block, block] = per-tile (dy @ x^T) * (tiles != 0), all f32 but
-// the tiles.
+// the tiles; +0.0 off the support.  A 64x64 sub-tile with at most `crossover`
+// nonzeros takes the sparse branch (-1: always dense; 4096: always sparse).
 int sddmm_bcsr(const void* tiles, int tile_kind, const void* row_of, const void* col_blk,
                const void* dy, const void* x, void* out, int num_tiles, int block, int d,
-               void* stream) {
+               int crossover, void* stream) {
     const dim3 grid(num_tiles * (block / BM) * (block / BN));
-    const bool known = dispatch<false>(tile_kind, false, false, [&](auto k, auto, auto) {
-        sddmm_bcsr_kernel<decltype(k)::value><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            tiles, (const int32_t*)row_of, (const int32_t*)col_blk, (const float*)dy,
-            (const float*)x, (float*)out, block, d);
+    const bool vec = d % 4 == 0 && (((uintptr_t)dy | (uintptr_t)x) & 15) == 0;
+    const bool known = dispatch<false>(tile_kind, vec, false, [&](auto k, auto v, auto) {
+        sddmm_bcsr_kernel<decltype(k)::value, decltype(v)::value>
+            <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+                tiles, (const int32_t*)row_of, (const int32_t*)col_blk, (const float*)dy,
+                (const float*)x, (float*)out, block, d, crossover);
     });
     return known ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }

@@ -60,14 +60,6 @@ __device__ __forceinline__ float tile_elem(const void* base, size_t i) {
     return (float)((const int8_t*)base)[i];
 }
 
-// whether tile entry i is not zero (a bf16 -0 is zero)
-template <int KIND>
-__device__ __forceinline__ bool tile_nonzero(const void* tiles, size_t i) {
-    if (KIND == F32) return ((const float*)tiles)[i] != 0.f;
-    if (KIND == BF16) return (((const uint16_t*)tiles)[i] & 0x7fffu) != 0;
-    return ((const int8_t*)tiles)[i] != 0;
-}
-
 // x entry i as it enters a product with tiles of KIND
 template <int KIND, bool X_BF16>
 __device__ __forceinline__ float x_operand(const void* x, size_t i) {

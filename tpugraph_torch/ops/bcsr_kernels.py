@@ -46,6 +46,14 @@ LAUNCHES: Dict[str, int] = {"spmm_bcsr": 0, "sddmm_bcsr": 0,
 _bound = False
 
 
+def sddmm_crossover(d: int) -> int:
+    """Nonzeros of a 64x64 sub-tile up to which B2 takes its sparse branch
+    (one dot product a nonzero) instead of the dense sub-tile product, at
+    width ``d``: the line through the crossovers that ``chip_smoke.py``
+    measured on an H100 (494 at D = 20, 882 at D = 128)."""
+    return int(422 + 3.6 * d)
+
+
 def x_operand(x: torch.Tensor, tile_dtype: torch.dtype) -> torch.Tensor:
     """``x`` as it enters a product with tiles of ``tile_dtype``, as f32:
     rounded to bf16 unless the tiles are f32 (the plain versions' half of
@@ -76,7 +84,7 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.spmm_bcsr.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci, ci, vp]
         lib.spmm_bcsr.restype = ci
-        lib.sddmm_bcsr.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.sddmm_bcsr.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.sddmm_bcsr.restype = ci
         lib.spmm_bcsr_packed.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci,
                                          ci, ci, vp]
@@ -221,10 +229,20 @@ def sddmm_bcsr_plain(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     return torch.bmm(dyb, xb.transpose(1, 2)) * (m.tiles != 0)
 
 
-def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Per-tile gradient ``float32[T, B, B]``; ``dy`` spans the row nodes,
-    ``x`` the column nodes, both float32; the tiles (of any dtype) give
-    only their support (``tpugraph/ops/pallas_spmm.py:175``)."""
+def sddmm_bcsr_support_plain(m: BCSR, dy: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch B2 as the kernel's sparse branch computes it: the
+    nonzeros of the tiles gathered, one dot of ``dy[row]`` and ``x[col]``
+    each, +0.0 everywhere else."""
+    t, i, j = (m.tiles != 0).nonzero(as_tuple=True)
+    rows = m.row_of.long()[t] * m.block + i
+    cols = m.col_blk.long()[t] * m.block + j
+    out = torch.zeros(m.tiles.shape, dtype=torch.float32, device=x.device)
+    out[t, i, j] = (dy[rows] * x[cols]).sum(1)
+    return out
+
+
+def _check_sddmm(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> None:
     _check_layout(m, x.device)
     check_tensor("x", x, torch.float32, 2, x.device)
     check_tensor("dy", dy, torch.float32, 2, x.device)
@@ -233,21 +251,51 @@ def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(
             f"need x [{m.num_nodes}, D>0] and dy [{m.num_row_nodes}, D], got "
             f"{tuple(x.shape)} and {tuple(dy.shape)}")
+
+
+def sddmm_bcsr(m: BCSR, dy: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Per-tile gradient ``float32[T, B, B]``; ``dy`` spans the row nodes,
+    ``x`` the column nodes, both float32; the tiles (of any dtype) give
+    only their support (``tpugraph/ops/pallas_spmm.py:175``).  The kernel
+    writes +0.0 off the support (JAX: ``prod * 0``, -0.0 or NaN there for
+    a negative or non-finite product)."""
+    _check_sddmm(m, dy, x)
     if x.device.type == "cpu":
         return sddmm_bcsr_plain(m, dy, x)
     if x.device.type != "cuda":
         raise ValueError(f"no sddmm_bcsr kernel for device {x.device}")
-    lib = _lib()
+    return _sddmm_launch(m, dy, x, None)
+
+
+def _sddmm_bcsr_crossover(m: BCSR, dy: torch.Tensor, x: torch.Tensor,
+                          crossover: int) -> torch.Tensor:
+    """B2 with its branch threshold forced (nonzeros of a 64x64 sub-tile up
+    to which the sparse branch runs; -1 always dense, 4096 always sparse),
+    to measure the crossover.  Card only; no launch is counted."""
+    _check_sddmm(m, dy, x)
+    if x.device.type != "cuda":
+        raise ValueError("the forced-branch B2 runs on a CUDA device only")
+    return _sddmm_launch(m, dy, x, crossover)
+
+
+def _sddmm_launch(m: BCSR, dy: torch.Tensor, x: torch.Tensor,
+                  crossover: Optional[int]) -> torch.Tensor:
     out = torch.empty(m.tiles.shape, dtype=torch.float32, device=x.device)
     if m.num_tiles == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = lib.sddmm_bcsr(
-            m.tiles.data_ptr(), TILE_KIND[m.tiles.dtype], m.row_of.data_ptr(),
+    if m.tiles.data_ptr() % 16:
+        raise ValueError("tiles must be 16-byte aligned (the kernel reads the "
+                         "support with 16-byte loads)")
+    lib = _lib()
+    args = (m.tiles.data_ptr(), TILE_KIND[m.tiles.dtype], m.row_of.data_ptr(),
             m.col_blk.data_ptr(), dy.data_ptr(), x.data_ptr(), out.data_ptr(),
-            m.num_tiles, m.block, d, stream(x.device))
+            m.num_tiles, m.block, x.shape[1])
+    with torch.cuda.device(x.device):
+        err = lib.sddmm_bcsr(*args, sddmm_crossover(x.shape[1]) if crossover is None
+                             else crossover, stream(x.device))
     raise_on(err, "sddmm_bcsr")
-    LAUNCHES["sddmm_bcsr"] += 1
+    if crossover is None:
+        LAUNCHES["sddmm_bcsr"] += 1
     return out
 
 
