@@ -37,7 +37,9 @@ nvcc per source, sm_90a, all started together), then:
    CPU from the same parameters; then the full graph trains 100 epochs in
    each format from one set of parameters, and each format's kernel is
    held against its plain version on that format's own packed adjacency
-   (D = 128).  Small-shape variants (B4 with bf16 tiles, stack=2, int4,
+   (D = 128).  B4's tensor-core phase is also run in each diagnostic mode
+   of ``_spmm_stacked_ablation`` (D1) and with a bf16 output and on a
+   16,384-node copy of the graph (D4), printed as ``resident_ablation``.  Small-shape variants (B4 with bf16 tiles, stack=2, int4,
    bf16 x and a bf16 output; B7 with f32 compute) are checked on the
    reduced graph, and the B1/B3 dtype options (int8 tiles, bf16 x, f32
    and bf16 outputs) on the full one;
@@ -49,7 +51,12 @@ nvcc per source, sm_90a, all started together), then:
    B5's f32 output is held against two f32 ``torch.sparse.mm`` calls
    entry by entry within its rounding bound, and B5/B6 against their plain
    versions, with pack seconds and diffusion edges/s (``2 * E * hops / t``,
-   ``bench.py:678``).
+   ``bench.py:678``);
+6. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
+   dependent launches of ``probe_tiny`` (grid 1 and 2) and
+   ``probe_resident`` (n = 4,096, 16,384, 65,536), a fit of the time a
+   launch against the bytes it writes, and the host cost of one wrapper
+   call, printed as ``launch_probes``.
 
 Every kernel is held to its plain version entry by entry: within an f32
 reordering term and a bf16 ulp for each earlier rounding point, both
@@ -86,6 +93,9 @@ EXPLAIN_NODES = list(range(400, 700, 60))
 LOWLOC_NODES, LOWLOC_DEG, LOWLOC_D, LOWLOC_BLOCK = 65536, 32, 128, 256
 LOWLOC_EPOCHS = 100
 REDUCED_NODES, REDUCED_BLOCK, REDUCED_EPOCHS = 4096, 128, 10
+SMALLN_NODES = 16384  # bench_resident_diag3.py's smalln
+PROBE_K = 200         # dependent launches a probe chain (bench_palcall_diag.py's K)
+PROBE_NS = (4096, 16384, 65536)
 # bench_explain.py:61: banded graph, nodes, degree, band, block; 100 epochs
 BANDED_NODES, BANDED_DEG, BANDED_BAND, BANDED_BLOCK = 65536, 32, 192, 256
 BANDED_EPOCHS = 100
@@ -445,7 +455,7 @@ def b2_branches(gen):
             dy = torch.randn((m.num_row_nodes, d), generator=gen, device="cuda")
             recs.append(measure_case(
                 "sddmm_bcsr", "b2-mixed", d, lambda: bk.sddmm_bcsr(m, dy, x),
-                lambda: bk.sddmm_bcsr_plain(m, dy, x), None,
+                lambda: bk.sddmm_bcsr_plain(m, dy, x), lambda: library_sddmm(m, dy, x),
                 (m.tiles.element_size() + 4) * 256 * 128 * 128
                 + 4 * (m.num_nodes + m.num_row_nodes) * d, 2.0 * nnz * d,
                 F32_FLOPS_PER_S, d, iters=5,
@@ -525,7 +535,8 @@ def measure_stacked(shape, st, x, out_dtype=None):
     tile_bytes = st.tiles.numel() * st.tiles.element_size()
     x_b = x.element_size()
     out_b = 2 if out_dtype == torch.bfloat16 else 4
-    per_rb = int((st.row_ptr[1:] - st.row_ptr[:-1]).max())
+    lists = (st.row_ptr[1:] - st.row_ptr[:-1]).float()
+    per_rb = int(lists.max())
     peak = F32_FLOPS_PER_S if st.tiles.dtype == torch.float32 else BF16_FLOPS_PER_S
     kind = "int4" if st.packed4 else str(st.tiles.dtype).split(".")[1]
     return measure_case(
@@ -538,7 +549,154 @@ def measure_stacked(shape, st, x, out_dtype=None):
         2.0 * nnz * d, peak, per_rb * st.block,
         extra={"tiles": st.num_tiles, "stack": st.stack, "tile": kind,
                "x": "bf16" if x_b == 2 else "f32",
-               "out": "bf16" if out_b == 2 else "f32", "nnz": nnz})
+               "out": "bf16" if out_b == 2 else "f32", "nnz": nnz,
+               "longest_list": per_rb, "mean_list": round(float(lists.mean()), 2)})
+
+
+def resident_ablation(st, x, rec64):
+    """D1's and D4's counterparts on B4's tensor-core phase (int8 tiles,
+    D = 128): each diagnostic mode of ``_spmm_stacked_ablation`` (D1:
+    ``bench_resident_diag2.py:105``); ``scratchacc`` (D4,
+    ``bench_resident_diag3.py:63``), B4 with its f32 register accumulator
+    rounded once to a bf16 output, against the f32 output; and ``smalln``,
+    B4 on a 16,384-node power-law graph built as the full one (same average
+    degree, block 256), held to its plain version, with its time per node
+    against the 65,536-node time's."""
+    import torch
+
+    from tpugraph_torch.ops import bcsr
+    from tpugraph_torch.ops import resident_kernels as rk
+    from tpugraph_torch.train.loop import _RESIDENT_K_PACK
+
+    outs = {m: rk._spmm_stacked_ablation(st, x, m) for m in rk.ABLATIONS}
+    torch.cuda.synchronize()
+    for m, y in outs.items():
+        check(y.shape == (st.num_row_nodes, x.shape[1])
+              and bool(torch.isfinite(y).all()), f"B4 ablation {m}: bad output")
+    check(bool(torch.equal(outs["full"], rk.spmm_stacked_resident(st, x))),
+          "B4 ablation full differs from B4")
+    del outs
+    rec = {"spmm_stacked_resident_ms": rec64["ms"],
+           **{f"{m}_ms": time_ms(lambda m=m: rk._spmm_stacked_ablation(st, x, m))
+              for m in rk.ABLATIONS}}
+    rec["scratchacc"] = {
+        "bf16_out_ms": time_ms(lambda: rk.spmm_stacked_resident(
+            st, x, out_dtype=torch.bfloat16)),
+        "f32_out_ms": rec64["ms"]}
+    g, _, _ = powerlaw_task(SMALLN_NODES, LOWLOC_D)
+    s, r, w = (t.numpy() for t in (g.senders, g.receivers, g.edge_weight))
+    m = bcsr.bcsr_from_coo(s, r, w, g.num_nodes_padded, block=LOWLOC_BLOCK,
+                           tile_dtype=torch.int8)
+    st_s = rk.stack_bcsr(m, stack=1, k_pack=_RESIDENT_K_PACK).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xs = torch.randn((st_s.num_nodes, x.shape[1]), generator=gen, device="cuda")
+    small = measure_stacked(f"powerlaw-{SMALLN_NODES // 1024}k", st_s, xs)
+    rec["smalln"] = {
+        "nodes": SMALLN_NODES, "tiles": st_s.num_tiles, "time_ms": small["ms"],
+        "per_node_ratio": (small["ms"] / SMALLN_NODES)
+        / (rec64["ms"] / st.num_row_nodes)}
+    print(f"  resident_ablation {json.dumps(rec)}", flush=True)
+    return rec, small
+
+
+def chain_us(step, k=PROBE_K, reps=5):
+    """Microseconds a launch over ``k`` dependent launches of ``step``,
+    timed with CUDA events around the whole chain (median of ``reps``)."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / k)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase_probes(gen):
+    """D3's counterpart (``bench_palcall_diag.py``): chains of ``PROBE_K``
+    dependent launches of ``probe_tiny`` at a grid of 1 and 2 CTAs and of
+    ``probe_resident`` at each n of ``PROBE_NS``; the fit ``per_call(n) =
+    intercept + slope * MB(n)`` over the bytes each call writes; and the
+    host-clock cost of one wrapper call (ctypes), unsynchronized.  Each probe
+    is first held to its plain version (exactly: the same f32 operations)."""
+    import numpy as np
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.ops import probe_kernels as pk
+
+    dev = torch.device("cuda")
+    x8 = torch.randn((8, pk.D), generator=gen, device=dev)
+    xs = {n: torch.randn((n, pk.D), generator=gen, device=dev).to(torch.bfloat16)
+          for n in PROBE_NS}
+    errs = {}
+    for grid in pk.GRIDS:
+        errs[f"tiny_g{grid}"] = float((pk.probe_tiny(x8, grid)
+                                       - pk.probe_tiny_plain(x8)).abs().max())
+    for n in PROBE_NS:
+        errs[f"resident_{n}"] = float((pk.probe_resident(x8, xs[n])
+                                       - pk.probe_resident_plain(x8, xs[n])).abs().max())
+    check(max(errs.values()) == 0.0, f"a probe differs from its plain version: {errs}")
+
+    ops.reset_launch_counts()
+    tiny_us = {}
+    for grid in pk.GRIDS:
+        state = [x8]
+
+        def step(grid=grid):
+            state[0] = pk.probe_tiny(state[0], grid)
+        tiny_us[grid] = chain_us(step)
+    res_us = {}
+    for n in PROBE_NS:
+        tok = [x8]
+
+        def step(n=n):
+            tok[0] = pk.probe_resident(tok[0], xs[n])[:8]
+        res_us[n] = chain_us(step)
+    launches = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        pk.probe_tiny(x8)
+    host_us = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    mb = np.array([4 * pk.D * n / 1e6 for n in PROBE_NS])
+    us = np.array([res_us[n] for n in PROBE_NS])
+    (intercept, slope), *_ = np.linalg.lstsq(np.vstack([np.ones_like(mb), mb]).T, us,
+                                             rcond=None)
+    rec = {"tiny_us": {f"grid{g}": v for g, v in tiny_us.items()},
+           "resident_us": {str(n): v for n, v in res_us.items()},
+           "fit": {"intercept_us": float(intercept), "slope_us_per_MB": float(slope),
+                   "implied_GB_per_s": 1e3 / float(slope) if slope > 0 else None,
+                   "bytes_model": "4 * 128 * n bytes of f32 output written a call"},
+           "host_us_per_wrapper_call": host_us, "k": PROBE_K, "max_abs_err": errs}
+    print(f"  launch_probes {json.dumps(rec)}", flush=True)
+    n_big = PROBE_NS[-1]
+    kernels = {
+        "probe_tiny": {
+            "max_abs_err": errs["tiny_g1"], "ms": tiny_us[1] / 1e3,
+            "plain_ms": time_ms(lambda: pk.probe_tiny_plain(x8)),
+            "bound_ms": 2 * 8 * pk.D * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(lambda: torch.mul(x8, 0.999)),
+            "shapes": [{"grid": g, "us_per_launch": v} for g, v in tiny_us.items()]},
+        "probe_resident": {
+            "max_abs_err": errs[f"resident_{n_big}"], "ms": res_us[n_big] / 1e3,
+            "plain_ms": time_ms(lambda: pk.probe_resident_plain(x8, xs[n_big])),
+            "bound_ms": (4 * pk.D * n_big + 4 * 8 * pk.D + 2 * 8 * pk.D)
+            / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+            "library_null_reason": "no single PyTorch call zeroes a buffer and "
+                                   "writes eight rows of it",
+            "shapes": [{"n": n, "us_per_launch": v} for n, v in res_us.items()]},
+    }
+    return {"launches": launches, "record": rec, "kernels": kernels}
 
 
 def measure_packets(shape, p, x, compute_dtype):
@@ -698,6 +856,12 @@ def phase_lowloc(report, gen):
             shapes[fmt] = measure_packed(shape, adj.m, 4, x)
         elif fmt == "resident":
             shapes[fmt] = measure_stacked(shape, adj.st, x)
+            rp = adj.st.row_ptr
+            print(f"  B4 inverse index: longest list {shapes[fmt]['longest_list']} entries "
+                  f"(row block {int((rp[1:] - rp[:-1]).argmax())}) against a mean of "
+                  f"{shapes[fmt]['mean_list']}; a cluster of 4 CTAs shares each "
+                  f"128-row slab's list", flush=True)
+            ablation_res, smalln = resident_ablation(adj.st, x, shapes[fmt])
             pair_ms = time_ms(lambda: (rk.spmm_stacked_resident(adj.st, x),
                                        rk.spmm_stacked_resident(adj.st_t, x)))
             res_rates = {"res_edges_per_s": n_live / (pair_ms / 1e3),
@@ -725,8 +889,9 @@ def phase_lowloc(report, gen):
           f"{json.dumps({**res_rates, **pkt_rates})}", flush=True)
     print(f"  full-size phase {time.perf_counter() - t0:.1f} s", flush=True)
     report["lowloc"] = {"launches": launches, "shapes": shapes,
-                        "variants": variants, "graph": g,
-                        "packets_ablation": ablation}
+                        "variants": variants + [smalln], "graph": g,
+                        "packets_ablation": ablation,
+                        "resident_ablation": ablation_res}
 
 
 def dtype_cases(g):
@@ -1122,12 +1287,16 @@ def main() -> int:
     diff = phase_diffuse(low.pop("graph"))
     print(f"  diffuse phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 6: launch probes
+    print("phase launch_probes", flush=True)
+    probes = phase_probes(gen)
+
     # ---- report
     paths = {"train": train_launches, "explain": explain_launches,
              "explain_bf16": bf16_launches,
              **{f"explain_banded_{k}": c for k, c in banded["launches"].items()},
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
-             **diff["launches"]}
+             **diff["launches"], "launch_probes": probes["launches"]}
     meta = {
         "spmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
@@ -1144,7 +1313,7 @@ def main() -> int:
         "spmm_stacked_resident": (
             "tpugraph_torch/csrc/resident_kernels.cu",
             "tpugraph/ops/pallas_resident.py:281", low["shapes"]["resident"],
-            [low["shapes"]["resident"]] + low["variants"][:4]),
+            [low["shapes"]["resident"]] + low["variants"][:4] + [low["variants"][5]]),
         "spmm_pair_resident": ("tpugraph_torch/csrc/resident_kernels.cu",
                                "tpugraph/ops/pallas_resident.py:476",
                                diff["spmm_pair_resident"][0],
@@ -1158,7 +1327,15 @@ def main() -> int:
                          low["shapes"]["packets"],
                          [low["shapes"]["packets"], low["variants"][4]]),
     }
+    for name, rec in probes["kernels"].items():
+        meta[name] = ("tpugraph_torch/csrc/probe_kernels.cu",
+                      "bench_palcall_diag.py:71" if name == "probe_tiny"
+                      else "bench_palcall_diag.py:104", rec, rec.pop("shapes"))
     extras = {
+        "spmm_stacked_resident": {"resident_ablation": low["resident_ablation"],
+                                  "ablation_replaces": "bench_resident_diag2.py:105 "
+                                  "(D1), bench_resident_diag3.py:63 (D4)"},
+        "probe_tiny": {"launch_probes": probes["record"]},
         "sddmm_bcsr": {"crossover": {d: bk.sddmm_crossover(d) for d in crossover},
                        "crossover_measured": crossover},
         "spmm_packets": {

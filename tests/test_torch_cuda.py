@@ -482,3 +482,90 @@ def test_diffusion_operator_on_card_matches_cpu(cuda_device):
         assert bool(((outs[1] - outs[0]).abs() <= _pair_tol(outs[0], 7)).all())
     y = diffuse(g, x, 2, block=128)
     assert y.device.type == "cuda" and y.shape == (700, 64)
+
+
+def _hub_stacked(kind, stack, device):
+    """A stacked layout over 4,096 nodes at block 128 whose row block 0 reads
+    every column block (32 slices, against about 10 for the others),
+    with an empty row block 5; ``kind`` is int8, bf16 or int4 (packed4)."""
+    rng = np.random.default_rng(11)
+    n = 4096
+    hub_s = rng.integers(0, n, 3000)
+    hub_r = rng.integers(0, 128, 3000)
+    s = rng.integers(0, n, 300)
+    r = rng.integers(0, n, 300)
+    keep = r // 128 != 5
+    s = np.concatenate([hub_s, s[keep]]).astype(np.int32)
+    r = np.concatenate([hub_r, r[keep]]).astype(np.int32)
+    w = rng.integers(1, 4, s.size).astype(np.float32)
+    tile_dtype = torch.bfloat16 if kind == "bf16" else torch.int8
+    if kind == "bf16":
+        w = rng.standard_normal(s.size).astype(np.float32)
+    m = bcsr.bcsr_from_coo(s, r, w, n, block=128, tile_dtype=tile_dtype)
+    st = rk.stack_bcsr(m, stack=stack, k_pack=4)
+    if kind == "int4":
+        st = rk.pack_stacked_int4(st)
+    return st.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "bf16", "int4"])
+@pytest.mark.parametrize("stack", [1, 2])
+def test_spmm_stacked_resident_tensor_cores_match_plain(cuda_device, kind, stack):
+    """The tensor-core phase against its plain version: every tile kind it
+    takes, f32 and bf16 x and output, ragged D (20, 130), an empty row block
+    and a hub row block whose list is ~3x the mean (split over a cluster)."""
+    st = _hub_stacked(kind, stack, cuda_device)
+    lists = (st.row_ptr[1:] - st.row_ptr[:-1]).cpu()
+    assert int(lists[5]) == 0 and int(lists.max()) > 2.5 * float(lists.float().mean())
+    k_max = int(lists.max()) * 128
+    for d in (128, 20, 130):
+        for x_dtype in FLOATS:
+            x = _x(st.num_nodes, d, d, cuda_device).to(x_dtype)
+            ref = rk.spmm_stacked_resident_plain(st, x)
+            for out_dtype in FLOATS:
+                y = rk.spmm_stacked_resident(st, x, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                err = (y.float() - ref).abs()
+                tol = (1e-5 * math.sqrt(k_max) * ref.abs().amax(1, keepdim=True)
+                       + 1e-6)
+                if out_dtype == torch.bfloat16:
+                    tol = tol + BF16_REL * ref.abs()
+                assert bool((err <= tol).all()), (d, x_dtype, out_dtype,
+                                                  float(err.max()))
+                assert bool((y[640:768] == 0).all())  # the empty row block
+
+
+@pytest.mark.cuda
+def test_resident_ablations_and_probes_run(cuda_device):
+    """Every B4 diagnostic mode (D1), B4 with a bf16 output and at a smaller
+    n (D4), and both launch probes (D3) run and give finite values; the
+    ``full`` mode is B4 itself; the ablations count no launch."""
+    from tpugraph_torch.ops import probe_kernels as pk
+
+    st = _hub_stacked("int8", 1, cuda_device)
+    x = _x(st.num_nodes, 128, 1, cuda_device)
+    before = dict(rk.LAUNCHES)
+    outs = {m: rk._spmm_stacked_ablation(st, x, m) for m in rk.ABLATIONS}
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES == before
+    for m, y in outs.items():
+        assert y.shape == (st.num_row_nodes, 128) and bool(torch.isfinite(y).all()), m
+    assert torch.equal(outs["full"], rk.spmm_stacked_resident(st, x))
+    with pytest.raises(ValueError, match="mode"):
+        rk._spmm_stacked_ablation(st, x, "storeonly")
+    for n_keep in (4096, 1024):  # D4: smaller n, bf16 output
+        sub = rk.stack_bcsr(bcsr.bcsr_from_coo(*_coo(n_keep, 8 * n_keep, 2, True),
+                                               n_keep, block=128,
+                                               tile_dtype=torch.int8), 1, 4)
+        sub = sub.to(cuda_device)
+        y = rk.spmm_stacked_resident(sub, _x(n_keep, 128, 2, cuda_device),
+                                     out_dtype=torch.bfloat16)
+        assert bool(torch.isfinite(y.float()).all())
+    x8 = _x(8, pk.D, 3, cuda_device)
+    for grid in pk.GRIDS:
+        assert torch.equal(pk.probe_tiny(x8, grid), pk.probe_tiny_plain(x8))
+    xb = _x(4096, pk.D, 4, cuda_device).to(torch.bfloat16)
+    out = pk.probe_resident(x8, xb)
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, pk.probe_resident_plain(x8, xb))

@@ -234,3 +234,45 @@ def test_wrapper_rejects_bad_inputs():
     meta = st.to("meta")
     with pytest.raises(ValueError, match="no spmm_stacked_resident kernel"):
         rk.spmm_stacked_resident(meta, torch.ones(256, 8, device="meta"))
+
+
+@pytest.mark.parametrize("mode", list(rk.ABLATIONS) + ["fixedrow", "sorted"])
+def test_ablation_wrapper_raises_on_cpu_and_unknown_mode(mode):
+    """B4's ablations (D1) run on the card only; the TPU modes that time a
+    shared accumulator's read-modify-write have no counterpart."""
+    s, r, w = _coo(256, 300, seed=9, integer=True)
+    m = bcsr.bcsr_from_coo(s, r, w, 256, block=128, tile_dtype=torch.int8)
+    st = rk.stack_bcsr(m, 1, 4).to("cpu")
+    x = torch.ones(256, 8)
+    match = "CUDA device only" if mode in rk.ABLATIONS else "mode must be one of"
+    with pytest.raises(ValueError, match=match):
+        rk._spmm_stacked_ablation(st, x, mode)
+
+
+def test_tensor_core_block_multiple():
+    """The tensor-core phase owns 128 tile rows a CTA: a B % 128 != 0
+    layout of bf16/int8 tiles is refused for the card before any launch;
+    f32 tiles (the scalar phase) and the CPU take B = 64."""
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match="B % 128"):
+        rk._check_mma_block(torch.int8, 64, cuda)
+    with pytest.raises(ValueError, match="B % 128"):
+        rk._check_mma_block(torch.bfloat16, 192, cuda)
+    rk._check_mma_block(torch.float32, 64, cuda)
+    rk._check_mma_block(torch.int8, 256, cuda)
+    rk._check_mma_block(torch.int8, 64, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_kernel_x_rounds_as_x_operand(tile_dtype):
+    """The phase kernel takes x at the tile compute type: f32 x is rounded
+    to bf16 once (nearest even) for bf16/int8/int4 tiles, as the plain
+    versions' ``x_operand`` rounds it; f32 tiles take x as given."""
+    from tpugraph_torch.ops.bcsr_kernels import x_operand
+
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((64, 12))
+                         .astype(np.float32))
+    xk = rk._kernel_x(x, tile_dtype)
+    assert xk.dtype == (torch.float32 if tile_dtype == torch.float32
+                        else torch.bfloat16)
+    assert torch.equal(xk.float(), x_operand(x, tile_dtype))

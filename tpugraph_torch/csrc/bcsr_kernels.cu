@@ -422,7 +422,7 @@ int spmm_bcsr(const void* tiles, int tile_kind, const void* col_blk, const void*
               const void* x, int x_bf16, void* y, int out_bf16, int n_row_blocks, int block,
               int d, void* stream) {
     const dim3 grid(n_row_blocks * (block / BM), (d + BN - 1) / BN);
-    const bool known = dispatch<false>(tile_kind, x_bf16, out_bf16, [&](auto k, auto xb, auto ob) {
+    const bool known = dispatch(tile_kind, x_bf16, out_bf16, [&](auto k, auto xb, auto ob) {
         spmm_bcsr_kernel<decltype(k)::value, decltype(xb)::value, decltype(ob)::value>
             <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
                 tiles, (const int32_t*)col_blk, (const int32_t*)row_ptr, x, y, block, d);
@@ -438,7 +438,7 @@ int sddmm_bcsr(const void* tiles, int tile_kind, const void* row_of, const void*
                int crossover, void* stream) {
     const dim3 grid(num_tiles * (block / BM) * (block / BN));
     const bool vec = d % 4 == 0 && (((uintptr_t)dy | (uintptr_t)x) & 15) == 0;
-    const bool known = dispatch<false>(tile_kind, vec, false, [&](auto k, auto v, auto) {
+    const bool known = dispatch(tile_kind, vec, false, [&](auto k, auto v, auto) {
         sddmm_bcsr_kernel<decltype(k)::value, decltype(v)::value>
             <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
                 tiles, (const int32_t*)row_of, (const int32_t*)col_blk, (const float*)dy,
@@ -453,7 +453,7 @@ int spmm_bcsr_packed(const void* tiles, int tile_kind, const void* col_blk,
                      const void* row_ptr, const void* x, int x_bf16, void* y, int out_bf16,
                      int n_row_blocks, int block, int d, int k_pack, void* stream) {
     const dim3 grid(n_row_blocks * (block / BM), (d + BN - 1) / BN);
-    const bool known = dispatch<false>(tile_kind, x_bf16, out_bf16, [&](auto k, auto xb, auto ob) {
+    const bool known = dispatch(tile_kind, x_bf16, out_bf16, [&](auto k, auto xb, auto ob) {
         spmm_bcsr_packed_kernel<decltype(k)::value, decltype(xb)::value, decltype(ob)::value>
             <<<grid, THREADS, 0, (cudaStream_t)stream>>>(
                 tiles, (const int32_t*)col_blk, (const int32_t*)row_ptr, x, y, block, d,

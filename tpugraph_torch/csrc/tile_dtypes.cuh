@@ -35,18 +35,6 @@ __device__ __forceinline__ float bf16_widen(uint16_t b) {
     return __uint_as_float((uint32_t)b << 16);
 }
 
-// entry (row, col) of a [*, B] tile matrix, widened to float; int4 is packed two a
-// byte, column c in the low nibble and column c + B/2 in the high nibble
-template <int KIND>
-__device__ __forceinline__ float tile_at(const void* tiles, size_t row, int col, int block) {
-    if (KIND == F32) return ((const float*)tiles)[row * block + col];
-    if (KIND == BF16) return bf16_widen(((const uint16_t*)tiles)[row * block + col]);
-    if (KIND == INT8) return (float)((const int8_t*)tiles)[row * block + col];
-    const int half = block / 2;
-    const uint8_t byte = ((const uint8_t*)tiles)[row * half + (col % half)];
-    return (float)(col < half ? (byte & 0xF) : (byte >> 4));
-}
-
 // storage type of an f32, bf16 or int8 tile entry
 template <int KIND>
 using tile_t = std::conditional_t<KIND == F32, float,
@@ -78,8 +66,8 @@ __device__ __forceinline__ void store_out(void* y, size_t i, float v) {
 
 // Calls f(kind, x_bf16, out_bf16) with each argument as a std::integral_constant,
 // so that f can instantiate a kernel template for this run-time combination.
-// Returns false for a tile kind the caller does not take (INT4 only WITH_INT4).
-template <bool WITH_INT4, typename F>
+// Returns false for any tile kind but F32, BF16 and INT8.
+template <typename F>
 bool dispatch(int kind, bool x_bf16, bool out_bf16, F&& f) {
     auto with_x_out = [&](auto k) {
         using T = std::true_type;
@@ -94,12 +82,6 @@ bool dispatch(int kind, bool x_bf16, bool out_bf16, F&& f) {
         case F32: with_x_out(std::integral_constant<int, F32>{}); return true;
         case BF16: with_x_out(std::integral_constant<int, BF16>{}); return true;
         case INT8: with_x_out(std::integral_constant<int, INT8>{}); return true;
-        case INT4:
-            if constexpr (WITH_INT4) {
-                with_x_out(std::integral_constant<int, INT4>{});
-                return true;
-            }
-            return false;
         default: return false;
     }
 }

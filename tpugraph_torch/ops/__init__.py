@@ -39,9 +39,14 @@ from tpugraph_torch.ops.resident_kernels import (  # noqa: F401
     stacked_matvec,
 )
 
-from tpugraph_torch.ops import bcsr_kernels, packets_kernels, resident_kernels  # noqa: E402
+from tpugraph_torch.ops import (  # noqa: E402
+    bcsr_kernels,
+    packets_kernels,
+    probe_kernels,
+    resident_kernels,
+)
 
-_KERNEL_MODULES = (bcsr_kernels, resident_kernels, packets_kernels)
+_KERNEL_MODULES = (bcsr_kernels, resident_kernels, packets_kernels, probe_kernels)
 
 
 def launch_counts() -> dict:

@@ -16,6 +16,8 @@ fused pair (B5) and power (B6) propagation kernels.
 * :func:`spmm_power_resident` — ``(hop_scale * A_t A)^hops @ x`` with bf16
   at every phase and hop boundary; replaces ``spmm_power_resident``
   (``:622``).
+* :func:`_spmm_stacked_ablation` — B4 (int8 tiles) in a diagnostic mode,
+  the counterpart of ``bench_resident_diag2.py:105 run_variant``.
 
 On a CUDA tensor each kernel wrapper launches the hand-written kernels of
 ``tpugraph_torch/csrc/resident_kernels.cu`` or raises; on a CPU tensor it
@@ -45,7 +47,9 @@ from tpugraph_torch.ops.bcsr_kernels import (TILE_KIND, check_float,
                                              out_dtype_of, x_operand)
 
 Array = Union[np.ndarray, torch.Tensor]
-_TILE_MULTIPLE = 64  # the kernel's CTA slice of a tile (BM = BN = 64)
+_TILE_MULTIPLE = 64  # the f32 kernel's CTA slice of a tile (64 rows)
+_MMA_MULTIPLE = 128  # the tensor-core kernel's (bf16/int8/int4 tiles: 128 rows)
+ABLATIONS = ("full", "dmaonly", "nodot", "noconvert")
 
 LAUNCHES: Dict[str, int] = {"spmm_stacked_resident": 0,
                             "spmm_pair_resident": 0,
@@ -256,8 +260,9 @@ def _lib():
         lib.spmm_power_resident.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, ci,
                                             vp, vp, vp, ci, ci, cf, ci, ci, ci,
                                             ci, vp]
+        lib.spmm_stacked_ablation.argtypes = [vp] * 6 + [ci] * 5 + [vp]
         for fn in (lib.spmm_stacked_resident, lib.spmm_pair_resident,
-                   lib.spmm_power_resident):
+                   lib.spmm_power_resident, lib.spmm_stacked_ablation):
             fn.restype = ci
         _bound = True
     return lib
@@ -281,6 +286,23 @@ def _check_layout(m: BCSRStacked, device) -> None:
             or m.slots.shape[0] != t * m.stack
             or m.row_ptr.shape[0] != m.num_row_blocks + 1):
         raise ValueError("col_blk / rows / row_ptr / slots do not match the tiles")
+    _check_mma_block(m.tiles.dtype, b, device)
+
+
+def _kernel_x(x: torch.Tensor, tile_dtype) -> torch.Tensor:
+    """x as the phase kernel takes it: as given for f32 tiles; bf16 for
+    the others (an f32 x rounded once a call, nearest even, as
+    ``x_operand`` does: the kernel stages half the bytes)."""
+    return x if tile_dtype == torch.float32 else x.to(torch.bfloat16)
+
+
+def _check_mma_block(tile_dtype, b: int, device) -> None:
+    """The tensor-core kernel (every tile type but f32) owns 128 tile rows
+    a CTA."""
+    if (torch.device(device).type == "cuda" and tile_dtype != torch.float32
+            and b % _MMA_MULTIPLE):
+        raise ValueError(f"the tensor-core kernel needs B % {_MMA_MULTIPLE} == 0 "
+                         f"for {tile_dtype} tiles, got B = {b}")
 
 
 def spmm_stacked_resident(m: BCSRStacked, x: torch.Tensor,
@@ -304,6 +326,7 @@ def spmm_stacked_resident(m: BCSRStacked, x: torch.Tensor,
     if m.num_row_blocks == 0:
         return y
     kind = 3 if m.packed4 else TILE_KIND[m.tiles.dtype]
+    x = _kernel_x(x, m.tiles.dtype)
     with torch.cuda.device(x.device):
         err = lib.spmm_stacked_resident(
             m.tiles.data_ptr(), kind, m.col_blk.data_ptr(),
@@ -313,6 +336,42 @@ def spmm_stacked_resident(m: BCSRStacked, x: torch.Tensor,
             m.stack, d, stream(x.device))
     raise_on(err, "spmm_stacked_resident")
     LAUNCHES["spmm_stacked_resident"] += 1
+    return y
+
+
+def _spmm_stacked_ablation(m: BCSRStacked, x: torch.Tensor,
+                           mode: str) -> torch.Tensor:
+    """B4's tensor-core phase (int8 tiles, f32 output) in one of its
+    diagnostic modes, the counterpart of ``bench_resident_diag2.py:105
+    run_variant``: ``full`` (B4 itself); ``dmaonly`` (the tile strips stream
+    in, no x, no MMA; zeros plus a token are written); ``nodot`` (tile strips
+    and x stream in, no MMA); ``noconvert`` (the same bytes
+    and MMAs without the int8 -> bf16 widening; the values are not B4's).
+    The TPU modes ``fixedrow``, ``storeonly`` and ``sorted`` time the
+    read-modify-write of a shared accumulator, which row ownership does not
+    have.  CUDA only; x float32 (rounded to bf16 as B4 rounds it) or
+    bfloat16 with 16-byte rows; no launch is counted."""
+    if mode not in ABLATIONS:
+        raise ValueError(f"mode must be one of {ABLATIONS}, got {mode!r}")
+    _check_layout(m, x.device)
+    check_float("x", x, 2, x.device)
+    if x.device.type != "cuda":
+        raise ValueError("the B4 ablations run on a CUDA device only")
+    n, d = x.shape
+    x = _kernel_x(x, m.tiles.dtype)
+    if (m.packed4 or m.tiles.dtype != torch.int8 or n != m.num_nodes
+            or d % 8 or x.data_ptr() % 16):
+        raise ValueError("the ablations take int8 tiles and an x of "
+                         f"[{m.num_nodes}, D % 8 == 0], 16-byte aligned")
+    y = torch.empty((m.num_row_nodes, d), dtype=torch.float32, device=x.device)
+    if m.num_row_blocks == 0:
+        return y
+    with torch.cuda.device(x.device):
+        err = _lib().spmm_stacked_ablation(
+            m.tiles.data_ptr(), m.col_blk.data_ptr(), m.row_ptr.data_ptr(),
+            m.slots.data_ptr(), x.data_ptr(), y.data_ptr(), m.num_row_blocks,
+            m.block, m.stack, d, ABLATIONS.index(mode), stream(x.device))
+    raise_on(err, "spmm_stacked_ablation")
     return y
 
 
@@ -473,6 +532,7 @@ def _check_pair(pair: BCSRPair, x: torch.Tensor, k_pack: int,
     out_dtype = out_dtype_of(out_dtype)
     if device.type == "cuda" and b % _TILE_MULTIPLE:
         raise ValueError(f"the kernels need B % {_TILE_MULTIPLE} == 0, got {b}")
+    _check_mma_block(pair.tiles.dtype, b, device)
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no pair kernels for device {device}")
     return out_dtype
@@ -496,6 +556,7 @@ def spmm_pair_resident(pair: BCSRPair, x: torch.Tensor, k_pack: int = 128,
     if x.device.type == "cpu":
         return spmm_pair_resident_plain(pair, x, out_dtype)
     lib = _lib()
+    x = _kernel_x(x, pair.tiles.dtype)
     d, b = x.shape[1], pair.block
     ybuf = torch.empty((pair.num_mid_nodes, d), dtype=torch.bfloat16,
                        device=x.device)
@@ -527,6 +588,7 @@ def spmm_power_resident(pair: BCSRPair, x: torch.Tensor, hops: int,
     if x.device.type == "cpu":
         return spmm_power_resident_plain(pair, x, hops, out_dtype, hop_scale)
     lib = _lib()
+    x = _kernel_x(x, pair.tiles.dtype)
     d, b = x.shape[1], pair.block
     mid = torch.empty((pair.num_mid_nodes, d), dtype=torch.bfloat16,
                       device=x.device)
