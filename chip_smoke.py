@@ -13,7 +13,10 @@ nvcc per source, sm_90a, all started together), then:
    65,536 nodes, +-1,024 band, 16 neighbours a node, D = 128), and times
    the kernel, the plain version and, where one exists, a single PyTorch
    library call computing the same function (a yardstick only; the port
-   never calls it);
+   never calls it); then B2 on ``b2-mixed`` tiles with a crossover sweep,
+   and B1/B3 on ``b1-mixed`` tiles (0-90% full, int8 weights in [-127,
+   127]) by default and with each branch forced, and B1's crossover sweep
+   (``B1 crossover``);
 2. train — ``train_node_classifier`` on syn1 (seed 0) at its published
    widths (10 -> 20 -> 20 -> 20, 3 GraphConv layers, 4 classes), 1000
    epochs on the BCSR path; first holds 20 epochs on the card against the
@@ -42,7 +45,8 @@ nvcc per source, sm_90a, all started together), then:
    16,384-node copy of the graph (D4), printed as ``resident_ablation``.  Small-shape variants (B4 with bf16 tiles, stack=2, int4,
    bf16 x and a bf16 output; B7 with f32 compute) are checked on the
    reduced graph, and the B1/B3 dtype options (int8 tiles, bf16 x, f32
-   and bf16 outputs) on the full one;
+   and bf16 outputs) on the full one, with B1 against B4 on the same int8
+   weights (``B1 int8 vs B4 int8``);
 5. diffuse — the repo's diffusion configuration (``bench.py:263-283``) on
    the same power-law graph: ``DiffusionOperator(g, block=256)``
    sym-normalized (bf16 tiles, 8 hops) and unnormalized (int8 tiles,
@@ -381,7 +385,17 @@ def measure_spmm(shape, m, x, out_dtype=None):
         "spmm_bcsr", shape, d, lambda: bk.spmm_bcsr(m, x, out_dtype),
         lambda: bk.spmm_bcsr_plain(m, x, out_dtype), lambda: library_spmm(m, x),
         nbytes, 2.0 * nnz * d, peak, max_row_tiles * b,
-        extra={"tiles": t, "nnz": nnz, **labels})
+        extra={"tiles": t, "nnz": nnz, **labels, **_branches(m, d)})
+
+
+def _branches(m, d):
+    """The shares of B1/B3's strips that are empty, take the sparse branch
+    and take the dense one at this width (the wrapper's crossover)."""
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    sh = bk.branch_shares(m, d)
+    return {"strips_empty": round(sh["empty"], 5), "strips_sparse": round(sh["sparse"], 5),
+            "strips_dense": round(sh["dense"], 5)}
 
 
 def measure_kernels(shape_name, m, d, gen):
@@ -411,29 +425,32 @@ def measure_kernels(shape_name, m, d, gen):
     }
 
 
-def random_tiles(n_tiles, density, tile_dtype, gen, n_rb=512, per_rb=4):
-    """``n_tiles`` 128^2 tiles on the card, ``per_rb`` a row block over
-    ``n_rb`` row blocks (65,536 nodes), at random column blocks, each
-    entry nonzero with probability ``density`` (a number or one per
-    tile); N(0,1) values, integers in [-3, 3] for int8."""
+def random_tiles(n_tiles, density, tile_dtype, gen, n_rb=512, per_rb=4, int8_max=3,
+                 block=128):
+    """``n_tiles`` block^2 tiles on the card, ``per_rb`` a row block over
+    ``n_rb`` row blocks (65,536 nodes at block 128), at random column
+    blocks, each entry nonzero with probability ``density`` (a number or
+    one per tile); N(0,1) values, integers in [-int8_max, int8_max] for
+    int8."""
     import torch
 
     from tpugraph_torch.ops import bcsr
 
     dev = torch.device("cuda")
+    shape = (n_tiles, block, block)
     dens = torch.as_tensor(density, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
-    keep = torch.rand((n_tiles, 128, 128), generator=gen, device=dev) < dens
+    keep = torch.rand(shape, generator=gen, device=dev) < dens
     if tile_dtype == torch.int8:
-        vals = torch.randint(-3, 4, (n_tiles, 128, 128), generator=gen, device=dev)
+        vals = torch.randint(-int8_max, int8_max + 1, shape, generator=gen, device=dev)
     else:
-        vals = torch.randn((n_tiles, 128, 128), generator=gen, device=dev)
+        vals = torch.randn(shape, generator=gen, device=dev)
     tiles = (vals * keep).to(tile_dtype)
     t = torch.arange(n_tiles, device=dev, dtype=torch.int32)
     return bcsr.BCSR(
         tiles=tiles, col_blk=torch.randint(0, n_rb, (n_tiles,), generator=gen,
                                            device=dev, dtype=torch.int32),
         row_ptr=torch.arange(0, n_tiles + 1, per_rb, device=dev, dtype=torch.int32),
-        row_of=t // per_rb, num_nodes=n_rb * 128, block=128)
+        row_of=t // per_rb, num_nodes=n_rb * block, block=block, longest_list=per_rb)
 
 
 def b2_branches(gen):
@@ -504,6 +521,89 @@ def b2_crossover(gen):
     return out
 
 
+def b1_branches(gen):
+    """B1 and B3 against their plain versions where one launch runs both
+    branches: 256 tiles of 128^2 whose densities run from 0 (dead tiles) to
+    90% (int8 weights in [-127, 127]), so their strips fall on both sides
+    of the crossover; every tile dtype at D = 10, 20 and 128, f32 x; then
+    each branch forced (``_spmm_bcsr_crossover``), held the same way, and
+    the two forced outputs compared bit for bit; B3 on the same tiles
+    (every row block already holds 4 tiles: k_pack 4).  Then the block
+    sizes whose tile rows are not whole 256-byte strips (B = 192 for every
+    tile dtype, 320 for int8; 64 tiles, D = 20 and 128), held the same
+    way."""
+    import torch
+
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    dens = torch.tensor([0.0, 0.002, 0.01, 0.05, 0.2, 0.5, 0.9, 0.03]).repeat(32)
+    recs = {"spmm_bcsr": [], "spmm_bcsr_packed": []}
+    cases = [(t, 128, 256, (10, 20, 128)) for t in (torch.float32, torch.bfloat16, torch.int8)]
+    cases += [(t, 192, 64, (20, 128)) for t in (torch.float32, torch.bfloat16, torch.int8)]
+    cases += [(torch.int8, 320, 64, (20, 128))]
+    for tile_dtype, block, n_tiles, widths in cases:
+        shape = "b1-mixed" if block == 128 else f"b1-mixed-B{block}"
+        m = random_tiles(n_tiles, dens[:n_tiles], tile_dtype, gen, n_rb=n_tiles // 4,
+                         int8_max=127, block=block)
+        for d in widths:
+            x = torch.randn((m.num_nodes, d), generator=gen, device="cuda")
+            recs["spmm_bcsr"].append(measure_spmm(shape, m, x))
+            recs["spmm_bcsr_packed"].append(measure_packed(shape, m, 4, x))
+            nbytes, peak, labels = _dtype_extra(m, x, None)
+            nnz = int((m.tiles != 0).sum())
+            forced = {}
+            for tag, c in (("dense", -1), ("sparse", 1 << 20)):
+                recs["spmm_bcsr"].append(measure_case(
+                    "spmm_bcsr", f"{shape}-{tag}", d,
+                    lambda c=c: bk._spmm_bcsr_crossover(m, x, c),
+                    lambda: bk.spmm_bcsr_plain(m, x), None, nbytes, 2.0 * nnz * d,
+                    peak, 4 * block, iters=5, extra={**labels, "forced": tag}))
+                forced[tag] = bk._spmm_bcsr_crossover(m, x, c)
+            check(bool(torch.equal(forced["dense"], forced["sparse"])),
+                  f"B1 forced branches differ ({tile_dtype}, B={block}, D={d})")
+    return recs
+
+
+def b1_crossover(gen):
+    """The strip density at which B1's sparse branch stops beating its dense
+    one: 2,048 tiles of 128^2 (65,536 nodes) at a uniform random density,
+    each branch forced; f32 tiles at D = 20 and 128, int8 tiles at D = 128.
+    Returns the nonzeros of a strip (8 rows x strip_k) where the two times
+    cross (interpolated), per case."""
+    import torch
+
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    out = {}
+    for tile_dtype, d in ((torch.float32, 20), (torch.float32, 128), (torch.int8, 128)):
+        strip = 8 * bk.strip_k(tile_dtype, 128)
+        rows = []
+        for dens in (0.01, 0.03, 0.1, 0.2, 0.3, 0.45, 0.6, 0.9):
+            m = random_tiles(2048, dens, tile_dtype, gen, int8_max=127)
+            x = torch.randn((m.num_nodes, d), generator=gen, device="cuda")
+            sp = time_ms(lambda: bk._spmm_bcsr_crossover(m, x, 1 << 20), iters=11)
+            de = time_ms(lambda: bk._spmm_bcsr_crossover(m, x, -1), iters=11)
+            rows.append((dens * strip, sp, de))
+            del m, x
+        torch.cuda.empty_cache()
+        cross = None
+        for (n0, s0, d0), (n1, s1, d1) in zip(rows, rows[1:]):
+            if s0 <= d0 and s1 > d1:
+                f = (d0 - s0) / ((d0 - s0) + (s1 - d1))
+                cross = n0 + f * (n1 - n0)
+                break
+        key = f"{str(tile_dtype).split('.')[1]}_D{d}"
+        out[key] = {"nnz_per_strip": cross, "strip_entries": strip,
+                    "wrapper": bk.spmm_crossover(d, tile_dtype, 128), "sweep": [
+                        {"nnz_per_strip": n, "sparse_ms": s, "dense_ms": e}
+                        for n, s, e in rows]}
+        print(f"  B1 crossover {key}: sparse below ~{cross} nonzeros of a {strip}-entry "
+              f"strip (wrapper {bk.spmm_crossover(d, tile_dtype, 128)}); "
+              + " ".join(f"{n:.0f}:{s:.3f}/{e:.3f}" for n, s, e in rows)
+              + " (nnz: sparse/dense ms)", flush=True)
+    return out
+
+
 def measure_packed(shape, m, k_pack, x, out_dtype=None):
     """B3 against its plain version on a k_pack-padded BCSR."""
     from tpugraph_torch.ops import bcsr_kernels as bk
@@ -518,7 +618,7 @@ def measure_packed(shape, m, k_pack, x, out_dtype=None):
         lambda: bk.spmm_bcsr_packed_plain(m, x, k_pack, out_dtype),
         lambda: library_spmm(m, x),
         nbytes, 2.0 * nnz * d, peak, max_row_tiles * b,
-        extra={"tiles": t, "nnz": nnz, "k_pack": k_pack, **labels})
+        extra={"tiles": t, "nnz": nnz, "k_pack": k_pack, **labels, **_branches(m, d)})
 
 
 def measure_stacked(shape, st, x, out_dtype=None):
@@ -897,10 +997,15 @@ def phase_lowloc(report, gen):
 def dtype_cases(g):
     """The B1/B3 dtype options on the power-law graph at block 256, D = 128:
     B1 on int8 tiles with bf16 x, B3 (k_pack 4) on int8 tiles with f32 x,
-    each at an f32 and a bf16 output."""
+    each at an f32 and a bf16 output; and B1 against B4 (stack 1, the
+    resident format's layout) on the same int8 weights and bf16 x, timed in
+    turns (B1, B4, B4, B1)."""
     import torch
 
     from tpugraph_torch.ops import bcsr
+    from tpugraph_torch.ops import bcsr_kernels as bk
+    from tpugraph_torch.ops import resident_kernels as rk
+    from tpugraph_torch.train.loop import _RESIDENT_K_PACK
 
     s, r, w = (t.numpy() for t in (g.senders, g.receivers, g.edge_weight))
     n = g.num_nodes_padded
@@ -908,10 +1013,22 @@ def dtype_cases(g):
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn((n, LOWLOC_D), generator=gen, device="cuda")
     out = {"spmm_bcsr": [], "spmm_bcsr_packed": []}
-    m = bcsr.bcsr_from_coo(s, r, w, n, block=LOWLOC_BLOCK,
-                           tile_dtype=torch.int8).to("cuda")
+    m_host = bcsr.bcsr_from_coo(s, r, w, n, block=LOWLOC_BLOCK, tile_dtype=torch.int8)
+    m = m_host.to("cuda")
+    xb = x.to(torch.bfloat16)
     for od in (torch.float32, torch.bfloat16):
-        out["spmm_bcsr"].append(measure_spmm(shape, m, x.to(torch.bfloat16), od))
+        out["spmm_bcsr"].append(measure_spmm(shape, m, xb, od))
+    st = rk.stack_bcsr(m_host, stack=1, k_pack=_RESIDENT_K_PACK).to("cuda")
+    del m_host
+    b1 = lambda: bk.spmm_bcsr(m, xb)
+    b4 = lambda: rk.spmm_stacked_resident(st, xb)
+    turns = [time_ms(f) for f in (b1, b4, b4, b1)]
+    out["b1_vs_b4"] = {"b1_ms": [turns[0], turns[3]], "b4_ms": [turns[1], turns[2]],
+                       "b1_tiles": m.num_tiles, "b4_tiles": st.num_tiles}
+    print(f"  B1 int8 vs B4 int8 (stack 1) on {shape}, bf16 x, D={LOWLOC_D}, in turns: "
+          f"B1 {turns[0]:.4f} / {turns[3]:.4f} ms ({m.num_tiles} tiles), B4 "
+          f"{turns[1]:.4f} / {turns[2]:.4f} ms ({st.num_tiles} tiles)", flush=True)
+    del st
     m = bcsr.bcsr_from_coo(s, r, w, n, block=LOWLOC_BLOCK, tile_dtype=torch.int8,
                            pad_rows_to=4).to("cuda")
     for od in (torch.float32, torch.bfloat16):
@@ -1187,6 +1304,8 @@ def main() -> int:
           f"{ {d: bk.sddmm_crossover(d) for d in crossover} } nonzeros a 64^2 "
           f"sub-tile by D (measured here: "
           f"{ {d: c['nnz_per_subtile'] for d, c in crossover.items()} })", flush=True)
+    b1_mixed = b1_branches(gen)
+    b1_cross = b1_crossover(gen)
 
     # ---- phase 2: training (first 20 epochs held against the CPU)
     print("phase train", flush=True)
@@ -1301,7 +1420,8 @@ def main() -> int:
         "spmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
                       [sh["spmm_bcsr"] for sh in shapes] + [low["shapes"]["tiles"],
-                       banded["shapes"]["spmm_bcsr"]] + dtypes["spmm_bcsr"]),
+                       banded["shapes"]["spmm_bcsr"]] + dtypes["spmm_bcsr"]
+                      + b1_mixed["spmm_bcsr"]),
         "sddmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                        "tpugraph/ops/pallas_spmm.py:175", shapes[1]["sddmm_bcsr"],
                        [sh["sddmm_bcsr"] for sh in shapes]
@@ -1309,7 +1429,8 @@ def main() -> int:
         "spmm_bcsr_packed": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                              "tpugraph/ops/pallas_spmm.py:312",
                              low["shapes"]["k_pack4"],
-                             [low["shapes"]["k_pack4"]] + dtypes["spmm_bcsr_packed"]),
+                             [low["shapes"]["k_pack4"]] + dtypes["spmm_bcsr_packed"]
+                             + b1_mixed["spmm_bcsr_packed"]),
         "spmm_stacked_resident": (
             "tpugraph_torch/csrc/resident_kernels.cu",
             "tpugraph/ops/pallas_resident.py:281", low["shapes"]["resident"],
@@ -1338,6 +1459,7 @@ def main() -> int:
         "probe_tiny": {"launch_probes": probes["record"]},
         "sddmm_bcsr": {"crossover": {d: bk.sddmm_crossover(d) for d in crossover},
                        "crossover_measured": crossover},
+        "spmm_bcsr": {"crossover_measured": b1_cross, "b1_vs_b4": dtypes["b1_vs_b4"]},
         "spmm_packets": {
             "reduce_launches": sum(c["spmm_packets_reduce"] for c in paths.values()),
             "packets_ablation": low["packets_ablation"]},

@@ -33,11 +33,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _coo(n, e, seed, integer=False):
+def _coo(n, e, seed, integer=False, signed=False):
+    """Random edges; ``integer`` weights in [1, 4), or with ``signed`` the
+    whole int8 range [-127, 127] (the packer clips duplicate sums to it)."""
     rng = np.random.default_rng(seed)
     s = rng.integers(0, n, e).astype(np.int32)
     r = rng.integers(0, n, e).astype(np.int32)
-    w = (rng.integers(1, 4, e) if integer else rng.standard_normal(e))
+    if signed:
+        w = rng.integers(-127, 128, e)
+    else:
+        w = (rng.integers(1, 4, e) if integer else rng.standard_normal(e))
     return s, r, w.astype(np.float32)
 
 
@@ -396,14 +401,18 @@ def test_spmm_stacked_resident_bf16_x_matches_plain(cuda_device, tile_dtype):
     assert float((y - ref).abs().max()) <= _f32_tol(ref, 4 * 128)
 
 
-def _pair(tile_dtype, n_rows, n_cols, seed):
-    """The pair of A (n_cols -> n_rows) and A^T at block 128."""
+def _pair(tile_dtype, n_rows, n_cols, seed, signed=False):
+    """The pair of A (n_cols -> n_rows) and A^T at block 128; int8 weights
+    in [1, 4), or in [-127, 127] with ``signed``."""
     rng = np.random.default_rng(seed)
     e = 4000
     s = rng.integers(0, n_cols, e).astype(np.int32)
     r = rng.integers(0, n_rows, e).astype(np.int32)
-    w = (rng.integers(1, 4, e) if tile_dtype == torch.int8
-         else rng.standard_normal(e)).astype(np.float32)
+    if signed:
+        w = rng.integers(-127, 128, e).astype(np.float32)
+    else:
+        w = (rng.integers(1, 4, e) if tile_dtype == torch.int8
+             else rng.standard_normal(e)).astype(np.float32)
     kw = {} if n_rows == n_cols else {"num_col_nodes": n_cols}
     kw_t = {} if n_rows == n_cols else {"num_col_nodes": n_rows}
     st = rk.stack_bcsr(bcsr.bcsr_from_coo(s, r, w, n_rows, block=128,
@@ -569,3 +578,191 @@ def test_resident_ablations_and_probes_run(cuda_device):
     out = pk.probe_resident(x8, xb)
     assert bool(torch.isfinite(out).all())
     assert torch.equal(out, pk.probe_resident_plain(x8, xb))
+
+
+# ------------------------------------------------ B1 / B3: the support-driven kernel
+
+MIXED_DENSITY = [0.9, 0.002, 0.0, 0.3, 0.02, 0.1, 0.6, 0.01, 0.45, 0.05, 0.2, 0.75]
+
+
+def _mixed_bcsr(tile_dtype, block, k_pack, device, seed=4):
+    """Four row blocks over 8 column blocks holding 7, 0, 2 and 3 tiles
+    whose densities run from 0 (a dead tile) to 90% (``MIXED_DENSITY``),
+    so that the kernel's strips fall on both sides of its crossover; each
+    row block padded to ``k_pack`` tiles with dead ones (the empty row
+    block gets ``k_pack`` of them).  N(0, 1) values, integers in
+    [-127, 127] for int8."""
+    rng = np.random.default_rng(seed)
+    tiles, col, row, ptr = [], [], [], [0]
+    j = 0
+    for rb, count in enumerate((7, 0, 2, 3)):
+        cbs = np.sort(rng.choice(8, count, replace=False))
+        for q in range(max(k_pack, -(-count // k_pack) * k_pack)):
+            t = np.zeros((block, block), np.float32)
+            if q < count:
+                keep = rng.random((block, block)) < MIXED_DENSITY[j % 12]
+                j += 1
+                vals = (rng.integers(-127, 128, (block, block))
+                        if tile_dtype == torch.int8
+                        else rng.standard_normal((block, block)))
+                t = (vals * keep).astype(np.float32)
+            tiles.append(t)
+            col.append(cbs[q] if q < count else 0)
+            row.append(rb)
+        ptr.append(len(tiles))
+    i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32)
+    return bcsr.BCSR(tiles=torch.from_numpy(np.stack(tiles)).to(tile_dtype),
+                     col_blk=i32(col), row_ptr=i32(ptr), row_of=i32(row),
+                     num_nodes=8 * block, block=block).to(device)
+
+
+def _spmm(m, x, k_pack, out_dtype=None):
+    if k_pack > 1:
+        return bcsr_kernels.spmm_bcsr_packed(m, x, k_pack, out_dtype)
+    return bcsr_kernels.spmm_bcsr(m, x, out_dtype)
+
+
+def _spmm_row_tol(m, ref, out_dtype):
+    """f32 sums of a row's terms in another order (1e-5 * sqrt(K) of the
+    row's largest |value|, K the longest row block's tiles x B), plus one
+    bf16 ulp of the value for a bf16 output."""
+    k = int((m.row_ptr[1:] - m.row_ptr[:-1]).max()) * m.block
+    return _row_tol(ref, k, out_dtype)
+
+
+# every tile dtype at B = 64, 192 and 256, and int8 at 320: 192 and 320 are
+# the blocks whose tile rows are not whole 256-byte strips for some dtypes
+ODD_BLOCKS = [(t, b) for t in TILES for b in (64, 192, 256)] + [(torch.int8, 320)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_pack", [1, 4])
+@pytest.mark.parametrize("tile_dtype,block", ODD_BLOCKS)
+def test_spmm_bcsr_branches_match_plain(cuda_device, tile_dtype, k_pack, block):
+    """B1 (k_pack 1) and B3 (k_pack 4) on strips from empty to 90% full,
+    every tile dtype (int8 weights in [-127, 127]) at B = 64, 192 and 256
+    (int8 also 320), f32 and bf16 x and
+    output, D = 10, 20, 128 and 130: the default crossover and each forced
+    branch, at every cluster size (1, 2, 4 and 8 CTAs a slab), against both
+    plain versions; the two forced branches give the same bits (both add
+    in ascending k; zero products change no finite sum); only the default
+    launch is counted."""
+    m = _mixed_bcsr(tile_dtype, block, k_pack, cuda_device)
+    key = "spmm_bcsr_packed" if k_pack > 1 else "spmm_bcsr"
+    for d in (10, 20, 128, 130):
+        for x_dtype in FLOATS:
+            x = _x(m.num_nodes, d, d, cuda_device).to(x_dtype)
+            ref = bcsr_kernels.spmm_bcsr_plain(m, x)
+            support = bcsr_kernels.spmm_bcsr_support_plain(m, x)
+            for out_dtype in FLOATS:
+                before = dict(bcsr_kernels.LAUNCHES)
+                y = _spmm(m, x, k_pack, out_dtype)
+                dense = bcsr_kernels._spmm_bcsr_crossover(m, x, -1, k_pack)
+                sparse = bcsr_kernels._spmm_bcsr_crossover(m, x, 1 << 20, k_pack)
+                torch.cuda.synchronize()
+                assert bcsr_kernels.LAUNCHES == {
+                    k: v + (k == key) for k, v in before.items()}
+                assert y.dtype == out_dtype and y.shape == (m.num_row_nodes, d)
+                assert torch.equal(dense, sparse), (d, x_dtype)
+                tol = _spmm_row_tol(m, ref, out_dtype)
+                # every cluster size: a CTA alone, or 2 / 4 / 8 sharing a slab
+                alone = [bcsr_kernels._spmm_bcsr_crossover(m, x, c, k_pack, cl)
+                         for cl in (1, 2, 4, 8) for c in (-1, 1 << 20)]
+                torch.cuda.synchronize()
+                for a, b in zip(alone[::2], alone[1::2]):
+                    assert torch.equal(a, b), (d, x_dtype)
+                for got in (y, dense, sparse, *alone):
+                    for r in (ref, support):
+                        err = (got.float() - r).abs()
+                        assert bool((err <= tol).all()), (d, x_dtype, out_dtype,
+                                                          float(err.max()))
+                assert bool((y[block:2 * block] == 0).all())  # the empty row block
+    shares = bcsr_kernels.branch_shares(m, 128)
+    assert shares["sparse"] > 0 and shares["dense"] > 0 and shares["empty"] > 0
+
+
+def _hub_bcsr(tile_dtype, k_pack, device, block=128):
+    """32 column blocks of ``block`` nodes (4,096 nodes at block 128): row
+    block 0 reads every column block (32 tiles, against about 9 for the
+    others, so each rank of the cluster of 8 takes 4), row block 5 is
+    empty; int8 weights in [-127, 127]."""
+    rng = np.random.default_rng(12)
+    n = 32 * block
+    s = np.concatenate([rng.integers(0, n, 3000), rng.integers(0, n, 300)])
+    r = np.concatenate([rng.integers(0, block, 3000), rng.integers(0, n, 300)])
+    keep = r // block != 5
+    s, r = s[keep].astype(np.int32), r[keep].astype(np.int32)
+    w = (rng.integers(-127, 128, s.size) if tile_dtype == torch.int8
+         else rng.standard_normal(s.size)).astype(np.float32)
+    return bcsr.bcsr_from_coo(s, r, w, n, block=block, tile_dtype=tile_dtype,
+                              pad_rows_to=k_pack if k_pack > 1 else None).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_pack", [1, 4])
+@pytest.mark.parametrize("tile_dtype,block",
+                         [(t, b) for t in TILES for b in (128, 192)] + [(torch.int8, 320)])
+def test_spmm_bcsr_hub_split_matches_plain(cuda_device, tile_dtype, k_pack, block):
+    """B1/B3 where row block 0's list is over 3x the mean and split over the
+    cluster's 8 CTAs, with an empty row block, at D = 10, 20, 128 and 130,
+    B = 128 and 192 (int8 also 320); a second launch gives the same bytes."""
+    m = _hub_bcsr(tile_dtype, k_pack, cuda_device, block)
+    lists = (m.row_ptr[1:] - m.row_ptr[:-1]).cpu()
+    assert int(lists[0]) >= 32 and int(lists[0]) > 3 * float(lists.float().mean())
+    assert m.longest_list == int(lists.max())  # counted by the packer on the host
+    for d in (10, 20, 128, 130):
+        for x_dtype in FLOATS:
+            x = _x(m.num_nodes, d, d, cuda_device).to(x_dtype)
+            ref = bcsr_kernels.spmm_bcsr_plain(m, x)
+            y = _spmm(m, x, k_pack)
+            again = _spmm(m, x, k_pack)
+            torch.cuda.synchronize()
+            assert torch.equal(y, again), (d, x_dtype)
+            err = (y - ref).abs()
+            assert bool((err <= _spmm_row_tol(m, ref, torch.float32)).all()), (
+                d, x_dtype, float(err.max()))
+            assert bool((y[5 * block:6 * block] == 0).all())  # the empty row block
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", [1, 2])
+def test_spmm_stacked_resident_negative_int8_matches_plain(cuda_device, stack):
+    """B4's tensor-core phase on int8 weights across [-127, 127] (the sign
+    branch of its exact widening), stack 1 and 2, f32 and bf16 output."""
+    s, r, w = _coo(512, 3000, seed=20 + stack, signed=True)
+    assert (w < 0).any() and w.min() <= -100
+    m = bcsr.bcsr_from_coo(s, r, w, 512, block=128, tile_dtype=torch.int8)
+    assert int(m.tiles.min()) <= -100
+    st = rk.stack_bcsr(m, stack=stack, k_pack=4).to(cuda_device)
+    for d in (128, 20):
+        x = _x(st.num_nodes, d, d, cuda_device)
+        ref = rk.spmm_stacked_resident_plain(st, x)
+        for out_dtype in FLOATS:
+            y = rk.spmm_stacked_resident(st, x, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            err = (y.float() - ref).abs()
+            tol = _f32_tol(ref, 4 * 128)
+            if out_dtype == torch.bfloat16:
+                tol = tol + BF16_REL * ref.abs()
+            assert bool((err <= tol).all()), (d, out_dtype, float(err.max()))
+
+
+@pytest.mark.cuda
+def test_spmm_pair_and_power_negative_int8_match_plain(cuda_device):
+    """B5 and B6 on int8 pairs whose weights span [-127, 127]."""
+    pair = _pair(torch.int8, 640, 640, seed=3, signed=True).to(cuda_device)
+    assert int(pair.tiles.min()) <= -100
+    for x_dtype in FLOATS:
+        x = _x(pair.num_nodes, 128, 7, cuda_device).to(x_dtype)
+        for out_dtype in FLOATS:
+            y = rk.spmm_pair_resident(pair, x, k_pack=4, out_dtype=out_dtype)
+            ref = rk.spmm_pair_resident_plain(pair, x, out_dtype).float()
+            err = (y.float() - ref).abs()
+            assert bool((err <= _pair_tol(ref, 2)).all()), (
+                x_dtype, out_dtype, float(err.max()))
+            y = rk.spmm_power_resident(pair, x, 2, k_pack=4, out_dtype=out_dtype,
+                                       hop_scale=1e-5)
+            ref = rk.spmm_power_resident_plain(pair, x, 2, out_dtype, 1e-5).float()
+            err = (y.float() - ref).abs()
+            assert bool((err <= _pair_tol(ref, 5)).all()), (
+                x_dtype, out_dtype, float(err.max()))

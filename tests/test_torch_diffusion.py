@@ -333,3 +333,34 @@ def test_pair_wrappers_reject_bad_inputs():
     assert rk.spmm_pair_resident(rect.to("cpu"), x, k_pack=KP).shape == (40, 8)
     with pytest.raises(ValueError, match="no pair kernels"):
         rk.spmm_pair_resident(pr.to("meta"), x.to("meta"), k_pack=KP)
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_diffuse_block8_matches_tpugraph(normalize):
+    """``diffuse`` (sym-normalized, bf16 tiles, 3 hops) and the unnormalized
+    ``DiffusionOperator`` (int8 tiles, 2 hops) at block 8, as
+    tests/test_resident.py:288 and :307 run tpugraph's, against tpugraph's
+    on the same graph and x: int8 bit for bit, bf16 within one bf16 ulp of
+    max|ref| per rounding point (2 a hop and the output)."""
+    rng = np.random.default_rng(5)
+    n, d = 48, 128
+    a = np.triu((rng.random((n, n)) < 0.2).astype(np.float32), 1)
+    a = a + a.T
+    g_j, g_t = jax_graph_from_dense(a), graph_from_dense(a)
+    x = (rng.standard_normal((n, d)) * 0.3).astype(np.float32)
+    if normalize:
+        hops, tile_dtype = 3, torch.bfloat16
+        ref = jax_diffusion.diffuse(g_j, jnp.asarray(x), hops, block=8)
+        got = diffuse(g_t, torch.from_numpy(x), hops, block=8, device="cpu")
+    else:
+        hops, tile_dtype = 2, torch.int8
+        op_j = jax_diffusion.DiffusionOperator(g_j, block=8, normalize=False)
+        op = DiffusionOperator(g_t, block=8, normalize=False, device="cpu")
+        assert op.pair.tiles.dtype == tile_dtype and op.hop_scale == op_j.hop_scale
+        x_p = np.zeros((op.num_nodes, d), np.float32)
+        x_p[:n] = x
+        ref = op_j(jnp.asarray(x_p), hops)
+        got = op(torch.from_numpy(x_p), hops)
+    ref = np.asarray(ref.astype(jnp.float32))
+    assert tuple(got.shape) == ref.shape and got.dtype == torch.bfloat16
+    _check(got, ref, tile_dtype, 2 * hops + 1)

@@ -365,3 +365,182 @@ def test_sddmm_support_dtypes_match_pallas(tile_dtype):
     with pytest.raises(ValueError):
         bcsr_kernels.sddmm_bcsr(m_t, torch.from_numpy(dy).bfloat16(),
                                 torch.from_numpy(x))
+
+
+def _support_spmm_case(tile_dtype, block, k_pack, seed):
+    """Three row blocks at ``block`` whose last is empty (rows < 2 * block),
+    tiles at ``tile_dtype`` (int8 weights in [-127, 127]), row blocks padded
+    to ``k_pack`` with dead tiles; packed by both packages."""
+    rng = np.random.default_rng(seed)
+    n, e = 3 * block, 40 * block
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = rng.integers(0, 2 * block, e).astype(np.int32)
+    w = (rng.integers(-127, 128, e) if tile_dtype == torch.int8
+         else rng.standard_normal(e)).astype(np.float32)
+    kw = dict(block=block, pad_rows_to=k_pack if k_pack > 1 else None)
+    m_j = jax_bcsr.bcsr_from_coo(s, r, w, n, tile_dtype=JAX_DT[tile_dtype],
+                                 device=False, **kw)
+    m_t = bcsr.bcsr_from_coo(s, r, w, n, tile_dtype=tile_dtype, **kw).to("cpu")
+    return m_j, m_t
+
+
+@pytest.mark.parametrize("k_pack", [1, 4])
+@pytest.mark.parametrize("block", [64, 128, 256])
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_spmm_support_plain_matches_plain_and_pallas(tile_dtype, block, k_pack):
+    """The kernel-order plain B1/B3 (nonzeros gathered in (row block, tile,
+    row, k) order, one index_add_) against spmm_bcsr_plain /
+    spmm_bcsr_packed_plain for every x and out dtype at D = 10, 20, 128
+    and 130, and against JAX's kernel in interpret mode at D = 20 (padded
+    to 128 lanes) for f32 and bf16 x: 1e-5 * max|ref| * sqrt(K) for f32
+    sums of K products in another order, plus one bf16 ulp of the value
+    for a bf16 output.  Dead tiles and the empty row block add nothing."""
+    m_j, m_t = _support_spmm_case(tile_dtype, block, k_pack,
+                                  seed=block + k_pack + len(str(tile_dtype)))
+    if k_pack > 1:
+        assert bool((m_t.tiles == 0).flatten(1).all(1).any())  # dead tiles
+    k = int((m_t.row_ptr[1:] - m_t.row_ptr[:-1]).max()) * block
+    rng = np.random.default_rng(block)
+    for d in (10, 20, 128, 130):
+        x = rng.standard_normal((m_t.num_nodes, d)).astype(np.float32)
+        for x_dtype in (torch.float32, torch.bfloat16):
+            xt = torch.from_numpy(x).to(x_dtype)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                y = bcsr_kernels.spmm_bcsr_support_plain(m_t, xt, out_dtype)
+                assert y.dtype == out_dtype and y.shape == (3 * block, d)
+                refs = [bcsr_kernels.spmm_bcsr_plain(m_t, xt, out_dtype)]
+                if k_pack > 1:
+                    refs.append(bcsr_kernels.spmm_bcsr_packed_plain(
+                        m_t, xt, k_pack, out_dtype))
+                if d == 20 and out_dtype == torch.float32:
+                    xj = jnp.asarray(_pad_lanes(x))
+                    if x_dtype == torch.bfloat16:
+                        xj = xj.astype(jnp.bfloat16)
+                    ref_j = (jax_spmm.spmm_bcsr_packed(m_j, xj, k_pack=k_pack,
+                                                       interpret=True)
+                             if k_pack > 1 else
+                             jax_spmm.spmm_bcsr(m_j, xj, interpret=True))
+                    refs.append(torch.from_numpy(np.array(ref_j)[:, :d]))
+                for ref in refs:
+                    ref = ref.float()
+                    tol = TOL * float(ref.abs().max()) * np.sqrt(k)
+                    if out_dtype == torch.bfloat16:
+                        tol = tol + BF16_ULP * ref.abs()
+                    assert bool(((y.float() - ref).abs() <= tol).all()), (
+                        d, x_dtype, out_dtype)
+                np.testing.assert_array_equal(y[2 * block:].float(), 0.0)
+
+
+@pytest.mark.parametrize("k_pack", [1, 4])
+def test_spmm_block8_matches_pallas(k_pack):
+    """The CPU wrappers take the block sizes JAX's interpret path takes:
+    spmm_bcsr / spmm_bcsr_packed at block 8 against tpugraph's (1e-5 *
+    max|ref| * sqrt(K), f32 sums in another order)."""
+    rng = np.random.default_rng(80 + k_pack)
+    n, d, e = 48, 20, 400
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = rng.integers(0, 40, e).astype(np.int32)
+    w = rng.standard_normal(e).astype(np.float32)
+    kw = dict(block=8, pad_rows_to=k_pack if k_pack > 1 else None)
+    m_j = jax_bcsr.bcsr_from_coo(s, r, w, n, device=False, **kw)
+    m_t = bcsr.bcsr_from_coo(s, r, w, n, **kw).to("cpu")
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    xj = jnp.asarray(_pad_lanes(x))
+    if k_pack > 1:
+        ref = jax_spmm.spmm_bcsr_packed(m_j, xj, k_pack=k_pack, interpret=True)
+        y = bcsr_kernels.spmm_bcsr_packed(m_t, torch.from_numpy(x), k_pack)
+    else:
+        ref = jax_spmm.spmm_bcsr(m_j, xj, interpret=True)
+        y = bcsr_kernels.spmm_bcsr(m_t, torch.from_numpy(x))
+    ref = np.asarray(ref)[:, :d]
+    k = int((m_t.row_ptr[1:] - m_t.row_ptr[:-1]).max()) * 8
+    assert y.shape == ref.shape
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0,
+                               atol=TOL * np.abs(ref).max() * np.sqrt(k))
+    np.testing.assert_array_equal(y[40:].numpy(), 0.0)  # the empty row block
+
+
+def test_bcsr_from_coo_takes_keywords_after_block():
+    """A sixth positional argument means pad_tiles_to in tpugraph and
+    num_col_nodes / tile_dtype here, so the port takes none."""
+    s = np.array([0, 1], np.int32)
+    r = np.array([1, 0], np.int32)
+    w = np.ones(2, np.float32)
+    with pytest.raises(TypeError):
+        bcsr.bcsr_from_coo(s, r, w, 8, 8, 16)
+    with pytest.raises(TypeError):
+        bcsr.bcsr_transpose_host(s, r, w, 8, 8, torch.int8)
+    m = bcsr.bcsr_from_coo(s, r, w, 8, 8, num_col_nodes=16)
+    assert m.num_nodes == 16
+
+
+def test_strip_counts_and_crossover():
+    """strip_nnz counts each 8-row x strip_k strip's nonzeros (their sum is
+    the tiles' nonzeros); branch_shares splits the strips into empty,
+    sparse and dense (each forced branch takes all nonempty strips); the
+    crossover falls as D widens and is capped at 128 columns."""
+    _, m_t = _support_spmm_case(torch.int8, 256, 4, seed=3)
+    assert bcsr_kernels.strip_k(torch.float32, 256) == 64
+    assert bcsr_kernels.strip_k(torch.bfloat16, 256) == 128
+    assert bcsr_kernels.strip_k(torch.int8, 256) == 256
+    assert bcsr_kernels.strip_k(torch.int8, 64) == 64
+    c = bcsr_kernels.strip_nnz(m_t)
+    assert tuple(c.shape) == (m_t.num_tiles, 32, 1)
+    assert int(c.sum()) == int((m_t.tiles != 0).sum())
+    sh = bcsr_kernels.branch_shares(m_t, 128)
+    assert abs(sum(sh.values()) - 1.0) < 1e-9 and sh["empty"] > 0
+    assert bcsr_kernels.branch_shares(m_t, 128, -1)["sparse"] == 0.0
+    assert bcsr_kernels.branch_shares(m_t, 128, 1 << 20)["dense"] == 0.0
+    x = [bcsr_kernels.spmm_crossover(d) for d in (10, 20, 64, 128, 512)]
+    assert x == sorted(x, reverse=True) and x[-1] == x[-2]
+
+
+@pytest.mark.parametrize("block", [64, 128, 192, 256, 320, 384, 512])
+@pytest.mark.parametrize("tile_dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_strip_k_whole_strips_any_card_block(tile_dtype, block):
+    """Every card block (B % 64 == 0) splits a tile row into whole B1/B3
+    strips of 256, 128 or 64 bytes, the widest that divides it, and
+    strip_nnz covers every entry once."""
+    isz = torch.empty((), dtype=tile_dtype).element_size()
+    k = bcsr_kernels.strip_k(tile_dtype, block)
+    assert block % k == 0 and k * isz in (64, 128, 256)
+    assert all(block * isz % wider for wider in (256, 128) if wider > k * isz)
+    tiles = torch.zeros((2, block, block), dtype=tile_dtype)
+    tiles[0, 3, block - 1] = 1
+    tiles[1, block - 1, 5] = 2
+    m = bcsr.BCSR(tiles, torch.tensor([0, 1], dtype=torch.int32),
+                  torch.tensor([0, 2], dtype=torch.int32),
+                  torch.zeros(2, dtype=torch.int32), num_nodes=2 * block, block=block)
+    c = bcsr_kernels.strip_nnz(m)
+    assert tuple(c.shape) == (2, block // 8, block // k) and int(c.sum()) == 2
+    assert int(c[0, 0, -1]) == 1 and int(c[1, -1, 0]) == 1
+
+
+def test_packers_carry_longest_list():
+    """The packers count the longest row-block list on the host (the B1/B3
+    kernels' cluster choice reads it instead of the card), and it survives
+    ``.to`` and ``dataclasses.replace``."""
+    rng = np.random.default_rng(7)
+    s = rng.integers(0, 1024, 3000).astype(np.int32)
+    r = np.concatenate([rng.integers(0, 128, 2000),  # a hub row block
+                        rng.integers(0, 1024, 1000)]).astype(np.int32)
+    w = rng.standard_normal(3000).astype(np.float32)
+    m = bcsr.bcsr_from_coo(s, r, w, 1024, block=128)
+    lists = np.diff(np.asarray(m.row_ptr))
+    assert m.longest_list == int(lists.max())
+    p = bcsr.bcsr_pad_rows(m, 4)
+    assert p.longest_list == int(np.diff(np.asarray(p.row_ptr)).max())
+    assert p.longest_list % 4 == 0 and p.longest_list >= m.longest_list
+    tp = bcsr.bcsr_transpose_plan(m)
+    assert tp.longest_list == int(np.diff(np.asarray(tp.row_ptr)).max())
+    assert m.to("cpu").longest_list == m.longest_list
+    assert dataclasses.replace(m, tiles=m.tiles).longest_list == m.longest_list
+
+
+def test_cluster_size_rule():
+    """B1/B3 share a slab among 8 CTAs for a hub (a list over twice the
+    mean) or a grid under two slabs an SM, else give each CTA its own."""
+    assert bcsr_kernels.cluster_size(311, 82.0, 1024, 132) == 8   # power-law hub
+    assert bcsr_kernels.cluster_size(4, 3.0, 1024, 132) == 1      # banded
+    assert bcsr_kernels.cluster_size(20, 17.0, 1024, 132) == 1    # scaled
+    assert bcsr_kernels.cluster_size(6, 4.0, 12, 132) == 8        # syn1: few slabs

@@ -153,6 +153,24 @@ def test_plain_matches_pallas(tile_dtype, stack, out_dtype):
     assert np.all(np.abs(y.float().numpy() - ref) <= tol)
 
 
+@pytest.mark.parametrize("stack", [1, 2])
+def test_plain_block8_matches_pallas(stack):
+    """The CPU wrapper takes the block sizes JAX's interpret path takes
+    (the card's B % 64 / B % 128 limits stay on the card): B4 at block 8
+    against tpugraph's, 1e-5 of max|ref| (f32 sums in another order)."""
+    n, d = 64, 128
+    s, r, w = _coo(n, 300, seed=30 + stack)
+    m_j, m_t = _both(s, r, w, n, 8)
+    x = np.random.default_rng(2).standard_normal((n, d)).astype(np.float32)
+    ref = np.asarray(jax_res.spmm_stacked_resident(
+        jax_res.stack_bcsr(m_j, stack=stack, k_pack=4), jnp.asarray(x),
+        k_pack=4, interpret=True))
+    st_t = rk.stack_bcsr(m_t, stack=stack, k_pack=4).to("cpu")
+    y = rk.spmm_stacked_resident(st_t, torch.from_numpy(x))
+    assert y.shape == ref.shape
+    assert np.all(np.abs(y.numpy() - ref) <= TOL * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("tile_dtype", [None, torch.bfloat16, torch.int8])
 def test_plain_bf16_x_matches_pallas(tile_dtype):
     """B4 takes bf16 x as the Pallas kernel does (``pallas_resident.py:

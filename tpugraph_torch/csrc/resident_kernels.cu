@@ -222,26 +222,9 @@ __device__ __forceinline__ int xrow_off(int p, int kc, int block) {
     return kc * BK + p;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void cp16(uint32_t dst, const void* src, int bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                  "r"(bytes));
-}
-
-__device__ __forceinline__ void cp16_evict_first(uint32_t dst, const void* src,
-                                                 uint64_t policy) {
-    asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "l"(policy));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1,

@@ -1,7 +1,8 @@
 // Element types shared by the tile kernels of bcsr_kernels.cu and
-// resident_kernels.cu: how a tile entry, an x entry and an output entry are read,
-// rounded and written, following JAX's conversion rule for the Pallas kernels
-// (tpugraph/ops/pallas_spmm.py:55-61, pallas_resident.py:263-267):
+// resident_kernels.cu, and their cp.async helpers: how a tile entry, an x entry
+// and an output entry are read, rounded and written, following JAX's conversion
+// rule for the Pallas kernels (tpugraph/ops/pallas_spmm.py:55-61,
+// pallas_resident.py:263-267):
 //   * int8 (and int4) tiles widen exactly and multiply as bf16 values would;
 //   * the tile compute type is f32 for f32 tiles and bf16 otherwise, and x is cast
 //     to it: f32 x is rounded to bf16 (nearest even) for bf16/int8/int4 tiles, and
@@ -62,6 +63,26 @@ __device__ __forceinline__ void store_out(void* y, size_t i, float v) {
         ((uint16_t*)y)[i] = bf16_bits(v);
     else
         ((float*)y)[i] = v;
+}
+
+// ---- asynchronous copies into shared memory (cp.async), shared by the tile kernels
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes with an L2 evict-first hint: tile bytes are read once
+__device__ __forceinline__ void cp16_evict_first(uint32_t dst, const void* src,
+                                                 uint64_t policy) {
+    asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "l"(policy));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Calls f(kind, x_bf16, out_bf16) with each argument as a std::integral_constant,

@@ -165,7 +165,7 @@ def bcsr_mask_loss(
     masked_t = BCSR(
         tiles=transpose_tiles(w_run, tp), col_blk=tp.col_blk,
         row_ptr=tp.row_ptr, row_of=tp.row_of, num_nodes=tp.num_nodes,
-        block=tp.block,
+        block=tp.block, longest_list=tp.longest_list,
     )
     ypred, _ = model(xx, BCSRAdj(masked, masked_t, tp, spmm_dtype=spmm_dtype))
     probs = torch.softmax(ypred[node_idx], dim=-1)

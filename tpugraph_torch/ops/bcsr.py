@@ -46,6 +46,9 @@ class BCSR:
     row_of: Array    # int32[T]
     num_nodes: int
     block: int
+    # tiles of the longest row-block list, counted on the host by the packer
+    # (the B1/B3 kernels' cluster choice); None where a BCSR was built without
+    longest_list: Optional[int] = None
 
     @property
     def num_tiles(self) -> int:
@@ -117,6 +120,7 @@ def bcsr_from_coo(
     weights: np.ndarray,
     num_nodes: int,
     block: int = 128,
+    *,
     num_col_nodes: Optional[int] = None,
     tile_dtype: Optional[torch.dtype] = None,
     pad_rows_to: Optional[int] = None,
@@ -125,7 +129,9 @@ def bcsr_from_coo(
     ``device=False``): entry (row=receiver, col=sender) = weight, duplicate
     edges summed in edge order, zero-weight (padding) edges dropped.
     ``num_col_nodes`` makes the matrix rectangular (senders in
-    ``[0, num_col_nodes)``); default square.
+    ``[0, num_col_nodes)``); default square.  Every argument after
+    ``block`` is keyword-only: ``tpugraph``'s positional order there
+    (``pad_tiles_to, tile_dtype, pad_rows_to, num_col_nodes``) differs.
 
     ``tile_dtype`` (``torch.float32``, ``torch.bfloat16`` or
     ``torch.int8``) casts the summed values; bfloat16 tiles are a torch
@@ -184,7 +190,7 @@ def bcsr_from_coo(
     else:
         tiles.reshape(-1)[cells] = vals
     return BCSR(tiles=tiles, col_blk=col_blk, row_ptr=row_ptr, row_of=row_of,
-                num_nodes=n_pad_c, block=block)
+                num_nodes=n_pad_c, block=block, longest_list=_longest(row_ptr))
 
 
 def bcsr_transpose_host(
@@ -193,11 +199,13 @@ def bcsr_transpose_host(
     weights: np.ndarray,
     num_nodes: int,
     block: int = 128,
+    *,
     tile_dtype: Optional[torch.dtype] = None,
     pad_rows_to: Optional[int] = None,
 ) -> BCSR:
     """BCSR of A^T, for the backward ``dx = A^T @ g``
-    (``tpugraph/ops/bcsr.py:259``)."""
+    (``tpugraph/ops/bcsr.py:259``); keyword-only after ``block``, as
+    :func:`bcsr_from_coo`."""
     return bcsr_from_coo(receivers, senders, weights, num_nodes, block,
                          tile_dtype=tile_dtype, pad_rows_to=pad_rows_to)
 
@@ -249,6 +257,12 @@ def choose_k_pack(m: BCSR, max_overhead: float = 1.2) -> int:
     return choose_k_pack_counts(np.diff(np.asarray(m.row_ptr)), max_overhead)
 
 
+def _longest(row_ptr: Array) -> int:
+    """Tiles of the longest row-block list of a host ``row_ptr``."""
+    counts = np.diff(_host(row_ptr))
+    return int(counts.max()) if counts.size else 0
+
+
 def _host(a: Array) -> np.ndarray:
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
@@ -270,7 +284,7 @@ def bcsr_pad_rows(m: BCSR, k_pack: int) -> BCSR:
         tiles = np.zeros(shape, dtype=m.tiles.dtype)
         tiles[dst] = m.tiles[: len(dst)]
     return BCSR(tiles=tiles, col_blk=new_col, row_ptr=new_ptr, row_of=new_row,
-                num_nodes=m.num_nodes, block=m.block)
+                num_nodes=m.num_nodes, block=m.block, longest_list=_longest(new_ptr))
 
 
 @dataclasses.dataclass
@@ -286,6 +300,7 @@ class BCSRTranspose:
     keep: Array     # float32[T'] — 1 real, 0 injected dead tile
     num_nodes: int
     block: int
+    longest_list: Optional[int] = None  # as BCSR.longest_list
 
     @property
     def num_tiles(self) -> int:
@@ -343,6 +358,7 @@ def bcsr_transpose_plan(m: BCSR) -> BCSRTranspose:
         keep=keep,
         num_nodes=m.num_row_nodes,
         block=m.block,
+        longest_list=_longest(row_ptr),
     )
 
 

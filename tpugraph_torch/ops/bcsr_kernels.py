@@ -11,10 +11,12 @@ SDDMM (B2) and their autograd wrappers.
 
 On a CUDA tensor each wrapper launches its hand-written kernel from
 ``tpugraph_torch/csrc/bcsr_kernels.cu`` (IEEE float32 FMA, no TF32) or
-raises; the kernels are built by :mod:`tpugraph_torch.ops._build`.  On a
+raises; the kernels are built by :mod:`tpugraph_torch.ops._build`.  B1
+and B3 launch one support-driven kernel (B3 on its padded layout).  On a
 CPU tensor the wrapper runs the plain PyTorch version beside it, which
 walks the same ``row_ptr``/``col_blk``/``row_of`` structure with
-``torch.bmm`` over tiles and ``index_add_`` over row blocks.  ``LAUNCHES``
+``torch.bmm`` over tiles and ``index_add_`` over row blocks; any block
+size runs there, while the kernels need ``B % 64 == 0``.  ``LAUNCHES``
 counts kernel launches (never plain-version calls).
 
 Tiles may be float32, bfloat16 or int8, ``x`` float32 or bfloat16 and
@@ -37,7 +39,9 @@ import torch
 from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
 from tpugraph_torch.ops.bcsr import BCSR
 
-_TILE_MULTIPLE = 64  # the kernels' CTA slice of a tile (BM = BN = 64)
+_TILE_MULTIPLE = 64  # the kernels' CTA slice of a tile (64 tile rows)
+_STRIP_ROWS = 8      # tile rows of a warp's strip in B1/B3
+_STRIP_BYTES = 256   # bytes of a strip row (all of a tile row if shorter)
 TILE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FLOATS = (torch.float32, torch.bfloat16)
 
@@ -52,6 +56,75 @@ def sddmm_crossover(d: int) -> int:
     width ``d``: the line through the crossovers that ``chip_smoke.py``
     measured on an H100 (494 at D = 20, 882 at D = 128)."""
     return int(422 + 3.6 * d)
+
+
+def strip_k(tile_dtype: torch.dtype, block: int) -> int:
+    """Tile columns (k) of one B1/B3 strip: the largest of 256, 128 and 64
+    bytes that divides a tile row (256 bytes are 64 f32, 128 bf16 or 256
+    int8 entries), so a tile row of any card block (``B % 64 == 0``) is
+    whole strips; the whole row where none divides it (CPU blocks)."""
+    isz = torch.empty((), dtype=tile_dtype).element_size()
+    for nbytes in (_STRIP_BYTES, _STRIP_BYTES // 2, _STRIP_BYTES // 4):
+        if block * isz % nbytes == 0:
+            return nbytes // isz
+    return block
+
+
+def spmm_crossover(d: int, tile_dtype: torch.dtype = torch.float32,
+                   block: int = 256) -> int:
+    """Nonzeros of a B1/B3 strip (8 tile rows x :func:`strip_k` columns)
+    above which the kernel multiplies the strip as a dense block instead of
+    walking its nonzeros, at width ``d`` (the columns of D a CTA owns, at
+    most 128): the line through the crossovers ``chip_smoke.py`` measured
+    on an H100, as a share of the strip's entries (49% at D = 20, 39% at
+    D = 128 for f32 tiles, 37% for int8 tiles at D = 128)."""
+    share = 0.51 - 0.001 * min(d, 128)
+    return int(share * _STRIP_ROWS * strip_k(tile_dtype, block))
+
+
+def strip_nnz(m: BCSR) -> torch.Tensor:
+    """Nonzeros of every B1/B3 strip, ``[T, B / 8, B / strip_k]`` (tile,
+    strip row, strip column), on ``m``'s device: the count each warp's
+    branch test sees."""
+    b, kw = m.block, strip_k(m.tiles.dtype, m.block)
+    nz = (m.tiles != 0).reshape(m.num_tiles, b // _STRIP_ROWS, _STRIP_ROWS,
+                                b // kw, kw)
+    return nz.sum((2, 4), dtype=torch.int32)
+
+
+def branch_shares(m: BCSR, d: int, crossover: Optional[int] = None) -> Dict[str, float]:
+    """Share of B1/B3's strips that are empty, sparse and dense at width
+    ``d`` (``crossover`` default :func:`spmm_crossover`)."""
+    c = strip_nnz(m)
+    if crossover is None:
+        crossover = spmm_crossover(min(d, 128), m.tiles.dtype, m.block)
+    n = max(c.numel(), 1)
+    empty = int((c == 0).sum())
+    dense = int(((c > crossover) & (c > 0)).sum())
+    return {"empty": empty / n, "sparse": (c.numel() - empty - dense) / n,
+            "dense": dense / n}
+
+
+def cluster_size(longest: int, mean: float, slabs: int, sms: int) -> int:
+    """CTAs of B1/B3 that share one slab's tile list (1 or 8).  Eight where
+    a row block's list is over twice the mean (a hub, which one CTA would
+    walk alone as a tail) or where the grid would hold fewer than two slabs
+    an SM; one otherwise, which saves the cluster's exchange of partial
+    slabs."""
+    return 8 if longest > 2 * mean or slabs < 2 * sms else 1
+
+
+def _cluster_of(m: BCSR, d: int, device) -> int:
+    """:func:`cluster_size` for ``m`` at width ``d`` on ``device``.  The
+    longest row-block list is ``m.longest_list``, counted by the packer on
+    the host; a BCSR built without it has it read from the card (one
+    synchronisation a call)."""
+    longest = m.longest_list
+    if longest is None:
+        longest = int((m.row_ptr[1:] - m.row_ptr[:-1]).max())
+    slabs = m.num_row_blocks * (m.block // _TILE_MULTIPLE) * -(-d // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return cluster_size(longest, m.num_tiles / m.num_row_blocks, slabs, sms)
 
 
 def x_operand(x: torch.Tensor, tile_dtype: torch.dtype) -> torch.Tensor:
@@ -82,13 +155,11 @@ def _lib():
     lib = library("bcsr_kernels")
     if not _bound:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.spmm_bcsr.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci, ci, vp]
+        lib.spmm_bcsr.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci, ci, ci,
+                                  ci, vp]
         lib.spmm_bcsr.restype = ci
         lib.sddmm_bcsr.argtypes = [vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.sddmm_bcsr.restype = ci
-        lib.spmm_bcsr_packed.argtypes = [vp, ci, vp, vp, vp, ci, vp, ci, ci, ci,
-                                         ci, ci, vp]
-        lib.spmm_bcsr_packed.restype = ci
         _bound = True
     return lib
 
@@ -102,9 +173,13 @@ def _check_layout(m: BCSR, device) -> None:
     check_tensor("row_ptr", m.row_ptr, torch.int32, 1, device)
     check_tensor("row_of", m.row_of, torch.int32, 1, device)
     b = m.block
-    if tuple(m.tiles.shape[1:]) != (b, b) or b % _TILE_MULTIPLE:
-        raise ValueError(f"tiles must be [T, B, B] with B % {_TILE_MULTIPLE} "
-                         f"== 0, got {tuple(m.tiles.shape)}")
+    if tuple(m.tiles.shape[1:]) != (b, b):
+        raise ValueError(f"tiles must be [T, B, B], got {tuple(m.tiles.shape)}")
+    # the card's limit only: the plain versions take any B, as tpugraph's
+    # interpret path does
+    if torch.device(device).type == "cuda" and b % _TILE_MULTIPLE:
+        raise ValueError(f"the kernels need B % {_TILE_MULTIPLE} == 0 on the "
+                         f"card, got B = {b}")
     if m.col_blk.shape[0] != m.num_tiles or m.row_of.shape[0] != m.num_tiles:
         raise ValueError("col_blk / row_of must have one entry per tile")
 
@@ -138,6 +213,24 @@ def spmm_bcsr_plain(m: BCSR, x: torch.Tensor,
     return y.reshape(n_rb * b, d).to(out_dtype or torch.float32)
 
 
+def spmm_bcsr_support_plain(m: BCSR, x: torch.Tensor,
+                            out_dtype: Optional[torch.dtype] = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch ``A @ x`` in the kernel's order: the nonzeros of the
+    tiles gathered in (row block, tile, row, ascending k) order, each
+    times its x row (cast as the kernel casts it), and one ``index_add_``
+    into f32 rows, one final cast.  Dead tiles and zero entries add
+    nothing."""
+    b, d = m.block, x.shape[1]
+    t, i, k = (m.tiles != 0).nonzero(as_tuple=True)
+    rows = m.row_of.long()[t] * b + i
+    cols = m.col_blk.long()[t] * b + k
+    prod = m.tiles[t, i, k].float()[:, None] * x_operand(x, m.tiles.dtype)[cols]
+    y = torch.zeros((m.num_row_nodes, d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, rows, prod)
+    return y.to(out_dtype or torch.float32)
+
+
 def spmm_bcsr(m: BCSR, x: torch.Tensor,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``y[num_row_nodes, D] = A @ x`` with ``x [num_nodes, D]`` float32 or
@@ -148,20 +241,57 @@ def spmm_bcsr(m: BCSR, x: torch.Tensor,
         return spmm_bcsr_plain(m, x, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no spmm_bcsr kernel for device {x.device}")
-    lib = _lib()
+    return _spmm_launch(m, x, out_dtype, None, "spmm_bcsr")
+
+
+def _spmm_launch(m: BCSR, x: torch.Tensor, out_dtype: torch.dtype,
+                 crossover: Optional[int], key: Optional[str],
+                 cluster: Optional[int] = None) -> torch.Tensor:
+    """Launch the B1/B3 kernel (``crossover`` None: the measured
+    :func:`spmm_crossover`; ``cluster`` None: :func:`cluster_size`),
+    counting it under ``key`` (None: uncounted)."""
     d = x.shape[1]
     y = torch.empty((m.num_row_nodes, d), dtype=out_dtype, device=x.device)
     if m.num_row_blocks == 0:
         return y
+    if m.tiles.data_ptr() % 16:
+        raise ValueError("tiles must be 16-byte aligned (the kernel copies them "
+                         "in 16-byte pieces)")
+    if crossover is None:
+        crossover = spmm_crossover(min(d, 128), m.tiles.dtype, m.block)
+    if m.tiles.dtype != torch.float32:
+        # the kernel's x operand for bf16/int8 tiles, rounded once a call (as
+        # x_operand does): half the bytes of an f32 x, no rounding a load
+        x = x.to(torch.bfloat16)
+    lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.spmm_bcsr(
             m.tiles.data_ptr(), TILE_KIND[m.tiles.dtype], m.col_blk.data_ptr(),
             m.row_ptr.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
             y.data_ptr(), int(out_dtype == torch.bfloat16), m.num_row_blocks,
-            m.block, d, stream(x.device))
-    raise_on(err, "spmm_bcsr")
-    LAUNCHES["spmm_bcsr"] += 1
+            m.block, d, crossover,
+            _cluster_of(m, d, x.device) if cluster is None else cluster,
+            stream(x.device))
+    raise_on(err, key or "spmm_bcsr")
+    if key is not None:
+        LAUNCHES[key] += 1
     return y
+
+
+def _spmm_bcsr_crossover(m: BCSR, x: torch.Tensor, crossover: int,
+                         k_pack: int = 0, cluster: Optional[int] = None
+                         ) -> torch.Tensor:
+    """B1 (or B3 on a ``k_pack``-padded layout) with its branch threshold
+    forced: nonzeros of a strip above which the dense branch runs (-1:
+    every nonempty strip dense; 2048 or more: every strip sparse), to
+    measure the crossover; ``cluster`` (1, 2, 4 or 8) forces the CTAs that
+    share a slab.  Card only; no launch is counted."""
+    out_dtype = _check_spmm(m, x, None)
+    if k_pack > 1:
+        _check_k_pack(m, k_pack)
+    if x.device.type != "cuda":
+        raise ValueError("the forced-branch B1/B3 runs on a CUDA device only")
+    return _spmm_launch(m, x, out_dtype, crossover, None, cluster)
 
 
 # ------------------------------------------------------------ B3 packed SpMM
@@ -188,28 +318,21 @@ def spmm_bcsr_packed(m: BCSR, x: torch.Tensor, k_pack: int = 4,
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``y[num_row_nodes, D] = A @ x`` with every row block of ``m`` holding
     a multiple of ``k_pack`` tiles (``bcsr_from_coo(pad_rows_to=k_pack)``;
-    ``tpugraph/ops/pallas_spmm.py:312``); dtypes as :func:`spmm_bcsr`."""
+    ``tpugraph/ops/pallas_spmm.py:312``); dtypes as :func:`spmm_bcsr`.  On
+    the card it launches B1's kernel on the padded layout (the dead tiles
+    add nothing), counted under its own key."""
     out_dtype = _check_spmm(m, x, out_dtype)
-    if k_pack < 1 or m.num_tiles % k_pack:
-        raise ValueError(f"pad tiles per row to a multiple of k_pack={k_pack}")
+    _check_k_pack(m, k_pack)
     if x.device.type == "cpu":
         return spmm_bcsr_packed_plain(m, x, k_pack, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no spmm_bcsr_packed kernel for device {x.device}")
-    lib = _lib()
-    d = x.shape[1]
-    y = torch.empty((m.num_row_nodes, d), dtype=out_dtype, device=x.device)
-    if m.num_row_blocks == 0:
-        return y
-    with torch.cuda.device(x.device):
-        err = lib.spmm_bcsr_packed(
-            m.tiles.data_ptr(), TILE_KIND[m.tiles.dtype], m.col_blk.data_ptr(),
-            m.row_ptr.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-            y.data_ptr(), int(out_dtype == torch.bfloat16), m.num_row_blocks,
-            m.block, d, k_pack, stream(x.device))
-    raise_on(err, "spmm_bcsr_packed")
-    LAUNCHES["spmm_bcsr_packed"] += 1
-    return y
+    return _spmm_launch(m, x, out_dtype, None, "spmm_bcsr_packed")
+
+
+def _check_k_pack(m: BCSR, k_pack: int) -> None:
+    if k_pack < 1 or m.num_tiles % k_pack:
+        raise ValueError(f"pad tiles per row to a multiple of k_pack={k_pack}")
 
 
 def _spmm_any(m: BCSR, x: torch.Tensor, k_pack: int) -> torch.Tensor:

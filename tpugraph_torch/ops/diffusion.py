@@ -31,7 +31,12 @@ class DiffusionOperator:
     ``normalize=False`` keeps the weights, as int8 tiles when every one is
     an integer of magnitude <= 127 and bf16 otherwise, with ``hop_scale =
     1 / m**2`` for ``m`` the largest row sum, to keep the powers inside
-    bf16's range."""
+    bf16's range.
+
+    ``block`` may be any size on the CPU (the plain versions), as in
+    ``tpugraph``'s interpret path.  On the card the tensor-core kernel
+    needs ``block % 128 == 0`` for bf16 and int8 tiles (the wrappers raise
+    otherwise); 128 and 256 are the sizes in use."""
 
     def __init__(self, g, block: int = 256, normalize: bool = True,
                  k_pack: int = 128, device: DeviceLike = None):
@@ -75,7 +80,8 @@ def diffuse(g, x: torch.Tensor, hops: int, block: int = 256,
     """Pack ``g`` and propagate ``x`` ``hops`` times
     (``tpugraph/ops/diffusion.py:88``): ``x``'s rows are padded to the
     operator's node count and the result cut back to them.  For repeated
-    use build a :class:`DiffusionOperator` once."""
+    use build a :class:`DiffusionOperator` once.  ``block``: any size on
+    the CPU; a multiple of 128 on the card (see :class:`DiffusionOperator`)."""
     op = DiffusionOperator(g, block=block, normalize=normalize, device=device)
     n = x.shape[0]
     x = x.to(op.pair.tiles.device)

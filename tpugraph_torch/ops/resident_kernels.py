@@ -277,11 +277,16 @@ def _check_layout(m: BCSRStacked, device) -> None:
         check_tensor(name, getattr(m, name), torch.int32, 1, device)
     b, t = m.block, m.num_tiles
     cols = b // 2 if m.packed4 else b
-    if (tuple(m.tiles.shape[1:]) != (m.stack * b, cols) or b % _TILE_MULTIPLE
+    if (tuple(m.tiles.shape[1:]) != (m.stack * b, cols)
             or m.num_row_nodes % b or m.num_nodes % b):
         raise ValueError(
-            f"tiles must be [T, stack*B, {'B/2' if m.packed4 else 'B'}] with "
-            f"B % {_TILE_MULTIPLE} == 0, got {tuple(m.tiles.shape)}")
+            f"tiles must be [T, stack*B, {'B/2' if m.packed4 else 'B'}], got "
+            f"{tuple(m.tiles.shape)}")
+    # the card's limit only: the plain version on the CPU takes any B, as
+    # tpugraph's interpret path does
+    if torch.device(device).type == "cuda" and b % _TILE_MULTIPLE:
+        raise ValueError(f"the kernels need B % {_TILE_MULTIPLE} == 0 on the "
+                         f"card, got B = {b}")
     if (m.col_blk.shape[0] != t or m.rows.shape[0] != t * m.stack
             or m.slots.shape[0] != t * m.stack
             or m.row_ptr.shape[0] != m.num_row_blocks + 1):

@@ -53,7 +53,13 @@ class TrainConfig:
     COO path is not ported).  ``packet_compute_dtype`` is the port's own:
     B7's compute dtype on the packet path (``None``: bf16 on a CUDA
     device, f32 on the CPU, the JAX package's accelerator/interpret
-    default)."""
+    default).
+
+    ``bcsr_block`` is the BCSR tile size (128 or 256 in use, as in
+    ``tpugraph``).  On the CPU any size runs.  On the card the tile
+    kernels B1/B3 need ``bcsr_block % 64 == 0``, and the resident format
+    (int8/bf16 tiles on the tensor cores) needs ``bcsr_block % 128 == 0``;
+    their wrappers raise otherwise."""
 
     num_epochs: int = 1000
     lr: float = 0.001
