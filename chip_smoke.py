@@ -19,8 +19,8 @@ nvcc per source, sm_90a, all started together), then:
    (``B1 crossover``);
 2. train — ``train_node_classifier`` on syn1 (seed 0) at its published
    widths (10 -> 20 -> 20 -> 20, 3 GraphConv layers, 4 classes), 1000
-   epochs on the BCSR path; first holds 20 epochs on the card against the
-   CPU run from the same initial parameters;
+   epochs on the BCSR path (``use_bcsr=True``); first holds 20 epochs on
+   the card against the CPU run from the same initial parameters;
 3. explain — writes and reloads the checkpoint, then ``explain_nodes_bcsr``
    on five house nodes and the motif AUC; the same five nodes again with
    bf16 kernel tiles (the Explainer's private ``_spmm_dtype`` hook onto
@@ -56,7 +56,20 @@ nvcc per source, sm_90a, all started together), then:
    entry by entry within its rounding bound, and B5/B6 against their plain
    versions, with pack seconds and diffusion edges/s (``2 * E * hops / t``,
    ``bench.py:678``);
-6. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
+6. coo — the COO main path, through the entry points a user calls:
+   ``tpugraph_torch.cli.train.main`` and ``cli.explain.main`` on syn1 at
+   its published widths (10 -> 20 -> 20, 3 layers, 4 classes, 1000
+   epochs, seed 0) in this process, on the COO default (train, then the
+   stats explain of 60 nodes x 100 mask epochs), with ``--bcsr`` (train
+   on B1, ``--explain-node 305`` on B1/B2 in tile space, the stats
+   explain) and with ``--bcsr --bcsr-format packets`` (train on B7); each
+   train reaches test acc >= 0.85 and each stats explain AUC > 0.9, and
+   the kernels' launches under the CLI are counted.  Then
+   ``bench_explain.py:138-156``'s COO yardstick on the banded graph of
+   phase 3 (one query, every edge, 4 epochs) beside the tile-space rate.
+   The lowloc phase trains the power-law graph on COO as a fifth row,
+   ``coo``, held to the ``tiles`` trajectory;
+7. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
    dependent launches of ``probe_tiny`` (grid 1 and 2) and
    ``probe_resident`` (n = 4,096, 16,384, 65,536), a fit of the time a
    launch against the bytes it writes, and the host cost of one wrapper
@@ -74,8 +87,11 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -107,12 +123,15 @@ BANDED_EPOCHS = 100
 # (DIFF_H = 8 on the sym-normalized operator) and the unnormalized int8
 # operator with hop_scale = 1/m^2 at 2 hops
 DIFF_CASES = (("normalized", True, 8), ("int8", False, 2))
-FORMATS = {  # TrainConfig fields of each static-weight format
-    "tiles": {},
-    "k_pack4": {"bcsr_k_pack": 4},
-    "resident": {"bcsr_resident": "on"},
-    "packets": {"bcsr_format": "packets"},
+FORMATS = {  # TrainConfig fields of each static-weight format, and COO
+    "tiles": {"use_bcsr": True},
+    "k_pack4": {"use_bcsr": True, "bcsr_k_pack": 4},
+    "resident": {"use_bcsr": True, "bcsr_resident": "on"},
+    "packets": {"use_bcsr": True, "bcsr_format": "packets"},
+    "coo": {"use_bcsr": False},
 }
+EXPLAIN_STATS_NODES = 60   # the stats explain: nodes 400:700:5
+CARD = "not read"          # nvidia-smi's name and power limit, set in main
 FORMAT_KERNEL = {"tiles": "spmm_bcsr", "k_pack4": "spmm_bcsr_packed",
                  "resident": "spmm_stacked_resident", "packets": "spmm_packets"}
 
@@ -849,7 +868,7 @@ def phase_lowloc(report, gen):
 
     from tpugraph_torch import ops
     from tpugraph_torch.nn import GcnEncoderNode
-    from tpugraph_torch.ops import bcsr, packets
+    from tpugraph_torch.ops import bcsr, message, packets
     from tpugraph_torch.ops import packets_kernels as pk
     from tpugraph_torch.ops import resident_kernels as rk
     from tpugraph_torch.train import TrainConfig, train_node_classifier
@@ -872,8 +891,11 @@ def phase_lowloc(report, gen):
                                     cfg, init_params=init)
         diff = float(np.max(np.abs(np.subtract(cpu["history"]["loss"],
                                                gpu["history"]["loss"]))))
+        # coo: atomic sums on the card reorder every aggregation, within
+        # the same 1e-4 on the loss
         print(f"  reduced {fmt:8s} {REDUCED_NODES} nodes: card vs CPU "
-              f"{REDUCED_EPOCHS}-epoch loss max |diff| {diff:.3g}", flush=True)
+              f"{REDUCED_EPOCHS}-epoch loss max |diff| {diff:.3g} (limit 1e-4)",
+              flush=True)
         check(diff <= 1e-4, f"{fmt}: card and CPU losses differ by {diff}")
         if fmt == "resident":
             small_st = gpu["adj"].st
@@ -924,25 +946,32 @@ def phase_lowloc(report, gen):
         runs[fmt] = out
         adj = out["adj"]
         if fmt in ("tiles", "k_pack4"):
-            size = f"{adj.m.num_tiles} tiles ({adj.m.tiles.numel() * 4 / 1e9:.2f} GB)"
+            size = (f"{adj.m.num_tiles} tiles ({adj.m.tiles.numel() * 4 / 1e9:.2f} GB)"
+                    " a direction")
         elif fmt == "resident":
             size = (f"{adj.st.num_tiles} int8 tiles "
-                    f"({adj.st.tiles.numel() / 1e9:.2f} GB)")
+                    f"({adj.st.tiles.numel() / 1e9:.2f} GB) a direction")
+        elif fmt == "packets":
+            size = f"{adj.p.num_packets} packets of {adj.p.k} a direction"
         else:
-            size = f"{adj.p.num_packets} packets of {adj.p.k}"
-        print(f"  full {fmt:8s} pack {out['pack_s']:.2f} s, {size} a direction; "
+            size = f"{adj.senders.numel()} padded COO edges"
+        print(f"  full {fmt:8s} pack {out['pack_s']:.2f} s, {size}; "
               f"{LOWLOC_EPOCHS / out['elapsed']:.2f} epochs/s; loss "
               f"{hist[0]:.4f} -> {hist[-1]:.4f}; train acc "
               f"{out['result_train']['acc']:.4f} test acc "
               f"{out['result_test']['acc']:.4f}; launches "
-              f"{ {k: v for k, v in launches[fmt].items() if v} }", flush=True)
+              f"{ {k: v for k, v in launches[fmt].items() if v} } [{CARD}]",
+              flush=True)
         check(bool(np.all(np.isfinite(hist))) and hist[-1] < hist[0],
               f"{fmt}: losses not finite or not decreasing")
         check(out["ypred"].shape == (1, LOWLOC_NODES, 4)
               and bool(np.all(np.isfinite(out["ypred"]))),
               f"{fmt}: bad predictions")
-        check(launches[fmt][FORMAT_KERNEL[fmt]] > 0,
-              f"{fmt} did not launch {FORMAT_KERNEL[fmt]}")
+        if fmt == "coo":
+            check(sum(launches[fmt].values()) == 0, "coo launched a kernel")
+        else:
+            check(launches[fmt][FORMAT_KERNEL[fmt]] > 0,
+                  f"{fmt} did not launch {FORMAT_KERNEL[fmt]}")
         if fmt == "k_pack4":
             check(launches[fmt]["spmm_bcsr"] == 0, "k_pack4 launched spmm_bcsr")
         if fmt != "tiles":
@@ -966,7 +995,7 @@ def phase_lowloc(report, gen):
                                        rk.spmm_stacked_resident(adj.st_t, x)))
             res_rates = {"res_edges_per_s": n_live / (pair_ms / 1e3),
                          "res_pack_s_per_tile": out["pack_s"] / adj.st.num_tiles}
-        else:
+        elif fmt == "packets":
             check(launches[fmt]["spmm_packets_reduce"] > 0,
                   "packets did not launch B7's reduce pass (no split block)")
             shapes[fmt] = measure_packets(shape, adj.p, x, torch.bfloat16)
@@ -981,12 +1010,19 @@ def phase_lowloc(report, gen):
                                        pk.spmm_packets(adj.p_t, x)))
             pkt_rates = {"pkt_edges_per_s": n_live / (pair_ms / 1e3),
                          "pkt_pack_s_per_edge": out["pack_s"] / n_live}
+        else:  # coo: the forward and transposed gather + index_add_ pair
+            pair_ms = time_ms(lambda: (
+                message.spmm(adj.senders, adj.receivers, adj.weight, x),
+                message.spmm(adj.receivers, adj.senders, adj.weight, x)))
+            coo_rates = {"coo_edges_per_s": n_live / (pair_ms / 1e3),
+                         "coo_pack_s_per_edge": out["pack_s"] / n_live}
         out.pop("adj")
         del adj
         torch.cuda.empty_cache()
     print(f"  H100 format-rule rates (fwd+bwd SpMM pair at D={LOWLOC_D}; pack "
           f"of A and A^T incl. upload, over A's tiles / edges): "
-          f"{json.dumps({**res_rates, **pkt_rates})}", flush=True)
+          f"{json.dumps({**res_rates, **pkt_rates, **coo_rates})} [{CARD}]",
+          flush=True)
     print(f"  full-size phase {time.perf_counter() - t0:.1f} s", flush=True)
     report["lowloc"] = {"launches": launches, "shapes": shapes,
                         "variants": variants + [smalln], "graph": g,
@@ -1104,6 +1140,164 @@ def phase_explain_banded(gen):
     del m, m16, tp
     torch.cuda.empty_cache()
     return {"launches": launches, "steps_per_s": rates, "shapes": shapes}
+
+
+def run_cli(main, argv):
+    """One CLI entry point in this process, its printed output kept out of
+    the smoke's; returns its summary and its wall seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = main(argv)
+    return summary, time.perf_counter() - t0
+
+
+def phase_coo(banded_tile_sps):
+    """The COO main path through the CLI on syn1 (the default, ``--bcsr``
+    and ``--bcsr --bcsr-format packets``), then ``bench_explain.py:138-156``'s
+    COO yardstick on the banded graph beside the tile-space rate."""
+    import numpy as np
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.cli import explain as cli_explain
+    from tpugraph_torch.cli import train as cli_train
+    from tpugraph_torch.cli.config import parse_explain_args, parse_train_args
+    from tpugraph_torch.cli.tasks import train_config
+    from tpugraph_torch.core.graph import graph_from_edge_list, graph_from_edges
+    from tpugraph_torch.data import ConstFeatureGen, gen_syn1
+    from tpugraph_torch.explain import ExplainConfig, run_mask_optimization
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.train.loop import build_adjacency
+
+    launches, figures, packet_shapes = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm, flags in (("coo", []), ("bcsr", ["--bcsr"]),
+                           ("packets", ["--bcsr", "--bcsr-format", "packets"])):
+            dirs = ["--dataset", "syn1", "--ckptdir", os.path.join(tmp, arm, "ckpt"),
+                    "--logdir", os.path.join(tmp, arm, "log")]
+            ops.reset_launch_counts()
+            summary, wall = run_cli(cli_train.main, dirs + flags)
+            launches[f"cli_{arm}_train"] = ops.launch_counts()
+            acc = summary["result_test"]["acc"]
+            eps = EPOCHS / summary["elapsed_s"]
+            figures[f"{arm}_train_epochs_per_s"] = eps
+            print(f"  cli.train {' '.join(flags) or '(COO)'}: test acc {acc:.4f}; "
+                  f"{eps:.1f} epochs/s over {EPOCHS} epochs ({wall:.2f} s the "
+                  f"call); launches "
+                  f"{ {k: v for k, v in launches[f'cli_{arm}_train'].items() if v} } "
+                  f"[{CARD}]", flush=True)
+            check(acc >= 0.85, f"cli.train {arm}: test acc {acc} < 0.85")
+            if arm == "coo":
+                check(sum(launches["cli_coo_train"].values()) == 0,
+                      "COO training launched a kernel")
+            elif arm == "bcsr":
+                check(launches["cli_bcsr_train"]["spmm_bcsr"] > 0,
+                      "cli.train --bcsr did not launch B1")
+            else:
+                check(launches["cli_packets_train"]["spmm_packets"] > 0,
+                      "cli.train --bcsr-format packets did not launch B7")
+                # B7 at the shapes this path gives it: the CLI's graph
+                # packed as its trainer packs it, D = 10 (layer 1) and 20
+                # (layers 2-3), A's packets (forward) and A^T's (backward)
+                cfg = parse_train_args(dirs + flags)
+                G, _, _ = gen_syn1(feature_generator=ConstFeatureGen(
+                    np.ones(cfg.input_dim, dtype=np.float32)), seed=cfg.seed)
+                adj, n_pad = build_adjacency(
+                    graph_from_edge_list(G.number_of_nodes(), G.edges()),
+                    train_config(cfg), torch.device("cuda"))
+                check(adj.compute_dtype in (None, torch.bfloat16),
+                      f"the CLI's packets compute at {adj.compute_dtype}")
+                gen = torch.Generator(device="cuda").manual_seed(3)
+                for d in (10, 20):
+                    x = torch.randn((n_pad, d), generator=gen, device="cuda")
+                    packet_shapes += [
+                        measure_packets("syn1-cli", adj.p, x, torch.bfloat16),
+                        measure_packets("syn1-cli-T", adj.p_t, x, torch.bfloat16)]
+                del adj, x
+                continue
+            if arm == "bcsr":
+                ops.reset_launch_counts()
+                summary, wall = run_cli(cli_explain.main,
+                                        dirs + flags + ["--explain-node", "305"])
+                launches["cli_bcsr_explain_node"] = ops.launch_counts()
+                shape = summary["mask_shape"]
+                print(f"  cli.explain --bcsr --explain-node 305: mask {shape}; "
+                      f"{wall:.2f} s the call; launches "
+                      f"{ {k: v for k, v in launches['cli_bcsr_explain_node'].items() if v} } "
+                      f"[{CARD}]", flush=True)
+                check(len(shape) == 2 and shape[0] == shape[1] > 1,
+                      f"bad tile-space mask shape {shape}")
+                for k in ("spmm_bcsr", "sddmm_bcsr"):
+                    check(launches["cli_bcsr_explain_node"][k] > 0,
+                          f"cli.explain --bcsr --explain-node did not launch {k}")
+            ops.reset_launch_counts()
+            summary, wall = run_cli(cli_explain.main, dirs + flags)
+            stats_launches = ops.launch_counts()
+            auc = summary["auc"]
+            check(summary["num_nodes_explained"] == EXPLAIN_STATS_NODES,
+                  "the stats explain did not explain 60 nodes")
+            check(auc is not None and auc > 0.9, f"cli.explain {arm}: AUC {auc}")
+            check(sum(stats_launches.values()) == 0,
+                  "the COO stats explain launched a kernel")
+            # bench_explain.py:285-305: the batched explain of the 60 nodes,
+            # best of 3 after a first run, on the CLI's explainer
+            ex = cli_explain.build_explainer(parse_explain_args(dirs + flags))
+            ex.print_training = False
+            nodes = list(range(400, 700, 5))
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ex.explain_nodes_batch(nodes)
+                times.append(time.perf_counter() - t0)
+            sps = EXPLAIN_STATS_NODES * 100 / min(times)
+            figures[f"{arm}_explain_s"] = wall
+            figures[f"{arm}_explain_steps_per_s"] = sps
+            print(f"  cli.explain {' '.join(flags) or '(COO)'} stats: AUC {auc:.4f} "
+                  f"over {EXPLAIN_STATS_NODES} nodes x 100 epochs; {wall:.2f} s the "
+                  f"call; explain_nodes_batch best of 3 {min(times):.3f} s = "
+                  f"{sps:.1f} mask-opt steps/s [{CARD}]", flush=True)
+            del ex
+
+    # bench_explain.py:138-156: one query, every edge, 4 epochs on the banded
+    # graph of phase 3, num_pairs = E_pad
+    dev = torch.device("cuda")
+    n = BANDED_NODES
+    s, r, w = make_banded_graph(n, BANDED_DEG, BANDED_BAND)
+    g = graph_from_edges(s, r, n, edge_weight=w).to(dev)
+    model = GcnEncoderNode(input_dim=10, hidden_dim=20, embedding_dim=20,
+                           label_dim=4, num_layers=3,
+                           generator=torch.Generator().manual_seed(0))
+    model.requires_grad_(False)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (g.num_nodes_padded, 10)).astype(np.float32)).to(dev)
+    pred_vec = torch.zeros((g.num_nodes_padded,), dtype=torch.int32, device=dev)
+
+    def run(epochs):
+        return run_mask_optimization(
+            model, g, x, [5], [1], pred_vec, None, [n],
+            ExplainConfig(num_epochs=epochs),
+            generator=torch.Generator(device=dev).manual_seed(1))
+
+    run(1)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist = run(4)
+    torch.cuda.synchronize()
+    coo_sps = 4 / (time.perf_counter() - t0)
+    check(sum(ops.launch_counts().values()) == 0, "the COO explain launched a kernel")
+    check(bool(np.all(np.isfinite(hist["total"])))
+          and bool(torch.isfinite(state.edge_logits).all()),
+          "banded COO explain: non-finite loss or mask")
+    figures["banded_coo_steps_per_s"] = coo_sps
+    print(f"  banded explain COO yardstick ({n} nodes, {s.size} edges, one query, "
+          f"4 epochs): {coo_sps:.2f} steps/s against tile-space f32 "
+          f"{banded_tile_sps:.2f} steps/s; loss {hist['total'][0, 0]:.5f} -> "
+          f"{hist['total'][0, -1]:.5f} [{CARD}]", flush=True)
+    del g, x, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "figures": figures,
+            "shapes": {"spmm_packets": packet_shapes}}
 
 
 def pair_csr(pair):
@@ -1272,6 +1466,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    global CARD
+    CARD = smi
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -1313,7 +1509,7 @@ def main() -> int:
                 num_layers=3)
     init = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0),
                           device="cpu").state_dict()
-    short = TrainConfig(num_epochs=20)
+    short = TrainConfig(num_epochs=20, use_bcsr=True)
     cpu_out = train_node_classifier(GcnEncoderNode(**dims, device="cpu"), g,
                                     feat, labels, short, init_params=init,
                                     device="cpu")
@@ -1327,7 +1523,7 @@ def main() -> int:
     model = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0))
     ops.reset_launch_counts()
     out = train_node_classifier(model, g, feat, labels,
-                                TrainConfig(num_epochs=EPOCHS))
+                                TrainConfig(num_epochs=EPOCHS, use_bcsr=True))
     train_launches = ops.launch_counts()
     hist = out["history"]
     print(f"  loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; "
@@ -1406,7 +1602,13 @@ def main() -> int:
     diff = phase_diffuse(low.pop("graph"))
     print(f"  diffuse phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 6: launch probes
+    # ---- phase 6: the COO main path and the node CLI
+    print("phase coo", flush=True)
+    t0 = time.perf_counter()
+    coo = phase_coo(banded["steps_per_s"]["f32"])
+    print(f"  coo phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 7: launch probes
     print("phase launch_probes", flush=True)
     probes = phase_probes(gen)
 
@@ -1414,6 +1616,7 @@ def main() -> int:
     paths = {"train": train_launches, "explain": explain_launches,
              "explain_bf16": bf16_launches,
              **{f"explain_banded_{k}": c for k, c in banded["launches"].items()},
+             **coo["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
              **diff["launches"], "launch_probes": probes["launches"]}
     meta = {
@@ -1446,7 +1649,8 @@ def main() -> int:
         "spmm_packets": ("tpugraph_torch/csrc/packets_kernels.cu",
                          "tpugraph/ops/pallas_packets.py:146",
                          low["shapes"]["packets"],
-                         [low["shapes"]["packets"], low["variants"][4]]),
+                         [low["shapes"]["packets"], low["variants"][4]]
+                         + coo["shapes"]["spmm_packets"]),
     }
     for name, rec in probes["kernels"].items():
         meta[name] = ("tpugraph_torch/csrc/probe_kernels.cu",

@@ -1,0 +1,177 @@
+"""The port's CLI end to end on the CPU, as subprocesses of
+``python -m tpugraph_torch.cli.{train,explain} --platform cpu``, and
+every flag whose module is not ported raising by name."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tpugraph_torch.cli import explain as cli_explain
+from tpugraph_torch.cli import train as cli_train
+from tpugraph_torch.cli.config import (Config, cli_device, parse_explain_args,
+                                       parse_train_args)
+from tpugraph_torch.cli.tasks import train_config
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = {**os.environ, "OMP_NUM_THREADS": "1",
+       "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+# run a module as ``python -m`` does, then report the JAX-side modules it loaded
+NO_JAX = ("import runpy, sys; sys.argv = sys.argv[1:]; "
+          "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True); "
+          "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+          "('jax', 'jaxlib', 'flax', 'tpugraph')); "
+          "print('LOADED', bad, file=sys.stderr); sys.exit(3 if bad else 0)")
+
+
+def run_cli(module, args, cwd, check_no_jax=False):
+    head = ([sys.executable, "-c", NO_JAX, module] if check_no_jax
+            else [sys.executable, "-m", module])
+    return subprocess.run(head + ["--platform", "cpu"] + args,
+                          capture_output=True, text=True, timeout=240,
+                          cwd=cwd, env=ENV)
+
+
+def summary_of(out):
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout[out.stdout.index("{"):])
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("cliwork"))
+
+
+def test_train_then_explain_cli(workdir):
+    """Train 400 epochs on COO, explain node 305 on COO and in tile space
+    (10 mask epochs), then the stats run over nodes 400:700:5 with 20; the
+    JAX package is never loaded."""
+    s = summary_of(run_cli("tpugraph_torch.cli.train",
+                           ["--dataset", "syn1", "--epochs", "400"], workdir,
+                           check_no_jax=True))
+    assert s["result_test"]["acc"] > 0.7, s
+    assert set(s) == {"dataset", "method", "ckpt_path", "elapsed_s",
+                      "result_train", "result_test"}
+    ck = os.path.join(workdir, "ckpt", "syn1_base_h20_o20")
+    assert sorted(os.listdir(ck)) == ["cg.npz", "meta.json", "params.pt",
+                                      "train_idx.npy"]
+    with open(os.path.join(ck, "meta.json")) as f:
+        meta = json.load(f)
+    assert meta["task"] == "node" and meta["num_classes"] == 4
+    assert meta["result_test"]["acc"] == pytest.approx(s["result_test"]["acc"])
+
+    logdir = os.path.join(workdir, "log", "syn1_base_h20_o20_explain")
+    npy = os.path.join(logdir, "masked_adj_node_idx_305graph_idx_0.npy")
+    shapes = []
+    for extra in ([], ["--bcsr"]):
+        if os.path.exists(npy):
+            os.remove(npy)
+        s = summary_of(run_cli("tpugraph_torch.cli.explain",
+                               ["--dataset", "syn1", "--explain-node", "305",
+                                "--epochs", "10"] + extra, workdir,
+                               check_no_jax=True))
+        assert s["explain_node"] == 305 and "viz" not in s
+        assert s["mask_shape"][0] == s["mask_shape"][1] > 1
+        assert os.path.isfile(npy)
+        shapes.append(s["mask_shape"])
+    assert shapes[0] == shapes[1]  # the same 3-hop neighborhood on both paths
+
+    s = summary_of(run_cli("tpugraph_torch.cli.explain",
+                           ["--dataset", "syn1", "--epochs", "20"], workdir))
+    assert s["num_nodes_explained"] == 60 and 0.0 < s["auc"] <= 1.0
+    with open(os.path.join(logdir, "pr", "auc_syn1_exp.txt")) as f:
+        assert f.read() == f"dataset: syn1, model: exp, auc: {s['auc']}\n"
+    # the 60 stats nodes' masks beside node 305's
+    assert len([f for f in os.listdir(logdir) if f.endswith(".npy")]) == 61
+
+
+def test_cli_without_platform_needs_cuda(monkeypatch, tmp_path):
+    """Without --platform and without a card, both entry points raise the
+    port's "pass device='cpu'" error before they train or load."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (cli_train.main, cli_explain.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--dataset", "syn1", "--epochs", "1",
+                  "--ckptdir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+
+
+def test_platform_flag():
+    assert cli_device(Config(platform="cpu")) == torch.device("cpu")
+    with pytest.raises(ValueError, match="--platform 'tpu'"):
+        cli_device(Config(platform="tpu"))
+
+
+def test_bcsr_flags_reach_train_config():
+    tc = train_config(parse_train_args(
+        ["--dataset", "syn1", "--bcsr", "--bcsr-format", "packets",
+         "--bcsr-block", "256", "--epochs", "7"]))
+    assert (tc.use_bcsr, tc.bcsr_format, tc.bcsr_block, tc.num_epochs) == (
+        True, "packets", 256, 7)
+    assert not train_config(parse_train_args([])).use_bcsr
+
+
+def test_missing_checkpoint_message(tmp_path):
+    with pytest.raises(FileNotFoundError, match="train a model"):
+        cli_explain.main(["--dataset", "syn1", "--platform", "cpu",
+                          "--ckptdir", str(tmp_path)])
+
+
+UNPORTED_TRAIN = [
+    (["--method", "att"], "--method att", "item 4"),
+    (["--bn"], "--bn", "item 4"),
+    (["--dropout", "0.1"], "--dropout", "item 4"),
+    (["--dataset", "syn2"], "--dataset syn2", "item 5"),
+    (["--dataset", "syn5"], "--dataset syn5", "item 5"),
+    (["--opt", "sgd"], "--opt sgd", "item 6"),
+    (["--opt-scheduler", "cos"], "--opt-scheduler cos", "item 6"),
+    (["--resume"], "--resume", "item 6"),
+    (["--bmname", "ENZYMES"], "--bmname", "items 8-9"),
+    (["--pkl", "x.pkl"], "--pkl", "items 8-9"),
+    (["--dataset", "enron"], "--dataset enron", "items 8-9"),
+    (["--dataset", "ppi_essential"], "--dataset ppi_essential", "items 8-9"),
+    (["--halo", "4"], "--halo", "item 11"),
+    (["--dp", "2"], "--dp", "item 11"),
+]
+UNPORTED_EXPLAIN = [
+    (["--log-mask-every", "25"], "--log-mask-every", "item 10"),
+    (["--graph-mode"], "--graph-mode", "items 8-9"),
+    (["--graph-idx", "1"], "--graph-idx", "items 8-9"),
+    (["--multigraph-class", "0"], "--multigraph-class", "items 8-9"),
+    (["--multinode-class", "1"], "--multinode-class", "item 8"),
+    (["--explainer-model", "grad"], "--explainer-model grad", "item 8"),
+    (["--explainer-model", "att"], "--explainer-model att", "item 8"),
+    (["--mesh", "4"], "--mesh", "item 11"),
+    (["--dataset", "enron_multigraph"], "--dataset enron_multigraph",
+     "items 8-9"),
+]
+
+
+@pytest.mark.parametrize("args,flag,item", UNPORTED_TRAIN)
+def test_unported_train_flag_raises(tmp_path, args, flag, item):
+    with pytest.raises(NotImplementedError) as err:
+        cli_train.main(["--platform", "cpu", "--ckptdir", str(tmp_path)] + args)
+    assert flag in str(err.value) and f"ROADMAP section 1 {item}" in str(err.value)
+    assert not os.listdir(tmp_path)  # raised before anything ran
+
+
+@pytest.mark.parametrize("args,flag,item", UNPORTED_EXPLAIN)
+def test_unported_explain_flag_raises(tmp_path, args, flag, item):
+    with pytest.raises(NotImplementedError) as err:
+        cli_explain.main(["--platform", "cpu", "--ckptdir", str(tmp_path)]
+                         + args)
+    assert flag in str(err.value) and f"ROADMAP section 1 {item}" in str(err.value)
+
+
+def test_explain_flags_reach_explain_config():
+    cfg = parse_explain_args(["--epochs", "7", "--lr", "0.5", "--mask-bias",
+                              "--marginalize", "--seed-ensemble", "3",
+                              "--mask-act", "ReLU"])
+    assert (cfg.explainer_epochs, cfg.explainer_lr, cfg.mask_bias,
+            cfg.marginalize, cfg.seed_ensemble, cfg.mask_act) == (
+        7, 0.5, True, True, 3, "ReLU")

@@ -2,7 +2,8 @@
 (spmm_bcsr_packed), B4 (spmm_stacked_resident), B5 (spmm_pair_resident),
 B6 (spmm_power_resident) and B7 (spmm_packets) against their plain
 PyTorch versions on the card, with every tile / x / output dtype they
-take.  This file imports no
+take; and the COO path (ops, training, the batched explainer) on the
+card against the CPU.  This file imports no
 JAX (nor does it need ``tests/conftest.py``, which does), so it runs on a
 machine without JAX:
 
@@ -766,3 +767,106 @@ def test_spmm_pair_and_power_negative_int8_match_plain(cuda_device):
             err = (y.float() - ref).abs()
             assert bool((err <= _pair_tol(ref, 5)).all()), (
                 x_dtype, out_dtype, float(err.max()))
+
+
+# ---- the COO path (plain torch ops: gather, index_add_, scatter_reduce)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+def test_coo_ops_on_card_match_cpu(cuda_device, index_dtype):
+    """COO spmm, sddmm and segment_softmax on the card against the CPU on
+    the same inputs.  index_add_ sums with atomics on the card, in another
+    order from run to run: each f32 sum of k terms may differ by
+    1e-5 * max|ref| * sqrt(k); sddmm and the softmax reorder nothing
+    across edges, so they hold to 1e-6 relative."""
+    from tpugraph_torch.ops import message
+
+    s, r, w = _coo(4096, 60000, seed=30)
+    w[::11] = 0.0
+    x = _x(4096, 64, 31, "cpu")
+    y = _x(4096, 64, 32, "cpu")
+    st, rt, wt = (torch.from_numpy(a) for a in (s, r, w))
+    st, rt = st.to(index_dtype), rt.to(index_dtype)
+    dev = lambda *ts: [t.to(cuda_device) for t in ts]
+    k = int(np.bincount(r).max())
+    ref = message.spmm(st, rt, wt, x)
+    out = message.spmm(*dev(st, rt, wt, x)).cpu()
+    assert float((out - ref).abs().max()) <= _f32_tol(ref, k)
+    ref = message.sddmm(st, rt, x, y)
+    out = message.sddmm(*dev(st, rt, x, y)).cpu()
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-5)
+    logits = torch.from_numpy(np.random.default_rng(33).standard_normal(
+        s.size).astype(np.float32) * 3)
+    mask = (wt != 0).float()
+    ref = message.segment_softmax(logits, rt, 4100, mask)
+    out = message.segment_softmax(*dev(logits, rt), 4100,
+                                  mask.to(cuda_device)).cpu()
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-7)
+
+
+def _syn1():
+    from tpugraph_torch.core import graph_from_edge_list
+    from tpugraph_torch.data import gen_syn1
+
+    G, labels, _ = gen_syn1(seed=0)
+    g = graph_from_edge_list(G.number_of_nodes(), G.edges())
+    feat = np.stack([G.feat[u] for u in G.nodes()])
+    return G, g, feat, labels
+
+
+@pytest.mark.cuda
+def test_coo_training_on_card_matches_cpu(cuda_device):
+    """20 COO epochs of syn1 on the card and on the CPU from one set of
+    parameters: the loss trajectories agree within the smoke's rtol 2e-2
+    / atol 2e-3 (atomic sums reorder every aggregation)."""
+    from tpugraph_torch.nn import GcnEncoderNode, SparseAdj
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+
+    _, g, feat, labels = _syn1()
+    dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
+                num_layers=3)
+    init = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0),
+                          device="cpu").state_dict()
+    cfg = TrainConfig(num_epochs=20)
+    cpu = train_node_classifier(GcnEncoderNode(**dims, device="cpu"), g, feat,
+                                labels, cfg, init_params=init, device="cpu")
+    gpu = train_node_classifier(GcnEncoderNode(**dims, device=cuda_device), g,
+                                feat, labels, cfg, init_params=init,
+                                device=cuda_device)
+    assert isinstance(gpu["adj"], SparseAdj)
+    assert gpu["adj"].weight.device.type == cuda_device.type
+    np.testing.assert_allclose(gpu["history"]["loss"], cpu["history"]["loss"],
+                               rtol=2e-2, atol=2e-3)
+    assert gpu["history"]["loss"][-1] < gpu["history"]["loss"][0]
+
+
+@pytest.mark.cuda
+def test_coo_batched_explain_on_card_auc(cuda_device):
+    """syn1 trained 1000 epochs on COO on the card, then the 60 stats
+    nodes explained together on the card: motif AUC > 0.9."""
+    from tpugraph_torch.data import preprocess_input_graph
+    from tpugraph_torch.explain import Explainer
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+
+    G, g, feat, labels = _syn1()
+    dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
+                num_layers=3)
+    model = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0),
+                           device=cuda_device)
+    out = train_node_classifier(model, g, feat, labels,
+                                TrainConfig(num_epochs=1000), device=cuda_device)
+    assert out["result_test"]["acc"] >= 0.85
+    data = preprocess_input_graph(G, labels)
+    n = data["adj"].shape[1]
+    ex = Explainer(GcnEncoderNode(**dims, device=cuda_device), out["params"],
+                   data["adj"], data["feat"], data["labels"],
+                   out["ypred"][:, :n], device=cuda_device)
+    res = ex.explain_nodes_gnn_stats(list(range(400, 700, 5)))
+    assert res["auc"] > 0.9, res["auc"]
+    for r in res["results"]:
+        ma = r["masked_adj"]
+        assert ma.shape == (len(r["neighbors"]),) * 2
+        assert bool(np.all(np.isfinite(ma)))
+        np.testing.assert_allclose(ma, ma.T, atol=1e-6)

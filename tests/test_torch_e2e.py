@@ -31,7 +31,8 @@ def test_syn1_train_checkpoint_explain_on_cpu(tmp_path):
     model = GcnEncoderNode(**DIMS, generator=torch.Generator().manual_seed(0),
                            device="cpu")
     out = train_node_classifier(model, g, feat, labels,
-                                TrainConfig(num_epochs=800), device="cpu")
+                                TrainConfig(num_epochs=800, use_bcsr=True),
+                                device="cpu")
     assert out["result_test"]["acc"] >= 0.85, out["result_test"]
     data = preprocess_input_graph(G, labels)
     n = data["adj"].shape[1]

@@ -98,7 +98,7 @@ def test_training_trajectory_matches(syn1):
     model = GcnEncoderNode(**DIMS, device="cpu")
     out = train_node_classifier(
         model, syn1["g_t"], syn1["feat"], syn1["labels"],
-        TrainConfig(num_epochs=epochs),
+        TrainConfig(num_epochs=epochs, use_bcsr=True),
         init_params=params_from_jax(syn1["params"]), device="cpu")
     np.testing.assert_array_equal(out["train_idx"], out_j["train_idx"])
     np.testing.assert_allclose(out["history"]["loss"], out_j["history"]["loss"],
@@ -156,7 +156,7 @@ def test_format_training_trajectory_matches(small_syn1, fmt):
         init_params=d["params"])
     out = train_node_classifier(
         GcnEncoderNode(**d["dims"], device="cpu"), d["g_t"], d["feat"],
-        d["labels"], TrainConfig(num_epochs=epochs, **fmt),
+        d["labels"], TrainConfig(num_epochs=epochs, use_bcsr=True, **fmt),
         init_params=params_from_jax(d["params"]), device="cpu")
     np.testing.assert_allclose(out["history"]["loss"], out_j["history"]["loss"],
                                rtol=1e-5, atol=0)

@@ -53,7 +53,7 @@ def test_unported_options_raise():
         GcnEncoderNode(**DIMS, bn=True, device="cpu")
     g = graph_from_edge_list(3, [(0, 1), (1, 2)])
     model = GcnEncoderNode(**DIMS, device="cpu")
-    for cfg in (TrainConfig(use_bcsr=False), TrainConfig(opt="sgd"),
+    for cfg in (TrainConfig(opt="rmsprop"), TrainConfig(opt="sgd"),
                 TrainConfig(opt_scheduler="step")):
         with pytest.raises(NotImplementedError):
             train_node_classifier(model, g, np.ones((8, 4), np.float32),
@@ -62,13 +62,15 @@ def test_unported_options_raise():
 
 def test_package_imports_neither_jax_nor_tpugraph():
     """Import every module of the package in a fresh interpreter and check
-    that neither jax nor tpugraph got loaded."""
+    that neither jax nor tpugraph got loaded, nor a package the card
+    machine lacks (networkx, sklearn, matplotlib, tensorboardX, msgpack)."""
     code = (
         "import pkgutil, sys, importlib, tpugraph_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tpugraph_torch.__path__, "
         "'tpugraph_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpugraph', 'flax'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpugraph', 'flax',\n"
+        "    'networkx', 'sklearn', 'matplotlib', 'tensorboardX', 'msgpack'))\n"
         "assert len(mods) >= 20, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

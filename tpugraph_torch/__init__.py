@@ -10,11 +10,13 @@ host-side numpy code it needs from ``tpugraph`` is carried over, not
 imported.  Entry points take ``device=None``, meaning CUDA; without a
 card they raise unless the caller passes ``device="cpu"``.
 
-Ported so far: syn1 generation, the BCSR layout, ``GcnEncoderNode`` on
-``BCSRAdj``, full-batch node training in every static-weight format, the
-checkpoint + cg bundle, the tile-space GNNExplainer (with bf16 kernel
-tiles) and its motif AUC, and graph diffusion (``ops.DiffusionOperator``,
-``ops.diffuse``).
+Ported so far: syn1 generation, the COO message-passing ops and the BCSR
+layout, ``GcnEncoderNode`` on ``SparseAdj`` and ``BCSRAdj``, full-batch
+node training on COO and in every static-weight format, the checkpoint +
+cg bundle, the batched COO GNNExplainer and the tile-space one (with bf16
+kernel tiles) and their motif AUC, graph diffusion
+(``ops.DiffusionOperator``, ``ops.diffuse``), and the node half of the
+CLI (``python -m tpugraph_torch.cli.train`` / ``.explain``, syn1).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,105 @@
+"""Explainer entry point (port of ``tpugraph/cli/explain.py``, node mode).
+
+Usage:
+  python -m tpugraph_torch.cli.explain --dataset=syn1           # AUC over nodes 400:700:5
+  python -m tpugraph_torch.cli.explain --dataset=syn1 --explain-node=301 [--bcsr]
+
+``--explain-node`` explains one node on the COO path, or in tile space
+with ``--bcsr``; without it the 60 stats nodes are explained together on
+the COO path and scored against the motifs.  No graph renders,
+heatmaps or TensorBoard events are written yet (ROADMAP section 1 item
+10), and the summary has no key for them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict
+
+from tpugraph_torch.cli.config import (Config, check_ported, cli_device,
+                                       parse_explain_args)
+from tpugraph_torch.explain.explainer import Explainer
+from tpugraph_torch.explain.module import ExplainConfig
+from tpugraph_torch.nn import GcnEncoderNode
+from tpugraph_torch.train.checkpoint import (gen_explainer_prefix, gen_prefix,
+                                             load_checkpoint)
+
+
+def build_explainer(cfg: Config) -> Explainer:
+    """An :class:`Explainer` over the checkpoint ``cfg`` names, on
+    ``--platform``'s device, logging under
+    ``<logdir>/<prefix>_explain[_suffix]`` (``tpugraph/cli/explain.py:27``)."""
+    check_ported(cfg)
+    device = cli_device(cfg)
+    prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
+                        cfg.bias, cfg.name_suffix)
+    ckpt = load_checkpoint(cfg.ckptdir, prefix)
+    cg = ckpt["cg"]
+    if cg is None:
+        raise ValueError(f"checkpoint {prefix} has no cg bundle")
+    model = GcnEncoderNode(
+        input_dim=int(cg["feat"].shape[2]),
+        hidden_dim=cfg.hidden_dim,
+        embedding_dim=cfg.output_dim,
+        label_dim=int(cg["pred"].shape[2]),
+        num_layers=cfg.num_gc_layers,
+        bn=cfg.bn,
+        use_bias=cfg.bias,
+        device=device,
+    )
+    logdir = os.path.join(cfg.logdir,
+                          gen_explainer_prefix(prefix, cfg.explainer_suffix))
+    os.makedirs(logdir, exist_ok=True)
+    ecfg = ExplainConfig(
+        num_epochs=cfg.explainer_epochs,
+        lr=cfg.explainer_lr,
+        mask_act=cfg.mask_act,
+        mask_bias=cfg.mask_bias,
+        seed_ensemble=cfg.seed_ensemble,
+        marginalize=cfg.marginalize,
+        log_mask_every=cfg.log_mask_every,
+    )
+    return Explainer(
+        model,
+        ckpt["params"],
+        adj=cg["adj"],
+        feat=cg["feat"],
+        label=cg["label"],
+        pred=cg["pred"],
+        n_hops=cfg.num_gc_layers,
+        cfg=ecfg,
+        logdir=logdir,
+        dataset=cfg.name,
+        print_training=True,
+        seed=cfg.seed,
+        device=device,
+    )
+
+
+def main(argv=None) -> Dict:
+    """Run the explainer on ``argv`` (``sys.argv`` when ``None``); returns
+    the summary it prints."""
+    cfg = parse_explain_args(argv)
+    ex = build_explainer(cfg)
+    summary = {"dataset": cfg.name, "mode": "node"}
+    if cfg.explain_node is not None:
+        if cfg.use_bcsr:
+            r = ex.explain_node_bcsr(cfg.explain_node, block=cfg.bcsr_block)
+        else:
+            r = ex.explain_nodes_batch([cfg.explain_node])[0]
+        ex._save_npy(r["masked_adj"], cfg.explain_node)
+        summary["explain_node"] = cfg.explain_node
+        summary["mask_shape"] = list(r["masked_adj"].shape)
+    else:
+        node_indices = list(range(400, 700, 5))
+        res = ex.explain_nodes_gnn_stats(node_indices,
+                                         model=cfg.explainer_model)
+        summary["num_nodes_explained"] = len(node_indices)
+        summary["auc"] = res["auc"]
+    print(json.dumps(summary, indent=2, default=float))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

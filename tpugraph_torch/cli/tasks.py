@@ -1,0 +1,133 @@
+"""Port of the node half of ``tpugraph/cli/tasks.py``: build the dataset
+and the model, train, then save the checkpoint with the dense cg bundle.
+
+syn1 only, on one device; the other datasets and tasks raise by name
+(:func:`tpugraph_torch.cli.config.check_ported`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from tpugraph_torch.cli.config import Config, check_ported, cli_device
+from tpugraph_torch.core.graph import Graph, graph_from_edge_list
+from tpugraph_torch.data import ConstFeatureGen, gen_syn1, preprocess_input_graph
+from tpugraph_torch.data.shapes import SimpleGraph
+from tpugraph_torch.nn import GcnEncoderNode
+from tpugraph_torch.train.checkpoint import gen_prefix, save_checkpoint
+from tpugraph_torch.train.loop import TrainConfig, train_node_classifier
+
+
+def padded_features(G: SimpleGraph, g: Graph) -> np.ndarray:
+    """``[N_pad, D]`` features in ``G.nodes()`` order
+    (``tpugraph/cli/tasks.py:18``)."""
+    nodes = G.nodes()
+    d = G.feat[nodes[-1]].shape[0]
+    feat = np.zeros((g.num_nodes_padded, d), dtype=np.float32)
+    for i, u in enumerate(nodes):
+        feat[i] = G.feat[u]
+    return feat
+
+
+def train_config(cfg: Config) -> TrainConfig:
+    """The fields of ``TrainConfig`` the node loop reads
+    (``tpugraph/cli/tasks.py:29``)."""
+    return TrainConfig(
+        num_epochs=cfg.num_epochs,
+        lr=cfg.lr,
+        clip=cfg.clip,
+        weight_decay=cfg.weight_decay,
+        train_ratio=cfg.train_ratio,
+        opt=cfg.opt,
+        opt_scheduler=cfg.opt_scheduler,
+        use_bcsr=cfg.use_bcsr,
+        bcsr_block=cfg.bcsr_block,
+        bcsr_format=cfg.bcsr_format,
+    )
+
+
+def build_node_model(cfg: Config, input_dim: int, num_classes: int,
+                     device=None) -> GcnEncoderNode:
+    """``GcnEncoderNode`` at the configured widths, its parameters drawn
+    from a generator seeded with ``cfg.seed`` (``tpugraph/cli/tasks.py:50``;
+    JAX draws them from ``PRNGKey(seed)``)."""
+    return GcnEncoderNode(
+        input_dim=input_dim,
+        hidden_dim=cfg.hidden_dim,
+        embedding_dim=cfg.output_dim,
+        label_dim=num_classes,
+        num_layers=cfg.num_gc_layers,
+        bn=cfg.bn,
+        dropout=cfg.dropout,
+        use_bias=cfg.bias,
+        att=(cfg.method == "att"),
+        generator=torch.Generator().manual_seed(cfg.seed),
+        device=device,
+    )
+
+
+def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
+    """Padded graph, training on ``--platform``'s device, and the
+    checkpoint with the dense cg bundle and ``meta``
+    (``tpugraph/cli/tasks.py:64-176``, single device, no ``--resume``)."""
+    device = cli_device(cfg)
+    num_classes = int(max(labels)) + 1
+    g = graph_from_edge_list(G.number_of_nodes(), G.edges())
+    feat = padded_features(G, g)
+    model = build_node_model(cfg, feat.shape[1], num_classes, device)
+    out = train_node_classifier(model, g, feat, labels, train_config(cfg),
+                                seed=cfg.seed, log_fn=log_fn, device=device)
+    data = preprocess_input_graph(G, labels)
+    n_real = data["adj"].shape[1]
+    cg = {
+        "adj": data["adj"],
+        "feat": data["feat"],
+        "label": data["labels"],
+        "pred": out["ypred"][:, :n_real],
+        "train_idx": out["train_idx"],
+    }
+    prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
+                        cfg.bias, cfg.name_suffix)
+    path = save_checkpoint(
+        cfg.ckptdir,
+        prefix,
+        out["params"],
+        cg_dict=cg,
+        meta={
+            "model_type": cfg.method,
+            "task": "node",
+            "input_dim": feat.shape[1],
+            "num_classes": num_classes,
+            "num_gc_layers": cfg.num_gc_layers,
+            "hidden_dim": cfg.hidden_dim,
+            "output_dim": cfg.output_dim,
+            "bn": cfg.bn,
+            "result_train": {k: v for k, v in out["result_train"].items()
+                             if k != "conf_mat"},
+            "result_test": {k: v for k, v in out["result_test"].items()
+                            if k != "conf_mat"},
+        },
+    )
+    out["ckpt_path"] = path
+    out["cg"] = cg
+    return out
+
+
+def syn_task(cfg: Config, log_fn=None) -> Dict:
+    """syn1 node classification with constant features
+    (``tpugraph/cli/tasks.py:179``)."""
+    const_feat = ConstFeatureGen(np.ones(cfg.input_dim, dtype=np.float32))
+    G, labels, _ = gen_syn1(feature_generator=const_feat, seed=cfg.seed)
+    return run_node_task(cfg, G, labels, log_fn=log_fn)
+
+
+def run_task(cfg: Config, log_fn=None) -> Dict:
+    """The task ``cfg`` names (``tpugraph/cli/tasks.py:482``); only syn1 is
+    ported, and unported flags raise by name."""
+    check_ported(cfg)
+    if cfg.dataset == "syn1":
+        return syn_task(cfg, log_fn=log_fn)
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")

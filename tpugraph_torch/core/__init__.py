@@ -6,4 +6,8 @@ from tpugraph_torch.core.graph import (  # noqa: F401
     graph_from_edge_list,
     graph_from_edges,
 )
-from tpugraph_torch.core.khop import khop_subgraph  # noqa: F401
+from tpugraph_torch.core.khop import (  # noqa: F401
+    extract_dense_subgraph,
+    khop_reachability,
+    khop_subgraph,
+)

@@ -5,8 +5,9 @@ multiple of 8, padding edges point at node 0 with weight exactly 0, and
 both directions of an undirected edge share one ``edge_pair`` id — so
 that a graph built here and one built by ``tpugraph`` hold the same
 arrays.  The arrays are CPU tensors: the graph is host-side input to the
-BCSR packer and the k-hop extraction, and moves to a device only as the
-packed layout.
+packers and the k-hop extraction, and moves to a device as a packed
+layout, as a ``SparseAdj`` or, for the COO explainer, as itself
+(``Graph.to``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,12 @@ class Graph(NamedTuple):
     @property
     def num_edges_padded(self) -> int:
         return self.senders.shape[-1]
+
+    def to(self, device) -> "Graph":
+        """This graph with its arrays on ``device`` (the COO explainer's
+        copy; the graph is built on the host)."""
+        return self._replace(**{k: getattr(self, k).to(device) for k in (
+            "senders", "receivers", "edge_weight", "node_mask", "edge_pair")})
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,12 +1,19 @@
-"""Port of ``tpugraph/explain/explainer.py``: the tile-space explanation
-engine (``explain_nodes_bcsr``) over a trained model and its cg bundle.
+"""Port of ``tpugraph/explain/explainer.py``: the explanation engine over
+a trained model and its cg bundle, on two paths.
 
-The full graph is packed once into BCSR (plus its transpose plan and
-symmetry partners) and moved to the device; every query then restricts
-the mask to its k-hop nodes with a node mask, so nothing is repacked per
-query.  Results keep the reference's dense ``masked_adj`` contract
+* COO (``explain_nodes_batch``, ``explain``, ``explain_nodes_gnn_stats``):
+  every query's mask optimization at once, one batched forward over Q
+  copies of the graph a step (:mod:`tpugraph_torch.explain.module`),
+  each query restricted to the live edges of its k-hop neighborhood.
+* Tile space (``explain_nodes_bcsr``): the full graph is packed once into
+  BCSR (plus its transpose plan and symmetry partners) and moved to the
+  device; every query then restricts the mask to its k-hop nodes with a
+  node mask, so nothing is repacked per query.
+
+Results keep the reference's dense ``masked_adj`` contract
 (ascending-neighbor sub-adjacency) and its ``.npy`` file names.
-Single-device only: the ``mesh`` query sharding is not ported.
+Single-device only: the ``mesh`` query sharding is not ported, and nor
+are graph mode, the grad/att baselines, alignment and the PR-curve PNG.
 """
 
 from __future__ import annotations
@@ -20,17 +27,29 @@ import torch
 
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.core.graph import Graph, graph_from_dense
-from tpugraph_torch.core.khop import khop_subgraph
+from tpugraph_torch.core.khop import extract_dense_subgraph, khop_subgraph
 from tpugraph_torch.explain.bcsr_explain import (
     run_bcsr_mask_optimization,
     tiles_to_edge_weights,
 )
-from tpugraph_torch.explain.module import ExplainConfig
+from tpugraph_torch.explain.groundtruth import explanation_auc
+from tpugraph_torch.explain.module import (
+    ExplainConfig,
+    masked_edge_weights,
+    run_mask_optimization,
+)
 from tpugraph_torch.ops.bcsr import (
     bcsr_from_coo,
     bcsr_sym_partner,
     bcsr_transpose_plan,
 )
+
+
+def _check_explainer_model(model: str) -> None:
+    if model != "exp":
+        raise NotImplementedError(
+            f"explainer model {model!r} (the grad/att baselines) is not "
+            "ported yet (ROADMAP section 1 item 8)")
 
 
 class Explainer:
@@ -43,6 +62,7 @@ class Explainer:
       adj/feat/label/pred: the cg bundle — ``adj [B, N, N]``,
         ``feat [B, N, D]``, ``label [B, N]``, ``pred [B, N, C]``.
       n_hops: neighborhood radius (the number of GC layers).
+      dataset: names the motif ground truth of the AUC.
       device: ``None`` = CUDA; raises without it.
     """
 
@@ -58,6 +78,7 @@ class Explainer:
         graph_idx: int = 0,
         cfg: ExplainConfig = ExplainConfig(),
         logdir: Optional[str] = None,
+        dataset: str = "syn1",
         print_training: bool = False,
         seed: int = 0,
         device: DeviceLike = None,
@@ -76,6 +97,7 @@ class Explainer:
         self.graph_idx = graph_idx
         self.cfg = cfg
         self.logdir = logdir
+        self.dataset = dataset
         self.print_training = print_training
         self.seed = seed
         self._graphs: Dict[int, Graph] = {}
@@ -88,6 +110,26 @@ class Explainer:
         if graph_idx not in self._graphs:
             self._graphs[graph_idx] = graph_from_dense(self.adj[graph_idx])
         return self._graphs[graph_idx]
+
+    def _padded_feat(self, graph_idx: int, g: Graph) -> np.ndarray:
+        n_pad = g.num_nodes_padded
+        f = np.zeros((n_pad, self.feat.shape[-1]), dtype=np.float32)
+        f[: self.feat.shape[1]] = self.feat[graph_idx]
+        return f
+
+    def _pred_labels(self, graph_idx: int, g: Graph) -> np.ndarray:
+        out = np.zeros((g.num_nodes_padded,), dtype=np.int32)
+        pl = np.argmax(self.pred[graph_idx], axis=-1)
+        out[: pl.shape[0]] = pl
+        return out
+
+    def extract_neighborhood(self, node_idx: int, graph_idx: int = 0):
+        """``(node_idx_new, sub_adj, sub_feat, sub_label, neighbors)``
+        (reference ``explain.py:492-501``)."""
+        return extract_dense_subgraph(self.adj[graph_idx],
+                                      self.feat[graph_idx],
+                                      self.label[graph_idx], node_idx,
+                                      self.n_hops)
 
     def _densify_mask(self, g: Graph, w: np.ndarray,
                       neighbors: np.ndarray) -> np.ndarray:
@@ -115,6 +157,109 @@ class Explainer:
         fname = f"masked_adj_{prefix}node_idx_{node_idx}graph_idx_{gi}.npy"
         with open(os.path.join(self.logdir, fname), "wb") as f:
             np.save(f, masked_adj)
+
+    def explain_nodes_batch(
+        self,
+        node_indices: Sequence[int],
+        graph_idx: int = 0,
+        mesh=None,
+    ) -> List[Dict]:
+        """Every query's COO mask optimization at once
+        (``tpugraph/explain/explainer.py:173``): Q copies of the graph in
+        one forward a step.  Returns per query ``node_idx``,
+        ``node_idx_new``, ``neighbors``, the dense ``masked_adj``, the
+        loss-term ``history`` and ``feat_mask``.  With
+        ``cfg.seed_ensemble = k`` the masked weights are the mean of k runs
+        seeded ``seed + 7919 * s``; the history and ``feat_mask`` are the
+        first run's."""
+        if mesh is not None:
+            raise NotImplementedError("mesh query sharding is not ported yet "
+                                      "(ROADMAP section 1 item 11)")
+        dev = self.device
+        g = self._graph(graph_idx)
+        g_dev = g.to(dev)
+        x = torch.from_numpy(self._padded_feat(graph_idx, g)).to(dev)
+        pred_vec = torch.from_numpy(self._pred_labels(graph_idx, g)).to(dev)
+        labels_pad = np.zeros((g.num_nodes_padded,), dtype=np.int64)
+        lab = self.label[graph_idx]
+        labels_pad[: lab.shape[0]] = lab
+        idx = np.asarray(node_indices, dtype=np.int64)
+        nbs = [khop_subgraph(g, int(i), self.n_hops) for i in idx]
+        edge_keep = torch.from_numpy(np.stack([nb.edge_mask for nb in nbs])).to(dev)
+        num_sub = [nb.num_nodes for nb in nbs]
+
+        def run(seed):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            state, hist = run_mask_optimization(
+                self.model, g_dev, x, idx, labels_pad[idx], pred_vec,
+                edge_keep, num_sub, self.cfg, generator=gen)
+            with torch.no_grad():
+                w = masked_edge_weights(g_dev, state, self.cfg, edge_keep)
+            return state, w.cpu().numpy(), hist
+
+        t0 = time.time()
+        state, w_all, hist = run(self.seed)
+        if self.cfg.seed_ensemble > 1:
+            acc = w_all.astype(np.float64)
+            for s in range(1, self.cfg.seed_ensemble):
+                acc += run(self.seed + 7919 * s)[1]
+            w_all = (acc / self.cfg.seed_ensemble).astype(np.float32)
+        if self.print_training:
+            print(f"explained {len(idx)} nodes in {time.time() - t0:.2f}s "
+                  f"({self.cfg.num_epochs} epochs each, batched)")
+        feat_mask = torch.sigmoid(state.feat_logits).cpu().numpy()
+        results = []
+        for q, (node_idx, nb) in enumerate(zip(idx, nbs)):
+            neighbors = np.nonzero(nb.node_mask)[0]
+            results.append({
+                "node_idx": int(node_idx),
+                "node_idx_new": nb.new_index,
+                "neighbors": neighbors,
+                "masked_adj": self._densify_mask(g, w_all[q], neighbors),
+                "history": {k: v[q] for k, v in hist.items()},
+                "feat_mask": feat_mask[q],
+            })
+        return results
+
+    def explain(self, node_idx: int, graph_idx: int = 0,
+                model: str = "exp") -> np.ndarray:
+        """One node's dense masked sub-adjacency, saved as ``.npy``
+        (``tpugraph/explain/explainer.py:605``).  The grad/att baselines
+        are not ported and raise; graph mode is not ported."""
+        _check_explainer_model(model)
+        masked_adj = self.explain_nodes_batch([node_idx],
+                                              graph_idx)[0]["masked_adj"]
+        self._save_npy(masked_adj, node_idx)
+        return masked_adj
+
+    def explain_nodes_gnn_stats(self, node_indices: Sequence[int],
+                                graph_idx: int = 0, model: str = "exp",
+                                mesh=None) -> Dict:
+        """Explain many nodes, save each mask and score them against the
+        motif ground truth (``tpugraph/explain/explainer.py:697``): returns
+        ``masked_adjs``, ``results``, ``auc`` (``None`` when the labels
+        hold one class) and the ``real``/``pred`` arrays, and writes
+        ``pr/auc_<dataset>_<model>.txt`` under ``logdir``.  The PR-curve
+        PNG is not drawn (viz is not ported)."""
+        _check_explainer_model(model)
+        results = self.explain_nodes_batch(node_indices, graph_idx, mesh=mesh)
+        masked_adjs = [r["masked_adj"] for r in results]
+        starts = [r["node_idx_new"] for r in results]
+        for r in results:
+            self._save_npy(r["masked_adj"], r["node_idx"])
+        auc = None
+        try:
+            auc, real_all, pred_all = explanation_auc(masked_adjs, starts,
+                                                      self.dataset)
+        except ValueError:
+            real_all = pred_all = None
+        if self.logdir is not None:
+            os.makedirs(os.path.join(self.logdir, "pr"), exist_ok=True)
+            with open(os.path.join(self.logdir, "pr",
+                                   f"auc_{self.dataset}_{model}.txt"), "w") as f:
+                f.write(f"dataset: {self.dataset}, model: {model}, auc: {auc}\n")
+        return {"masked_adjs": masked_adjs, "results": results, "auc": auc,
+                "real": real_all, "pred": pred_all}
 
     def _bcsr_pack(self, graph_idx: int, block: int):
         """Cached full-graph pack per (graph_idx, block): host BCSR, its

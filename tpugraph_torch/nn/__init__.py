@@ -10,6 +10,7 @@ from tpugraph_torch.nn.layers import (  # noqa: F401
     BCSRAdj,
     GraphConv,
     PacketAdj,
+    SparseAdj,
     StackedAdj,
 )
 from tpugraph_torch.nn.losses import node_cross_entropy, softmax_cross_entropy  # noqa: F401

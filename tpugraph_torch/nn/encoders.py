@@ -100,8 +100,8 @@ class ConvStack(nn.Module):
 class GcnEncoderNode(nn.Module):
     """Node classification encoder (``tpugraph/nn/encoders.py:227``):
     concatenated per-layer embeddings, per-node linear head.
-    ``x [N, D]`` + an adjacency (``BCSRAdj``, ``StackedAdj`` or
-    ``PacketAdj``) -> ``(ypred [N, C], att_list)``.
+    ``x [N, D]`` + an adjacency (``SparseAdj``, ``BCSRAdj``,
+    ``StackedAdj`` or ``PacketAdj``) -> ``(ypred [N, C], att_list)``.
 
     Parameters are drawn from ``generator`` on the CPU, then the module
     moves to ``device`` (``None`` = CUDA)."""

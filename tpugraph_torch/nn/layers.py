@@ -1,9 +1,15 @@
-"""Port of ``tpugraph/nn/layers.py``: ``GraphConv`` on the block-sparse
-and packet paths.
+"""Port of ``tpugraph/nn/layers.py``: ``GraphConv`` on the COO,
+block-sparse and packet paths.
 
 ``y = (A @ x) @ W + b``, then optional L2 normalization per node.  The
-aggregation ``A @ x`` runs on hand-written kernels through one of the
-branches of ``tpugraph/nn/layers.py``:
+aggregation ``A @ x`` runs through one of the branches of
+``tpugraph/nn/layers.py``:
+
+* ``SparseAdj`` (``:599-610``) — the padded COO edge list, a gather plus
+  ``index_add_`` (:func:`tpugraph_torch.ops.message.spmm`); gradients
+  flow into ``weight`` (training on COO, and the COO explainer);
+
+and on hand-written kernels:
 
 * static weights, ``BCSRAdj(m, m_t, k_pack=k)`` (``:380-384``) — training
   on tiles, B1 (or B3 when ``k > 1``);
@@ -15,13 +21,13 @@ branches of ``tpugraph/nn/layers.py``:
 
 The kernels take any feature width, so ``D`` is not padded to 128 lanes.
 ``weight`` is ``[in, out]`` as in the JAX package.  Attention, dropout,
-``add_self`` and the COO/dense/halo adjacencies are not ported and raise.
+``add_self`` and the dense/halo adjacencies are not ported and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -29,9 +35,21 @@ from torch import nn
 from tpugraph_torch.nn.initializers import xavier_relu_uniform
 from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose
 from tpugraph_torch.ops.bcsr_kernels import bcsr_matvec, bcsr_matvec_dw_pair
+from tpugraph_torch.ops.message import spmm
 from tpugraph_torch.ops.packets import EdgePackets
 from tpugraph_torch.ops.packets_kernels import packets_matvec
 from tpugraph_torch.ops.resident_kernels import BCSRStacked, stacked_matvec
+
+
+class SparseAdj(NamedTuple):
+    """Padded COO adjacency of one graph (``tpugraph/nn/layers.py:35``):
+    edge ``e`` carries ``weight[e]`` from ``senders[e]`` to
+    ``receivers[e]``; ``weight`` is 0 on padding edges.  All three on the
+    device of ``x``."""
+
+    senders: torch.Tensor    # int32/int64[E_pad]
+    receivers: torch.Tensor  # int32/int64[E_pad]
+    weight: torch.Tensor     # float32[E_pad]
 
 
 @dataclasses.dataclass
@@ -74,7 +92,7 @@ class PacketAdj:
     compute_dtype: Optional[torch.dtype] = None
 
 
-Adjacency = Union[BCSRAdj, StackedAdj, PacketAdj]
+Adjacency = Union[SparseAdj, BCSRAdj, StackedAdj, PacketAdj]
 
 
 def normalize_embedding(y: torch.Tensor) -> torch.Tensor:
@@ -108,7 +126,9 @@ class GraphConv(nn.Module):
 
     def forward(self, x: torch.Tensor, adj: Adjacency
                 ) -> Tuple[torch.Tensor, Adjacency]:
-        if isinstance(adj, PacketAdj):
+        if isinstance(adj, SparseAdj):
+            y = spmm(adj.senders, adj.receivers, adj.weight, x)
+        elif isinstance(adj, PacketAdj):
             ns, n = x.shape[0], adj.p.num_nodes
             x_p = x if ns == n else nn.functional.pad(x, (0, 0, 0, n - ns))
             y = packets_matvec(adj.p, adj.p_t, x_p, adj.compute_dtype)[:ns]

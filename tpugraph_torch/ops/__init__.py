@@ -1,4 +1,5 @@
-"""Sparse layouts and the hand-written kernels (port of ``tpugraph/ops``)."""
+"""Sparse layouts, the COO message-passing ops and the hand-written
+kernels (port of ``tpugraph/ops``)."""
 
 from tpugraph_torch.ops.bcsr import (  # noqa: F401
     BCSR,
@@ -20,7 +21,14 @@ from tpugraph_torch.ops.bcsr_kernels import (  # noqa: F401
     spmm_bcsr,
     spmm_bcsr_packed,
 )
+from tpugraph_torch.ops.dense import dense_sddmm, dense_spmm  # noqa: F401
 from tpugraph_torch.ops.diffusion import DiffusionOperator, diffuse  # noqa: F401
+from tpugraph_torch.ops.message import (  # noqa: F401
+    sddmm,
+    segment_softmax,
+    spmm,
+    sym_normalize_weights,
+)
 from tpugraph_torch.ops.packets import (  # noqa: F401
     EdgePackets,
     pack_edges,

@@ -2,6 +2,7 @@
 ``tpugraph/train``)."""
 
 from tpugraph_torch.train.checkpoint import (  # noqa: F401
+    gen_explainer_prefix,
     gen_prefix,
     load_checkpoint,
     save_checkpoint,

@@ -30,6 +30,14 @@ def gen_prefix(name: str, method: str = "base", hidden_dim: int = 20,
     return out
 
 
+def gen_explainer_prefix(prefix: str, explainer_suffix: str = "") -> str:
+    """``<prefix>_explain[_suffix]`` (``tpugraph/train/checkpoint.py:42``)."""
+    out = prefix + "_explain"
+    if explainer_suffix:
+        out += "_" + explainer_suffix
+    return out
+
+
 def save_checkpoint(
     ckptdir: str,
     prefix: str,

@@ -1,13 +1,17 @@
 """Port of ``tpugraph/train/loop.py``: full-batch node classification on
-the static-weight aggregation formats.
+the COO edge list and on the static-weight aggregation formats.
 
 The JAX loop fuses epochs into one ``lax.scan`` per device call; here it
 is an eager Python loop, one optimizer step per epoch, with the same node
 split RNG and the same per-epoch metrics (loss and accuracies of the
-training-mode forward, before the update).
+training-mode forward, before the update).  ``log_fn`` sees the metrics
+every 25 epochs and after the last, the JAX loop's ``scan_chunk``
+cadence.
 
-``use_bcsr=True`` picks the format as ``tpugraph/train/loop.py:316-475``
-does (:func:`resolve_bcsr_format`):
+``use_bcsr=False`` (the default, as in JAX) aggregates over the padded
+COO edge list, a gather plus ``index_add_`` (``SparseAdj``,
+``tpugraph/train/loop.py:476-477``).  ``use_bcsr=True`` picks the format
+as ``tpugraph/train/loop.py:316-475`` does (:func:`resolve_bcsr_format`):
 
 * ``bcsr_format="packets"`` — edge packets at ``packet_geom``, kernel B7;
 * ``bcsr_resident="on"`` — column-stacked tiles (``stack=1``, padded to
@@ -18,22 +22,23 @@ does (:func:`resolve_bcsr_format`):
 
 ``"auto"`` resolves to tiles with resident off on the card, as the JAX
 package does on any device that is not a TPU; its TPU cost model is not
-ported.  The COO path raises; GAT (``att=True``) is not ported, so no
-model here takes the JAX package's GAT-on-BCSR branch.
+ported.  GAT (``att=True``) is not ported, so no model here takes the
+JAX package's GAT-on-BCSR branch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.core.graph import Graph
-from tpugraph_torch.nn.layers import Adjacency, BCSRAdj, PacketAdj, StackedAdj
+from tpugraph_torch.nn.layers import (Adjacency, BCSRAdj, PacketAdj,
+                                      SparseAdj, StackedAdj)
 from tpugraph_torch.nn.losses import node_cross_entropy
 from tpugraph_torch.ops.bcsr import (bcsr_from_coo, bcsr_transpose_host,
                                      choose_k_pack_counts, coo_tile_counts)
@@ -44,13 +49,15 @@ from tpugraph_torch.train.optim import OptimizerConfig, build_optimizer
 
 
 _RESIDENT_K_PACK = 64  # stacks padded to this multiple (tpugraph/train/loop.py:429)
+LOG_EVERY = 25  # epochs between log_fn calls: tpugraph's scan_chunk default
 
 
 @dataclasses.dataclass
 class TrainConfig:
     """The ``tpugraph`` ``TrainConfig`` fields this path reads
-    (``tpugraph/train/loop.py:35``), with ``use_bcsr`` on by default (the
-    COO path is not ported).  ``packet_compute_dtype`` is the port's own:
+    (``tpugraph/train/loop.py:35``), with its defaults: ``use_bcsr=False``
+    trains on the COO edge list, ``True`` on one of the block-sparse
+    formats below.  ``packet_compute_dtype`` is the port's own:
     B7's compute dtype on the packet path (``None``: bf16 on a CUDA
     device, f32 on the CPU, the JAX package's accelerator/interpret
     default).
@@ -68,7 +75,7 @@ class TrainConfig:
     train_ratio: float = 0.8
     opt: str = "adam"
     opt_scheduler: str = "none"
-    use_bcsr: bool = True
+    use_bcsr: bool = False
     bcsr_block: int = 128
     bcsr_k_pack: int = 0  # 0 off, >1 fixed, -1 chosen from the tile counts
     packet_geom: Tuple[int, int, int] = (512, 256, 128)  # block_r, block_c, K
@@ -103,8 +110,13 @@ def resolve_bcsr_format(cfg: TrainConfig, n_live: int, t_probe: int,
 def build_adjacency(g: Graph, cfg: TrainConfig,
                     device: torch.device) -> Tuple[Adjacency, int]:
     """Pack ``g`` in the format ``cfg`` selects and move it to ``device``
-    (``tpugraph/train/loop.py:316-475``); returns the adjacency and the
-    padded node count it needs (a multiple of the block)."""
+    (``tpugraph/train/loop.py:316-477``); returns the adjacency and the
+    padded node count it needs (a multiple of the block for the tile
+    formats).  Without ``use_bcsr`` it is the COO edge list itself."""
+    if not cfg.use_bcsr:
+        return (SparseAdj(g.senders.to(device, torch.int64),
+                          g.receivers.to(device, torch.int64),
+                          g.edge_weight.to(device)), g.num_nodes_padded)
     s_np = g.senders.numpy()
     r_np = g.receivers.numpy()
     w_np = g.edge_weight.numpy()
@@ -165,6 +177,7 @@ def train_node_classifier(
     labels: np.ndarray,
     cfg: TrainConfig,
     seed: int = 0,
+    log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
     init_params: Optional[Dict[str, torch.Tensor]] = None,
     device: DeviceLike = None,
 ) -> Dict[str, Any]:
@@ -174,15 +187,14 @@ def train_node_classifier(
     ``model`` is a :class:`tpugraph_torch.nn.GcnEncoderNode`; it moves to
     ``device`` (``None`` = CUDA) and trains in place, starting from
     ``init_params`` (a ``state_dict``) when given.  ``feat`` is
-    ``float32[N_pad, D]``, ``labels`` ``int[N_real]``.  Returns params
+    ``float32[N_pad, D]``, ``labels`` ``int[N_real]``.  ``log_fn(epoch,
+    {"loss", "train_acc", "test_acc"})`` is called every ``LOG_EVERY``
+    epochs and after the last (each call waits for the device).  Returns params
     (the ``state_dict``), ``ypred [1, N_pad, C]``, the split, the metric
     history, train/test results, the seconds of the epoch loop
     (``"elapsed"``) and of packing and uploading the adjacency
     (``"pack_s"``), and the packed adjacency (``"adj"``).
     """
-    if not cfg.use_bcsr:
-        raise NotImplementedError("the COO path (use_bcsr=False) is not "
-                                  "ported yet")
     device = default_device(device)
     rng = np.random.default_rng(seed)
     n_real = g.n_node
@@ -220,7 +232,7 @@ def train_node_classifier(
     hist: Dict[str, List[torch.Tensor]] = {"loss": [], "train_acc": [],
                                            "test_acc": []}
     begin = time.time()
-    for _ in range(cfg.num_epochs):
+    for epoch in range(1, cfg.num_epochs + 1):
         logits, _ = model(x, sp)
         loss = node_cross_entropy(logits, y, node_mask=train_mask_d)
         opt.zero_grad()
@@ -231,6 +243,9 @@ def train_node_classifier(
             hist["loss"].append(loss.detach())
             hist["train_acc"].append(acc(correct, train_mask_d))
             hist["test_acc"].append(acc(correct, test_mask_d))
+        if log_fn is not None and (epoch % LOG_EVERY == 0
+                                   or epoch == cfg.num_epochs):
+            log_fn(epoch, {k: v[-1].item() for k, v in hist.items()})
     history = {k: (torch.stack(v).tolist() if v else [])
                for k, v in hist.items()}
     if device.type == "cuda":
