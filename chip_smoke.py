@@ -61,15 +61,38 @@ nvcc per source, sm_90a, all started together), then:
    its published widths (10 -> 20 -> 20, 3 layers, 4 classes, 1000
    epochs, seed 0) in this process, on the COO default (train, then the
    stats explain of 60 nodes x 100 mask epochs), with ``--bcsr`` (train
-   on B1, ``--explain-node 305`` on B1/B2 in tile space, the stats
+   in the format ``auto`` picks on the card, B4's stacks, with B4 then
+   held to its plain version on the CLI's own stacks of A and A^T at D =
+   10 and 20; ``--explain-node 305`` on B1/B2 in tile space; the stats
    explain) and with ``--bcsr --bcsr-format packets`` (train on B7); each
    train reaches test acc >= 0.85 and each stats explain AUC > 0.9, and
    the kernels' launches under the CLI are counted.  Then
    ``bench_explain.py:138-156``'s COO yardstick on the banded graph of
    phase 3 (one query, every edge, 4 epochs) beside the tile-space rate.
    The lowloc phase trains the power-law graph on COO as a fifth row,
-   ``coo``, held to the ``tiles`` trajectory;
-7. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
+   ``coo``, held to the ``tiles`` trajectory, and in the format the
+   card's ``auto`` rule picks as a sixth, ``auto`` (its pick printed);
+   the ``tiles``/``k_pack4`` rows pin their format, and phase 2 pins
+   ``bcsr_resident="off"``, where ``auto`` would pick the resident
+   format on the card;
+7. syn — the rest of the paper's node suite through the same entry
+   points, each ``cli.train`` (1000 epochs) followed by the stats
+   ``cli.explain`` (60 nodes x 100 mask epochs): syn2-syn5 on COO, syn3
+   with ``--bcsr`` (auto: the resident format) and a tile-space
+   ``--explain-node 305``, syn1 with ``--method att`` on COO and with
+   ``--bcsr`` (tiles and a transpose plan: B2 scores and B1 in every
+   step, counted under ``cli_att_bcsr``, plus a tile-space explain), and
+   syn1 with ``--bn``, each run and timed in the default mode (atomic COO
+   sums), syn1's and syn2's AUCs above 0.9.  Then each row's train and
+   stats explain run again under ``torch.use_deterministic_algorithms``
+   (COO sums in edge order, so the figures repeat), and their test acc
+   and AUC stay within 0.02 of the port's CPU run
+   (``syn_cpu_figures.json``, from ``syn_cpu_figures.py --write``).  B4
+   at the shapes of syn3's (and, in phase 6, syn1's) ``--bcsr``: the
+   CLI's own stacks of A and A^T at D = 10 and 20, bf16 x; B1 and B2 at
+   the attention path's shapes (syn1's tiles scaled by their scores, and
+   their transpose);
+8. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
    dependent launches of ``probe_tiny`` (grid 1 and 2) and
    ``probe_resident`` (n = 4,096, 16,384, 65,536), a fit of the time a
    launch against the bytes it writes, and the host cost of one wrapper
@@ -124,8 +147,9 @@ BANDED_EPOCHS = 100
 # operator with hop_scale = 1/m^2 at 2 hops
 DIFF_CASES = (("normalized", True, 8), ("int8", False, 2))
 FORMATS = {  # TrainConfig fields of each static-weight format, and COO
-    "tiles": {"use_bcsr": True},
-    "k_pack4": {"use_bcsr": True, "bcsr_k_pack": 4},
+    "tiles": {"use_bcsr": True, "bcsr_format": "tiles", "bcsr_resident": "off"},
+    "k_pack4": {"use_bcsr": True, "bcsr_format": "tiles", "bcsr_resident": "off",
+                "bcsr_k_pack": 4},
     "resident": {"use_bcsr": True, "bcsr_resident": "on"},
     "packets": {"use_bcsr": True, "bcsr_format": "packets"},
     "coo": {"use_bcsr": False},
@@ -134,6 +158,23 @@ EXPLAIN_STATS_NODES = 60   # the stats explain: nodes 400:700:5
 CARD = "not read"          # nvidia-smi's name and power limit, set in main
 FORMAT_KERNEL = {"tiles": "spmm_bcsr", "k_pack4": "spmm_bcsr_packed",
                  "resident": "spmm_stacked_resident", "packets": "spmm_packets"}
+AUTO = {"use_bcsr": True}  # bcsr_format and bcsr_resident "auto": the card's rule
+
+
+def format_ran(counts):
+    """The aggregation format a run took, from its kernel launches."""
+    ran = [f for f, k in FORMAT_KERNEL.items() if counts.get(k)]
+    if not ran:
+        return "coo"
+    if ran == ["tiles"] and counts.get("sddmm_bcsr"):
+        return "tiles_att"
+    return "+".join(ran)
+
+
+def auto_line(text):
+    """The format rule's printed decision in a captured output, if any."""
+    lines = [ln for ln in text.splitlines() if "bcsr_format auto ->" in ln]
+    return f"({lines[-1].split(': ', 1)[1]}) " if lines else ""
 
 
 def check(ok: bool, msg: str) -> None:
@@ -942,6 +983,8 @@ def phase_lowloc(report, gen):
             TrainConfig(num_epochs=LOWLOC_EPOCHS, bcsr_block=LOWLOC_BLOCK,
                         **fields), init_params=init)
         launches[fmt] = ops.launch_counts()
+        check(format_ran(launches[fmt]) == fmt,
+              f"{fmt} trained in {format_ran(launches[fmt])}")
         hist = out["history"]["loss"]
         runs[fmt] = out
         adj = out["adj"]
@@ -1019,6 +1062,30 @@ def phase_lowloc(report, gen):
         out.pop("adj")
         del adj
         torch.cuda.empty_cache()
+    # the card's own rule on this graph: bcsr_format and bcsr_resident "auto"
+    ops.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_node_classifier(
+            GcnEncoderNode(**dims), g, feat, labels,
+            TrainConfig(num_epochs=LOWLOC_EPOCHS, bcsr_block=LOWLOC_BLOCK,
+                        **AUTO), init_params=init)
+    launches["auto"] = ops.launch_counts()
+    hist = out["history"]["loss"]
+    picked = format_ran(launches["auto"])
+    print(f"  full auto     -> {picked} {auto_line(buf.getvalue())}pack "
+          f"{out['pack_s']:.2f} s; {LOWLOC_EPOCHS / out['elapsed']:.2f} epochs/s; "
+          f"loss {hist[0]:.4f} -> {hist[-1]:.4f}; test acc "
+          f"{out['result_test']['acc']:.4f}; launches "
+          f"{ {k: v for k, v in launches['auto'].items() if v} } [{CARD}]",
+          flush=True)
+    check(picked in FORMAT_KERNEL and launches["auto"][FORMAT_KERNEL[picked]] > 0,
+          f"auto trained in {picked} without its kernel")
+    check(bool(np.allclose(hist, runs["tiles"]["history"]["loss"],
+                           rtol=2e-2, atol=2e-3)),
+          "auto's loss trajectory leaves the tiles one")
+    del out
+    torch.cuda.empty_cache()
     print(f"  H100 format-rule rates (fwd+bwd SpMM pair at D={LOWLOC_D}; pack "
           f"of A and A^T incl. upload, over A's tiles / edges): "
           f"{json.dumps({**res_rates, **pkt_rates, **coo_rates})} [{CARD}]",
@@ -1144,12 +1211,60 @@ def phase_explain_banded(gen):
 
 def run_cli(main, argv):
     """One CLI entry point in this process, its printed output kept out of
-    the smoke's; returns its summary and its wall seconds."""
+    the smoke's; returns its summary, its wall seconds and its output."""
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         summary = main(argv)
-    return summary, time.perf_counter() - t0
+    return summary, time.perf_counter() - t0, buf.getvalue()
+
+
+def cli_adjacency(argv):
+    """The adjacency ``cli.train argv`` trains on, packed on the card as its
+    trainer packs it (``cli/tasks.py``'s ``syn_task`` graph through
+    ``build_adjacency``), and its padded node count."""
+    import numpy as np
+    import torch
+
+    from tpugraph_torch.cli.config import parse_train_args
+    from tpugraph_torch.cli.tasks import train_config
+    from tpugraph_torch.core.graph import graph_from_edge_list
+    from tpugraph_torch.data import GENERATORS, ConstFeatureGen
+    from tpugraph_torch.train.loop import build_adjacency
+
+    cfg = parse_train_args(argv)
+    kw = ({} if cfg.dataset == "syn2" else {"feature_generator": ConstFeatureGen(
+        np.ones(cfg.input_dim, dtype=np.float32))})
+    G, _, _ = GENERATORS[cfg.dataset](seed=cfg.seed, **kw)
+    index = {u: i for i, u in enumerate(G.nodes())}
+    g = graph_from_edge_list(G.number_of_nodes(),
+                             [(index[u], index[v]) for u, v in G.edges()])
+    with contextlib.redirect_stdout(io.StringIO()):
+        return build_adjacency(g, train_config(cfg), torch.device("cuda"),
+                               att=cfg.method == "att")
+
+
+def measure_cli_stacked(shape, argv, seed):
+    """B4 at the shapes ``cli.train argv``'s resident path gives it: the
+    CLI's own stacks of A (forward) and of A^T (backward) at D = 10 (layer
+    1) and 20 (layers 2-3), x in bf16 as the wrapper rounds it for int8 and
+    bf16 tiles."""
+    import torch
+
+    from tpugraph_torch.nn.layers import StackedAdj
+
+    adj, n_pad = cli_adjacency(argv)
+    check(isinstance(adj, StackedAdj),
+          f"{shape}: the CLI packed {type(adj).__name__}, not B4's stacks")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    recs = []
+    for d in (10, 20):
+        x = torch.randn((n_pad, d), generator=gen, device="cuda").to(torch.bfloat16)
+        recs += [measure_stacked(shape, adj.st, x),
+                 measure_stacked(f"{shape}-T", adj.st_t, x)]
+    del adj, x
+    torch.cuda.empty_cache()
+    return recs
 
 
 def phase_coo(banded_tile_sps):
@@ -1162,50 +1277,45 @@ def phase_coo(banded_tile_sps):
     from tpugraph_torch import ops
     from tpugraph_torch.cli import explain as cli_explain
     from tpugraph_torch.cli import train as cli_train
-    from tpugraph_torch.cli.config import parse_explain_args, parse_train_args
-    from tpugraph_torch.cli.tasks import train_config
-    from tpugraph_torch.core.graph import graph_from_edge_list, graph_from_edges
-    from tpugraph_torch.data import ConstFeatureGen, gen_syn1
+    from tpugraph_torch.cli.config import parse_explain_args
+    from tpugraph_torch.core.graph import graph_from_edges
     from tpugraph_torch.explain import ExplainConfig, run_mask_optimization
     from tpugraph_torch.nn import GcnEncoderNode
-    from tpugraph_torch.train.loop import build_adjacency
 
-    launches, figures, packet_shapes = {}, {}, []
+    launches, figures, packet_shapes, stacked_shapes = {}, {}, [], []
     with tempfile.TemporaryDirectory() as tmp:
         for arm, flags in (("coo", []), ("bcsr", ["--bcsr"]),
                            ("packets", ["--bcsr", "--bcsr-format", "packets"])):
             dirs = ["--dataset", "syn1", "--ckptdir", os.path.join(tmp, arm, "ckpt"),
                     "--logdir", os.path.join(tmp, arm, "log")]
             ops.reset_launch_counts()
-            summary, wall = run_cli(cli_train.main, dirs + flags)
+            summary, wall, text = run_cli(cli_train.main, dirs + flags)
             launches[f"cli_{arm}_train"] = ops.launch_counts()
             acc = summary["result_test"]["acc"]
             eps = EPOCHS / summary["elapsed_s"]
             figures[f"{arm}_train_epochs_per_s"] = eps
-            print(f"  cli.train {' '.join(flags) or '(COO)'}: test acc {acc:.4f}; "
-                  f"{eps:.1f} epochs/s over {EPOCHS} epochs ({wall:.2f} s the "
-                  f"call); launches "
+            fmt = format_ran(launches[f"cli_{arm}_train"])
+            print(f"  cli.train {' '.join(flags) or '(COO)'}: ran {fmt}; test acc "
+                  f"{acc:.4f}; {eps:.1f} epochs/s over {EPOCHS} epochs ({wall:.2f} s "
+                  f"the call); launches "
                   f"{ {k: v for k, v in launches[f'cli_{arm}_train'].items() if v} } "
-                  f"[{CARD}]", flush=True)
+                  f"{auto_line(text)}[{CARD}]", flush=True)
             check(acc >= 0.85, f"cli.train {arm}: test acc {acc} < 0.85")
             if arm == "coo":
-                check(sum(launches["cli_coo_train"].values()) == 0,
-                      "COO training launched a kernel")
+                check(fmt == "coo", "COO training launched a kernel")
             elif arm == "bcsr":
-                check(launches["cli_bcsr_train"]["spmm_bcsr"] > 0,
-                      "cli.train --bcsr did not launch B1")
+                # auto on the card: syn1 is low-locality (tile occupancy
+                # 0.0090 at block 128), so the resident format (B4)
+                check(fmt == "resident",
+                      f"cli.train --bcsr ran {fmt}, not auto's resident")
+                stacked_shapes += measure_cli_stacked("syn1-cli", dirs + flags, 3)
             else:
                 check(launches["cli_packets_train"]["spmm_packets"] > 0,
                       "cli.train --bcsr-format packets did not launch B7")
                 # B7 at the shapes this path gives it: the CLI's graph
                 # packed as its trainer packs it, D = 10 (layer 1) and 20
                 # (layers 2-3), A's packets (forward) and A^T's (backward)
-                cfg = parse_train_args(dirs + flags)
-                G, _, _ = gen_syn1(feature_generator=ConstFeatureGen(
-                    np.ones(cfg.input_dim, dtype=np.float32)), seed=cfg.seed)
-                adj, n_pad = build_adjacency(
-                    graph_from_edge_list(G.number_of_nodes(), G.edges()),
-                    train_config(cfg), torch.device("cuda"))
+                adj, n_pad = cli_adjacency(dirs + flags)
                 check(adj.compute_dtype in (None, torch.bfloat16),
                       f"the CLI's packets compute at {adj.compute_dtype}")
                 gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1218,7 +1328,7 @@ def phase_coo(banded_tile_sps):
                 continue
             if arm == "bcsr":
                 ops.reset_launch_counts()
-                summary, wall = run_cli(cli_explain.main,
+                summary, wall, _ = run_cli(cli_explain.main,
                                         dirs + flags + ["--explain-node", "305"])
                 launches["cli_bcsr_explain_node"] = ops.launch_counts()
                 shape = summary["mask_shape"]
@@ -1232,7 +1342,7 @@ def phase_coo(banded_tile_sps):
                     check(launches["cli_bcsr_explain_node"][k] > 0,
                           f"cli.explain --bcsr --explain-node did not launch {k}")
             ops.reset_launch_counts()
-            summary, wall = run_cli(cli_explain.main, dirs + flags)
+            summary, wall, _ = run_cli(cli_explain.main, dirs + flags)
             stats_launches = ops.launch_counts()
             auc = summary["auc"]
             check(summary["num_nodes_explained"] == EXPLAIN_STATS_NODES,
@@ -1297,7 +1407,184 @@ def phase_coo(banded_tile_sps):
     del g, x, state
     torch.cuda.empty_cache()
     return {"launches": launches, "figures": figures,
-            "shapes": {"spmm_packets": packet_shapes}}
+            "shapes": {"spmm_packets": packet_shapes,
+                       "spmm_stacked_resident": stacked_shapes}}
+
+
+# The syn phase's rows: (key, cli.train flags, node explained in tile space
+# or None, the format it trains in on the card).  The format auto runs on
+# the card at block 128: resident for syn3 (tile occupancy 0.0067); an
+# attention model takes tiles with a transpose plan (B2 scores, B1 over the
+# scaled tiles).  ``syn_cpu_figures.py`` runs the same rows on the CPU.
+SYN_ROWS = (
+    ("syn2", ["--dataset", "syn2"], None, "coo"),
+    ("syn3", ["--dataset", "syn3"], None, "coo"),
+    ("syn4", ["--dataset", "syn4"], None, "coo"),
+    ("syn5", ["--dataset", "syn5"], None, "coo"),
+    ("syn3_bcsr", ["--dataset", "syn3", "--bcsr"], 305, "resident"),
+    ("att", ["--method", "att"], None, "coo"),
+    ("att_bcsr", ["--method", "att", "--bcsr"], 305, "tiles_att"),
+    ("bn", ["--bn"], None, "coo"),
+)
+# each row's test acc and stats-explain AUC in the port's own CPU run at
+# seed 0, written by ``syn_cpu_figures.py --write``
+SYN_CPU_FILE = "syn_cpu_figures.json"
+SYN_TOL = 0.02  # |card - CPU| of test acc and of AUC
+SYN_AUC_FLOOR = 0.9  # syn1 and syn2 rows (the repo's own limit, tests/test_explain.py)
+
+
+def deterministic_row(argv):
+    """``cli.train argv`` and then its stats ``cli.explain`` under
+    ``torch.use_deterministic_algorithms``: index_add_ on the card then sums
+    each row in edge order (a sort), not by atomics, so test acc and AUC
+    repeat from run to run and can be held to the CPU's (with atomics syn5's
+    AUC spread 0.45-0.54 over four runs of one tree).  Returns (acc, AUC)."""
+    import torch
+
+    from tpugraph_torch.cli import explain as cli_explain
+    from tpugraph_torch.cli import train as cli_train
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        train, _, _ = run_cli(cli_train.main, argv)
+        explain, _, _ = run_cli(cli_explain.main, argv)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return train["result_test"]["acc"], explain["auc"]
+
+
+def phase_syn(gen):
+    """syn2-syn5 through the CLI (train, then the 60-node stats explain), on
+    COO and for syn3 with ``--bcsr`` and a tile-space ``--explain-node``;
+    syn1 with ``--method att`` on COO and ``--bcsr`` (launches under
+    ``cli_att_bcsr``) and with ``--bn``.  Each row runs and is timed in the
+    default mode, then runs again deterministically for the guard against
+    the CPU.  Then B1 and B2 at the shapes the attention path gives them."""
+    import dataclasses
+    import re
+
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.cli import explain as cli_explain
+    from tpugraph_torch.cli import train as cli_train
+    from tpugraph_torch.core.graph import graph_from_edge_list
+    from tpugraph_torch.data import gen_syn1
+    from tpugraph_torch.ops import bcsr
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           SYN_CPU_FILE)) as f:
+        cpu = json.load(f)
+    launches, figures, stacked = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, flags, node, want in SYN_ROWS:
+            dirs = ["--ckptdir", os.path.join(tmp, key, "ckpt"),
+                    "--logdir", os.path.join(tmp, key, "log")]
+            ref_acc, ref_auc = cpu[key]["acc"], cpu[key]["auc"]
+            dataset = (flags[flags.index("--dataset") + 1] if "--dataset" in flags
+                       else "syn1")
+            floor = SYN_AUC_FLOOR if dataset in ("syn1", "syn2") else None
+            ops.reset_launch_counts()
+            summary, wall, text = run_cli(cli_train.main, dirs + flags)
+            path = "cli_att_bcsr" if key == "att_bcsr" else f"cli_{key}_train"
+            launches[path] = ops.launch_counts()
+            fmt = format_ran(launches[path])
+            acc = summary["result_test"]["acc"]
+            eps = EPOCHS / summary["elapsed_s"]
+            print(f"  {key:9s} cli.train {' '.join(flags)}: ran {fmt}; test acc "
+                  f"{acc:.4f}; {eps:.1f} epochs/s over {EPOCHS} epochs ({wall:.2f} "
+                  f"s the call); launches "
+                  f"{ {k: v for k, v in launches[path].items() if v} } "
+                  f"{auto_line(text)}[{CARD}]", flush=True)
+            check(fmt == want, f"{key}: trained in {fmt}, not {want}")
+            if key == "att_bcsr":
+                # a step: B2 scores and B1 forward in each of 3 layers; B2
+                # dtiles in each, B1 dx on the transposed tiles in layers 2-3,
+                # and B1 on the score gradient and its transpose in each: 11
+                # B1 (5 on transposed tiles) and 6 B2; then one eval forward
+                n1, n2 = launches[path]["spmm_bcsr"], launches[path]["sddmm_bcsr"]
+                check(n1 == 11 * EPOCHS + 3 and n2 == 6 * EPOCHS + 3,
+                      f"att --bcsr launched B1 {n1} and B2 {n2} times")
+            if want == "resident":
+                stacked += measure_cli_stacked(f"{dataset}-cli", dirs + flags, 4)
+            figures[f"{key}_train_epochs_per_s"] = eps
+            figures[f"{key}_test_acc"] = acc
+            if node is not None:
+                ops.reset_launch_counts()
+                summary, wall, _ = run_cli(cli_explain.main, dirs + flags + [
+                    "--explain-node", str(node)])
+                npath = f"cli_{key}_explain_node"
+                launches[npath] = ops.launch_counts()
+                shape = summary["mask_shape"]
+                print(f"  {key:9s} cli.explain --bcsr --explain-node {node}: mask "
+                      f"{shape}; {wall:.2f} s the call; launches "
+                      f"{ {k: v for k, v in launches[npath].items() if v} } "
+                      f"[{CARD}]", flush=True)
+                check(len(shape) == 2 and shape[0] == shape[1] > 1,
+                      f"{key}: bad tile-space mask shape {shape}")
+                for k in ("spmm_bcsr", "sddmm_bcsr"):
+                    check(launches[npath][k] > 0,
+                          f"{key}: the tile-space explain did not launch {k}")
+            ops.reset_launch_counts()
+            summary, wall, text = run_cli(cli_explain.main, dirs + flags)
+            check(sum(ops.launch_counts().values()) == 0,
+                  f"{key}: the COO stats explain launched a kernel")
+            auc = summary["auc"]
+            done = re.search(r"explained (\d+) nodes in ([0-9.]+)s \((\d+) epochs",
+                             text)
+            sps = int(done.group(1)) * int(done.group(3)) / float(done.group(2))
+            print(f"  {key:9s} cli.explain stats: AUC {auc:.4f}"
+                  f"{f' (guard > {floor})' if floor else ''} over "
+                  f"{summary['num_nodes_explained']} nodes x 100 epochs; {sps:.1f} "
+                  f"mask-opt steps/s; {wall:.2f} s the call [{CARD}]", flush=True)
+            check(summary["num_nodes_explained"] == EXPLAIN_STATS_NODES,
+                  f"{key}: the stats explain did not explain 60 nodes")
+            if floor:
+                check(auc > floor, f"{key}: AUC {auc} <= {floor}")
+            figures[f"{key}_explain_steps_per_s"] = sps
+            figures[f"{key}_auc"] = auc
+            # the guard: the same row again, deterministically
+            det_acc, det_auc = deterministic_row(
+                ["--ckptdir", os.path.join(tmp, key, "det"),
+                 "--logdir", os.path.join(tmp, key, "det_log")] + flags)
+            print(f"  {key:9s} deterministic re-run: test acc {det_acc:.4f} (CPU "
+                  f"{ref_acc:.4f}), AUC {det_auc:.4f} (CPU {ref_auc:.4f}); guard "
+                  f"+-{SYN_TOL}{f', AUC > {floor}' if floor else ''}", flush=True)
+            check(abs(det_acc - ref_acc) <= SYN_TOL,
+                  f"{key}: test acc {det_acc} is not within {SYN_TOL} of the "
+                  f"CPU's {ref_acc}")
+            check(abs(det_auc - ref_auc) <= SYN_TOL,
+                  f"{key}: AUC {det_auc} is not within {SYN_TOL} of the CPU's "
+                  f"{ref_auc}")
+            if floor:
+                check(det_auc > floor, f"{key}: deterministic AUC {det_auc} <= {floor}")
+            figures[f"{key}_det_test_acc"] = det_acc
+            figures[f"{key}_det_auc"] = det_auc
+
+    # B1 and B2 at the shapes the attention path gives them: syn1's tiles
+    # scaled by their scores (x_att of D = 10, then 20), B1 on them and on
+    # their transpose, B2 on their support
+    G, _, _ = gen_syn1(seed=0)
+    g = graph_from_edge_list(G.number_of_nodes(), G.edges())
+    m_h = bcsr.bcsr_from_coo(g.senders.numpy(), g.receivers.numpy(),
+                             g.edge_weight.numpy(), g.num_nodes_padded)
+    tp = bcsr.bcsr_transpose_plan(m_h).to("cuda")
+    m = m_h.to("cuda")
+    shapes = {"spmm_bcsr": [], "sddmm_bcsr": [], "spmm_stacked_resident": stacked}
+    for d in (10, 20):
+        x_att = torch.randn((m.num_nodes, d), generator=gen, device="cuda")
+        eff = dataclasses.replace(m, tiles=m.tiles * bk.sddmm_bcsr(m, x_att, x_att))
+        eff_t = bk._transposed(eff.tiles, tp)
+        both = measure_kernels("syn1-att", eff, d, gen)
+        shapes["spmm_bcsr"] += [both["spmm_bcsr"], measure_spmm(
+            "syn1-att-T", eff_t, torch.randn((m.num_nodes, d), generator=gen,
+                                             device="cuda"))]
+        shapes["sddmm_bcsr"].append(both["sddmm_bcsr"])
+    del m, tp, eff, eff_t
+    torch.cuda.empty_cache()
+    return {"launches": launches, "figures": figures, "shapes": shapes}
 
 
 def pair_csr(pair):
@@ -1441,6 +1728,10 @@ def phase_diffuse(g):
 
 
 def main() -> int:
+    # cuBLAS's fixed workspace, which the syn phase's deterministic re-runs
+    # ask for (it must be set before the first cuBLAS call); 8 x 4 MiB is
+    # the size PyTorch picks on sm_90 anyway, so no other phase changes
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1509,7 +1800,10 @@ def main() -> int:
                 num_layers=3)
     init = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0),
                           device="cpu").state_dict()
-    short = TrainConfig(num_epochs=20, use_bcsr=True)
+    # resident "off": auto would take the resident format (B4) for syn1 on
+    # the card; this row holds B1's training path
+    pinned = dict(use_bcsr=True, bcsr_resident="off")
+    short = TrainConfig(num_epochs=20, **pinned)
     cpu_out = train_node_classifier(GcnEncoderNode(**dims, device="cpu"), g,
                                     feat, labels, short, init_params=init,
                                     device="cpu")
@@ -1523,7 +1817,7 @@ def main() -> int:
     model = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0))
     ops.reset_launch_counts()
     out = train_node_classifier(model, g, feat, labels,
-                                TrainConfig(num_epochs=EPOCHS, use_bcsr=True))
+                                TrainConfig(num_epochs=EPOCHS, **pinned))
     train_launches = ops.launch_counts()
     hist = out["history"]
     print(f"  loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; "
@@ -1608,7 +1902,13 @@ def main() -> int:
     coo = phase_coo(banded["steps_per_s"]["f32"])
     print(f"  coo phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 7: launch probes
+    # ---- phase 7: syn2-syn5, attention and batch norm through the CLI
+    print("phase syn", flush=True)
+    t0 = time.perf_counter()
+    syn = phase_syn(gen)
+    print(f"  syn phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 8: launch probes
     print("phase launch_probes", flush=True)
     probes = phase_probes(gen)
 
@@ -1616,7 +1916,7 @@ def main() -> int:
     paths = {"train": train_launches, "explain": explain_launches,
              "explain_bf16": bf16_launches,
              **{f"explain_banded_{k}": c for k, c in banded["launches"].items()},
-             **coo["launches"],
+             **coo["launches"], **syn["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
              **diff["launches"], "launch_probes": probes["launches"]}
     meta = {
@@ -1624,11 +1924,12 @@ def main() -> int:
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
                       [sh["spmm_bcsr"] for sh in shapes] + [low["shapes"]["tiles"],
                        banded["shapes"]["spmm_bcsr"]] + dtypes["spmm_bcsr"]
-                      + b1_mixed["spmm_bcsr"]),
+                      + b1_mixed["spmm_bcsr"] + syn["shapes"]["spmm_bcsr"]),
         "sddmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                        "tpugraph/ops/pallas_spmm.py:175", shapes[1]["sddmm_bcsr"],
                        [sh["sddmm_bcsr"] for sh in shapes]
-                       + [banded["shapes"]["sddmm_bcsr"]] + b2_mixed),
+                       + [banded["shapes"]["sddmm_bcsr"]] + b2_mixed
+                       + syn["shapes"]["sddmm_bcsr"]),
         "spmm_bcsr_packed": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                              "tpugraph/ops/pallas_spmm.py:312",
                              low["shapes"]["k_pack4"],
@@ -1637,7 +1938,9 @@ def main() -> int:
         "spmm_stacked_resident": (
             "tpugraph_torch/csrc/resident_kernels.cu",
             "tpugraph/ops/pallas_resident.py:281", low["shapes"]["resident"],
-            [low["shapes"]["resident"]] + low["variants"][:4] + [low["variants"][5]]),
+            [low["shapes"]["resident"]] + low["variants"][:4] + [low["variants"][5]]
+            + coo["shapes"]["spmm_stacked_resident"]
+            + syn["shapes"]["spmm_stacked_resident"]),
         "spmm_pair_resident": ("tpugraph_torch/csrc/resident_kernels.cu",
                                "tpugraph/ops/pallas_resident.py:476",
                                diff["spmm_pair_resident"][0],

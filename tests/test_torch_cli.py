@@ -123,11 +123,6 @@ def test_missing_checkpoint_message(tmp_path):
 
 
 UNPORTED_TRAIN = [
-    (["--method", "att"], "--method att", "item 4"),
-    (["--bn"], "--bn", "item 4"),
-    (["--dropout", "0.1"], "--dropout", "item 4"),
-    (["--dataset", "syn2"], "--dataset syn2", "item 5"),
-    (["--dataset", "syn5"], "--dataset syn5", "item 5"),
     (["--opt", "sgd"], "--opt sgd", "item 6"),
     (["--opt-scheduler", "cos"], "--opt-scheduler cos", "item 6"),
     (["--resume"], "--resume", "item 6"),
@@ -158,6 +153,43 @@ def test_unported_train_flag_raises(tmp_path, args, flag, item):
         cli_train.main(["--platform", "cpu", "--ckptdir", str(tmp_path)] + args)
     assert flag in str(err.value) and f"ROADMAP section 1 {item}" in str(err.value)
     assert not os.listdir(tmp_path)  # raised before anything ran
+
+
+PORTED_TRAIN = [
+    ["--method", "att"],
+    ["--bn"],
+    ["--dropout", "0.1"],
+    ["--dataset", "syn2"],
+    ["--dataset", "syn5"],
+    ["--dataset", "syn3", "--bcsr"],
+    ["--dataset", "syn4", "--method", "att", "--bn", "--bcsr"],
+]
+
+
+@pytest.mark.parametrize("args", PORTED_TRAIN, ids=" ".join)
+def test_ported_train_flag_runs(tmp_path, args):
+    """Flags whose modules this port has: 5 training epochs on the CPU, then
+    the stats explain of the checkpoint (2 mask epochs), and with
+    ``--bcsr`` one node in tile space; the explainer rebuilds the model
+    from the checkpoint's meta, so ``--bn`` is not repeated."""
+    dirs = ["--platform", "cpu", "--ckptdir", str(tmp_path / "ckpt"),
+            "--logdir", str(tmp_path / "log")]
+    s = cli_train.main(dirs + args + ["--epochs", "5"])
+    dataset = args[args.index("--dataset") + 1] if "--dataset" in args else "syn1"
+    method = "att" if "att" in args else "base"
+    assert s["dataset"] == dataset and s["method"] == method
+    with open(os.path.join(s["ckpt_path"], "meta.json")) as f:
+        meta = json.load(f)
+    assert meta["bn"] == ("--bn" in args) and meta["model_type"] == method
+    params = torch.load(os.path.join(s["ckpt_path"], "params.pt"))
+    assert any(k.endswith("att_weight") for k in params) == (method == "att")
+    keep = ["--dataset", dataset, "--method", method]
+    e = cli_explain.main(dirs + keep + ["--epochs", "2"])
+    assert e["num_nodes_explained"] == 60 and 0.0 <= e["auc"] <= 1.0
+    if "--bcsr" in args:
+        e = cli_explain.main(dirs + keep + ["--epochs", "2", "--bcsr",
+                                            "--explain-node", "305"])
+        assert e["mask_shape"][0] == e["mask_shape"][1] > 1
 
 
 @pytest.mark.parametrize("args,flag,item", UNPORTED_EXPLAIN)

@@ -523,13 +523,13 @@ def _hub_stacked(kind, stack, device):
 @pytest.mark.parametrize("stack", [1, 2])
 def test_spmm_stacked_resident_tensor_cores_match_plain(cuda_device, kind, stack):
     """The tensor-core phase against its plain version: every tile kind it
-    takes, f32 and bf16 x and output, ragged D (20, 130), an empty row block
+    takes, f32 and bf16 x and output, ragged D (10, 20, 130), an empty row block
     and a hub row block whose list is ~3x the mean (split over a cluster)."""
     st = _hub_stacked(kind, stack, cuda_device)
     lists = (st.row_ptr[1:] - st.row_ptr[:-1]).cpu()
     assert int(lists[5]) == 0 and int(lists.max()) > 2.5 * float(lists.float().mean())
     k_max = int(lists.max()) * 128
-    for d in (128, 20, 130):
+    for d in (128, 10, 20, 130):
         for x_dtype in FLOATS:
             x = _x(st.num_nodes, d, d, cuda_device).to(x_dtype)
             ref = rk.spmm_stacked_resident_plain(st, x)
@@ -870,3 +870,68 @@ def test_coo_batched_explain_on_card_auc(cuda_device):
         assert ma.shape == (len(r["neighbors"]),) * 2
         assert bool(np.all(np.isfinite(ma)))
         np.testing.assert_allclose(ma, ma.T, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 128])
+def test_dw_autograd_on_card_matches_plain(cuda_device, block):
+    """The GAT path's autograd functions: ``sddmm_dw`` (B2 forward; B1 on
+    the score-gradient tiles and on their transpose) and
+    ``bcsr_matvec_dw`` (B1 forward; B1 on the transposed tiles and B2
+    backward) on the card against their CPU plain versions, on tiles
+    rescaled as the GAT layer rescales them."""
+    import dataclasses
+
+    from tpugraph_torch.ops.bcsr_kernels import LAUNCHES
+
+    s, r, w = _coo(384, 3000, seed=13)
+    m_h = bcsr.bcsr_from_coo(s, r, w, 384, block=block)
+    tp_h = bcsr.bcsr_transpose_plan(m_h)
+    g = torch.Generator().manual_seed(4)
+    a, b, x = (torch.randn((384, 20), generator=g) for _ in range(3))
+    scale = torch.rand(m_h.tiles.shape, generator=g) + 0.5
+    g_sc = torch.randn(m_h.tiles.shape, generator=g)
+    g_y = torch.randn((384, 20), generator=g)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        m, tp = m_h.to(dev), tp_h.to(dev)
+        a_d, b_d, x_d = (v.to(dev).requires_grad_() for v in (a, b, x))
+        t_d = (m.tiles * scale.to(dev)).requires_grad_()
+        before = dict(LAUNCHES)
+        sc = bcsr_kernels.sddmm_dw(m, tp, a_d, b_d)
+        da, db = torch.autograd.grad(sc, (a_d, b_d), g_sc.to(dev))
+        y = bcsr_kernels.bcsr_matvec_dw(dataclasses.replace(m, tiles=t_d), tp, x_d)
+        dt, dx = torch.autograd.grad(y, (t_d, x_d), g_y.to(dev))
+        if dev != "cpu":
+            assert LAUNCHES["sddmm_bcsr"] - before["sddmm_bcsr"] == 2
+            assert LAUNCHES["spmm_bcsr"] - before["spmm_bcsr"] == 4
+        outs.append([v.detach().cpu() for v in (sc, da, db, y, dt, dx)])
+    for name, got, ref in zip(("scores", "da", "db", "y", "dtiles", "dx"),
+                              outs[1], outs[0]):
+        assert float((got - ref).abs().max()) <= _f32_tol(ref, 3 * block), name
+
+
+@pytest.mark.cuda
+def test_att_training_on_card_matches_cpu(cuda_device):
+    """20 GAT epochs of syn1 on tiles (B2 scores, B1 over the scaled tiles)
+    on the card and on the CPU from one set of parameters: the loss
+    trajectories agree within 1e-4 (f32 sums in another order only)."""
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+
+    _, g, feat, labels = _syn1()
+    dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
+                num_layers=3, att=True)
+    init = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0),
+                          device="cpu").state_dict()
+    cfg = TrainConfig(num_epochs=20, use_bcsr=True)
+    cpu = train_node_classifier(GcnEncoderNode(**dims, device="cpu"), g, feat,
+                                labels, cfg, init_params=init, device="cpu")
+    gpu = train_node_classifier(GcnEncoderNode(**dims, device=cuda_device), g,
+                                feat, labels, cfg, init_params=init,
+                                device=cuda_device)
+    for out in (cpu, gpu):  # tiles with a transpose plan
+        assert out["adj"].tp is not None and out["adj"].m_t is None
+    np.testing.assert_allclose(gpu["history"]["loss"], cpu["history"]["loss"],
+                               rtol=1e-4, atol=1e-4)
+    assert gpu["history"]["loss"][-1] < gpu["history"]["loss"][0]

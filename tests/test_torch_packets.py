@@ -260,6 +260,12 @@ ARGS = dict(n_live=2_100_000, t_probe=21_000, density=0.0015,
             low_locality=True, on_tpu=False)
 
 
+def _port(args):
+    """tpugraph's arguments of resolve_bcsr_format as the port names them
+    (``on_card`` for ``on_tpu``)."""
+    return {("on_card" if k == "on_tpu" else k): v for k, v in args.items()}
+
+
 @pytest.mark.parametrize("fields,att", [
     (dict(), False),                                   # auto, not a TPU
     (dict(bcsr_format="packets"), False),              # explicit wins
@@ -273,19 +279,27 @@ def test_resolve_bcsr_format_precedence(fields, att):
     kw = dict(num_epochs=100, use_bcsr=True, bcsr_block=256, **fields)
     want = jax_loop.resolve_bcsr_format(jax_loop.TrainConfig(**kw), **ARGS,
                                         att=att)
-    assert resolve_bcsr_format(TrainConfig(**kw), **ARGS, att=att) == want
+    assert resolve_bcsr_format(TrainConfig(**kw), **_port(ARGS), att=att) == want
     for dense in (dict(density=0.04), dict(low_locality=False)):
         args = dict(ARGS, **dense)
-        assert resolve_bcsr_format(TrainConfig(**kw), **args, att=att) == \
+        assert resolve_bcsr_format(TrainConfig(**kw), **_port(args), att=att) == \
             jax_loop.resolve_bcsr_format(jax_loop.TrainConfig(**kw), **args,
                                          att=att)
 
 
 def test_resolve_bcsr_format_auto_on_tpu_is_not_ported():
-    """The TPU cost model's rates are not the card's: the port raises
-    rather than pick a format from them."""
-    cfg = TrainConfig(num_epochs=100, bcsr_block=256)
-    with pytest.raises(NotImplementedError, match="cost model"):
-        resolve_bcsr_format(cfg, **dict(ARGS, on_tpu=True))
-    assert resolve_bcsr_format(cfg, **dict(ARGS, on_tpu=True,
-                                           density=0.04)) == "tiles"
+    """The TPU cost model's rates are not the card's: on the card the port
+    weighs the formats at its own rates (where tpugraph and the port
+    disagree, the port follows them), and a dense graph stays tiles."""
+    from tpugraph_torch.train.loop import _RATE_DEFAULTS
+
+    assert _RATE_DEFAULTS != jax_loop._RATE_DEFAULTS
+    assert set(_RATE_DEFAULTS) == set(jax_loop._RATE_DEFAULTS)
+    cfg = TrainConfig(num_epochs=100_000, bcsr_block=256)
+    # 100,000 epochs: tpugraph's v5e rates pick tiles, the card's packets
+    assert jax_loop.resolve_bcsr_format(
+        jax_loop.TrainConfig(num_epochs=100_000, bcsr_block=256),
+        **dict(ARGS, on_tpu=True)) == "tiles"
+    assert resolve_bcsr_format(cfg, **_port(dict(ARGS, on_tpu=True))) == "packets"
+    assert resolve_bcsr_format(cfg, **_port(dict(ARGS, on_tpu=True,
+                                                 density=0.04))) == "tiles"

@@ -47,10 +47,13 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        GcnEncoderNode(**DIMS, att=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        GcnEncoderNode(**DIMS, bn=True, device="cpu")
+    """Attention on a static-weight format (no score gradient) and the
+    unported optimizers raise; attention and bn themselves build."""
+    from tpugraph_torch.nn import PacketAdj
+
+    model = GcnEncoderNode(**DIMS, att=True, bn=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="GAT"):
+        model(torch.zeros((8, 4)), PacketAdj(None, None))
     g = graph_from_edge_list(3, [(0, 1), (1, 2)])
     model = GcnEncoderNode(**DIMS, device="cpu")
     for cfg in (TrainConfig(opt="rmsprop"), TrainConfig(opt="sgd"),
@@ -97,3 +100,109 @@ def test_diffusion_entry_points_raise_without_cuda(no_cuda):
         diffuse(g, x, 1, block=8)
     y = diffuse(g, x, 2, block=8, device="cpu")
     assert y.shape == (6, 4) and bool(torch.isfinite(y.float()).all())
+
+
+# ---------------------------------------------------------- the format rule
+
+RULE_ARGS = dict(n_live=2_097_152, t_probe=21_001, density=0.0015,
+                 low_locality=True, on_card=True)
+
+
+def _rule_pick(cfg, rates, n_live, t_probe):
+    """The total-time rule of tpugraph/train/loop.py:137-176 at ``rates``."""
+    pairs = 3 * cfg.num_epochs
+    tiles = (rates["res_pack_s_per_tile"] * (cfg.bcsr_block / 256) ** 2 * t_probe
+             + pairs * n_live / rates["res_edges_per_s"])
+    pkt = (rates["pkt_pack_s_per_edge"] * n_live
+           + pairs * n_live / rates["pkt_edges_per_s"])
+    return "packets" if pkt < tiles else "tiles"
+
+
+@pytest.mark.parametrize("rates", [
+    "",  # the card's own rates
+    "res_edges_per_s=1e11,res_pack_s_per_tile=1e-9",  # resident cheap
+    "pkt_pack_s_per_edge=1e-3",                       # packets' pack dear
+    "pkt_edges_per_s=1e6, res_edges_per_s=2e6",       # spaces, two keys
+])
+@pytest.mark.parametrize("epochs,block", [(100, 256), (100_000, 128)])
+def test_format_rule_picks_by_total_time(monkeypatch, capsys, rates, epochs,
+                                         block):
+    """At given rates (TPUGRAPH_RATES) and a given density the rule picks
+    what the total-time formula gives, and prints its decision."""
+    from tpugraph_torch.train.loop import _format_rates, resolve_bcsr_format
+
+    monkeypatch.setenv("TPUGRAPH_RATES", rates)
+    r = _format_rates()
+    for part in filter(None, rates.split(",")):
+        k, v = part.split("=")
+        assert r[k.strip()] == float(v)
+    cfg = TrainConfig(num_epochs=epochs, bcsr_block=block, use_bcsr=True)
+    got = resolve_bcsr_format(cfg, **RULE_ARGS)
+    assert got == _rule_pick(cfg, r, RULE_ARGS["n_live"], RULE_ARGS["t_probe"])
+    assert f"bcsr_format auto -> {got}" in capsys.readouterr().out
+    # above 3e-3, off the card or not low-locality: tiles, without a word
+    for other in (dict(density=0.004), dict(on_card=False),
+                  dict(low_locality=False)):
+        assert resolve_bcsr_format(cfg, **dict(RULE_ARGS, **other)) == "tiles"
+    assert capsys.readouterr().out == ""
+
+
+def test_format_rule_precedence_and_bad_rates(monkeypatch):
+    from tpugraph_torch.train.loop import resolve_bcsr_format
+
+    cheap_res = "res_edges_per_s=1e12,res_pack_s_per_tile=1e-12"
+    monkeypatch.setenv("TPUGRAPH_RATES", cheap_res)
+    cfg = TrainConfig(bcsr_block=256)
+    assert resolve_bcsr_format(cfg, **RULE_ARGS) == "tiles"
+    # an explicit format wins over the rule; attention and resident "on"
+    # win over an explicit format
+    pinned = TrainConfig(bcsr_block=256, bcsr_format="packets")
+    assert resolve_bcsr_format(pinned, **RULE_ARGS) == "packets"
+    assert resolve_bcsr_format(pinned, **RULE_ARGS, att=True) == "tiles"
+    assert resolve_bcsr_format(
+        TrainConfig(bcsr_format="packets", bcsr_resident="on"),
+        **RULE_ARGS) == "tiles"
+    monkeypatch.setenv("TPUGRAPH_RATES", "res_edge_per_s=1e9")
+    with pytest.raises(ValueError, match="unknown key 'res_edge_per_s'"):
+        resolve_bcsr_format(cfg, **RULE_ARGS)
+    monkeypatch.delenv("TPUGRAPH_RATES")
+    g = graph_from_edge_list(6, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5)])
+    from tpugraph_torch.train.loop import build_adjacency
+
+    with pytest.raises(ValueError, match="unknown bcsr_format 'dense'"):
+        build_adjacency(g, TrainConfig(use_bcsr=True, bcsr_format="dense"),
+                        torch.device("cpu"))
+
+
+# what "auto" (both settings) picks at seed 0 on the card and on the CPU,
+# at the CLI's block of 128: tile occupancies 0.0090, 0.0041, 0.0067,
+# 0.0031 and 0.0021, all low-locality; only syn5's is under 3e-3
+AUTO_ON_CARD = {"syn1": "resident", "syn2": "resident", "syn3": "resident",
+                "syn4": "resident", "syn5": "packets"}
+
+
+@pytest.mark.parametrize("dataset", sorted(AUTO_ON_CARD))
+def test_auto_format_of_each_dataset(dataset):
+    """On the card ``auto`` turns the resident format on for syn1–syn4 and
+    picks packets for syn5; attention forces tiles with a transpose plan;
+    on the CPU ``auto`` stays tiles, and the CPU's packing is tiles."""
+    from tpugraph_torch.data import GENERATORS
+    from tpugraph_torch.nn import BCSRAdj
+    from tpugraph_torch.train.loop import build_adjacency, choose_format
+
+    G, _, _ = GENERATORS[dataset](seed=0)
+    g = graph_from_edge_list(G.number_of_nodes(), G.edges())
+    arrays = (g.senders.numpy(), g.receivers.numpy(), g.edge_weight.numpy(),
+              g.num_nodes_padded)
+    cfg = TrainConfig(use_bcsr=True)
+    assert choose_format(*arrays, cfg, on_card=True) == AUTO_ON_CARD[dataset]
+    assert choose_format(*arrays, cfg, on_card=True, att=True) == "tiles_att"
+    assert choose_format(*arrays, cfg, on_card=False) == "tiles"
+    pinned = TrainConfig(use_bcsr=True, bcsr_format="tiles",
+                         bcsr_resident="off")
+    assert choose_format(*arrays, pinned, on_card=True) == "tiles"
+    # a block the tensor cores cannot take keeps tiles on the card
+    assert choose_format(*arrays, TrainConfig(use_bcsr=True, bcsr_block=64),
+                         on_card=True) in ("tiles", "packets")
+    adj, _ = build_adjacency(g, cfg, torch.device("cpu"))
+    assert isinstance(adj, BCSRAdj) and adj.m_t is not None

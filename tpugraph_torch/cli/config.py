@@ -139,7 +139,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    choices=("auto", "tiles", "packets"),
                    default=d.bcsr_format,
                    help="block-sparse format: tiles (B1) or edge packets "
-                        "(B7); auto is tiles")
+                        "(B7); auto weighs pack and training time at the "
+                        "card's rates (tiles on the CPU)")
     p.add_argument("--dp", dest="dp_devices", type=int, default=d.dp_devices,
                    help="data-parallel graph training over N devices")
 
@@ -231,11 +232,6 @@ def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for the first flag of ``cfg`` whose
     module is not ported, naming the flag and its ROADMAP section 1 item."""
     unported = [
-        (cfg.method == "att", "--method att", "item 4"),
-        (cfg.bn, "--bn", "item 4"),
-        (cfg.dropout > 0, "--dropout", "item 4"),
-        (cfg.dataset in ("syn2", "syn3", "syn4", "syn5"),
-         f"--dataset {cfg.dataset}", "item 5"),
         (cfg.opt != "adam", f"--opt {cfg.opt}", "item 6"),
         (cfg.opt_scheduler != "none", f"--opt-scheduler {cfg.opt_scheduler}",
          "item 6"),

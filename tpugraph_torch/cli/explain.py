@@ -4,9 +4,11 @@ Usage:
   python -m tpugraph_torch.cli.explain --dataset=syn1           # AUC over nodes 400:700:5
   python -m tpugraph_torch.cli.explain --dataset=syn1 --explain-node=301 [--bcsr]
 
+``--dataset`` is any of syn1–syn5; the model (GCN or ``--method att``,
+with or without batch norm) is rebuilt from the checkpoint's ``meta``.
 ``--explain-node`` explains one node on the COO path, or in tile space
 with ``--bcsr``; without it the 60 stats nodes are explained together on
-the COO path and scored against the motifs.  No graph renders,
+the COO path and scored against the dataset's motifs.  No graph renders,
 heatmaps or TensorBoard events are written yet (ROADMAP section 1 item
 10), and the summary has no key for them.
 """
@@ -38,14 +40,19 @@ def build_explainer(cfg: Config) -> Explainer:
     cg = ckpt["cg"]
     if cg is None:
         raise ValueError(f"checkpoint {prefix} has no cg bundle")
+    # the trained model's options come from its meta (tpugraph reads them
+    # from the flags, which must then repeat the training's)
+    meta = ckpt["meta"] or {}
     model = GcnEncoderNode(
         input_dim=int(cg["feat"].shape[2]),
         hidden_dim=cfg.hidden_dim,
         embedding_dim=cfg.output_dim,
         label_dim=int(cg["pred"].shape[2]),
         num_layers=cfg.num_gc_layers,
-        bn=cfg.bn,
+        bn=bool(meta.get("bn", cfg.bn)),
+        add_self=bool(meta.get("add_self", False)),
         use_bias=cfg.bias,
+        att=meta.get("model_type", cfg.method) == "att",
         device=device,
     )
     logdir = os.path.join(cfg.logdir,

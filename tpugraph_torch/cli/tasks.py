@@ -1,7 +1,7 @@
 """Port of the node half of ``tpugraph/cli/tasks.py``: build the dataset
 and the model, train, then save the checkpoint with the dense cg bundle.
 
-syn1 only, on one device; the other datasets and tasks raise by name
+syn1–syn5 on one device; the other tasks raise by name
 (:func:`tpugraph_torch.cli.config.check_ported`).
 """
 
@@ -14,7 +14,7 @@ import torch
 
 from tpugraph_torch.cli.config import Config, check_ported, cli_device
 from tpugraph_torch.core.graph import Graph, graph_from_edge_list
-from tpugraph_torch.data import ConstFeatureGen, gen_syn1, preprocess_input_graph
+from tpugraph_torch.data import GENERATORS, ConstFeatureGen, preprocess_input_graph
 from tpugraph_torch.data.shapes import SimpleGraph
 from tpugraph_torch.nn import GcnEncoderNode
 from tpugraph_torch.train.checkpoint import gen_prefix, save_checkpoint
@@ -75,7 +75,9 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
     (``tpugraph/cli/tasks.py:64-176``, single device, no ``--resume``)."""
     device = cli_device(cfg)
     num_classes = int(max(labels)) + 1
-    g = graph_from_edge_list(G.number_of_nodes(), G.edges())
+    index = {u: i for i, u in enumerate(G.nodes())}
+    g = graph_from_edge_list(G.number_of_nodes(),
+                             [(index[u], index[v]) for u, v in G.edges()])
     feat = padded_features(G, g)
     model = build_node_model(cfg, feat.shape[1], num_classes, device)
     out = train_node_classifier(model, g, feat, labels, train_config(cfg),
@@ -117,17 +119,21 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
 
 
 def syn_task(cfg: Config, log_fn=None) -> Dict:
-    """syn1 node classification with constant features
-    (``tpugraph/cli/tasks.py:179``)."""
-    const_feat = ConstFeatureGen(np.ones(cfg.input_dim, dtype=np.float32))
-    G, labels, _ = gen_syn1(feature_generator=const_feat, seed=cfg.seed)
+    """syn1–syn5 node classification (``tpugraph/cli/tasks.py:179``):
+    constant features, but syn2's own Gaussian community features."""
+    gen = GENERATORS[cfg.dataset]
+    if cfg.dataset == "syn2":
+        G, labels, _ = gen(seed=cfg.seed)
+    else:
+        const_feat = ConstFeatureGen(np.ones(cfg.input_dim, dtype=np.float32))
+        G, labels, _ = gen(feature_generator=const_feat, seed=cfg.seed)
     return run_node_task(cfg, G, labels, log_fn=log_fn)
 
 
 def run_task(cfg: Config, log_fn=None) -> Dict:
-    """The task ``cfg`` names (``tpugraph/cli/tasks.py:482``); only syn1 is
-    ported, and unported flags raise by name."""
+    """The task ``cfg`` names (``tpugraph/cli/tasks.py:482``); syn1–syn5
+    are ported, and unported flags raise by name."""
     check_ported(cfg)
-    if cfg.dataset == "syn1":
+    if cfg.dataset in GENERATORS:
         return syn_task(cfg, log_fn=log_fn)
     raise ValueError(f"unknown dataset {cfg.dataset!r}")

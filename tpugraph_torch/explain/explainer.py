@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -163,6 +163,7 @@ class Explainer:
         node_indices: Sequence[int],
         graph_idx: int = 0,
         mesh=None,
+        init_state: Optional[Tuple[Optional[np.ndarray], ...]] = None,
     ) -> List[Dict]:
         """Every query's COO mask optimization at once
         (``tpugraph/explain/explainer.py:173``): Q copies of the graph in
@@ -171,7 +172,10 @@ class Explainer:
         loss-term ``history`` and ``feat_mask``.  With
         ``cfg.seed_ensemble = k`` the masked weights are the mean of k runs
         seeded ``seed + 7919 * s``; the history and ``feat_mask`` are the
-        first run's."""
+        first run's.  ``init_state`` (numpy ``(edge_logits [Q, E_pad],
+        feat_logits [Q, D], bias_logits or None)``) replaces the first
+        run's seeded mask init, as :func:`run_mask_optimization` takes
+        it."""
         if mesh is not None:
             raise NotImplementedError("mesh query sharding is not ported yet "
                                       "(ROADMAP section 1 item 11)")
@@ -188,17 +192,20 @@ class Explainer:
         edge_keep = torch.from_numpy(np.stack([nb.edge_mask for nb in nbs])).to(dev)
         num_sub = [nb.num_nodes for nb in nbs]
 
-        def run(seed):
-            gen = torch.Generator(device=dev).manual_seed(seed)
+        def run(seed, init=None):
+            # the mask init from a CPU generator, so the card explains from
+            # the CPU's init; the marginalize noise from one on the device
             state, hist = run_mask_optimization(
                 self.model, g_dev, x, idx, labels_pad[idx], pred_vec,
-                edge_keep, num_sub, self.cfg, generator=gen)
+                edge_keep, num_sub, self.cfg,
+                generator=torch.Generator().manual_seed(seed), init_state=init,
+                noise_generator=torch.Generator(device=dev).manual_seed(seed))
             with torch.no_grad():
                 w = masked_edge_weights(g_dev, state, self.cfg, edge_keep)
             return state, w.cpu().numpy(), hist
 
         t0 = time.time()
-        state, w_all, hist = run(self.seed)
+        state, w_all, hist = run(self.seed, init_state)
         if self.cfg.seed_ensemble > 1:
             acc = w_all.astype(np.float64)
             for s in range(1, self.cfg.seed_ensemble):

@@ -14,8 +14,32 @@ import numpy as np
 from scipy.stats import rankdata
 
 _HOUSE_EDGES = [(0, 1), (1, 2), (2, 3), (0, 3), (0, 4), (1, 4)]
+_CYCLE6_EDGES = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (0, 5)]
 
-MOTIF_EDGES = {"syn1": _HOUSE_EDGES, "syn2": _HOUSE_EDGES}
+
+def _grid_edges(dim: int = 3) -> List[Tuple[int, int]]:
+    """Edges of a dim x dim grid under the generator's row-major node
+    numbering (``tpugraph/explain/groundtruth.py:21``)."""
+    edges = []
+    for i in range(dim):
+        for j in range(dim):
+            a = i * dim + j
+            if j + 1 < dim:
+                edges.append((a, a + 1))
+            if i + 1 < dim:
+                edges.append((a, a + dim))
+    return edges
+
+
+# the motif of each dataset, by node offset from the motif's first node;
+# the grids of syn3/syn5 are tpugraph's extension of the reference
+MOTIF_EDGES = {
+    "syn1": _HOUSE_EDGES,
+    "syn2": _HOUSE_EDGES,
+    "syn3": _grid_edges(3),
+    "syn4": _CYCLE6_EDGES,
+    "syn5": _grid_edges(3),
+}
 
 
 def make_pred_real(adj: np.ndarray, start: int, dataset: str = "syn1"

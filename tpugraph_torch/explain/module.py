@@ -71,11 +71,14 @@ def init_masks(
     mask 0.  One N(0, 1) draw of ``num_pairs`` from ``generator`` is
     scaled by each query's std, so a query's init does not depend on the
     others in its batch (JAX draws from a key per query; its keys cannot
-    be replayed, so tests hand both sides one init)."""
+    be replayed, so tests hand both sides one init).  The draw runs on the
+    generator's device and moves to ``num_sub_nodes``'s: a CPU generator
+    gives the card and the CPU the same init."""
     device = num_sub_nodes.device
     n = torch.clamp(num_sub_nodes.to(torch.float32), min=1.0)
     std = math.sqrt(2.0) * torch.sqrt(2.0 / (2.0 * n))
-    z = torch.randn((num_pairs,), generator=generator, device=device)
+    z = torch.randn((num_pairs,), generator=generator,
+                    device=generator.device).to(device)
     edge = 1.0 + std[:, None] * z
     feat = torch.zeros((n.shape[0], feat_dim), device=device)
     bias = torch.zeros_like(edge) if cfg.mask_bias else None
@@ -234,6 +237,7 @@ def run_mask_optimization(
     num_pairs: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     init_state: Optional[Tuple[Optional[np.ndarray], ...]] = None,
+    noise_generator: Optional[torch.Generator] = None,
 ) -> Tuple[MaskState, Dict[str, np.ndarray]]:
     """``cfg.num_epochs`` Adam(lr) steps on the masks of Q queries at once
     (``tpugraph/explain/module.py:242``, vmapped over the queries there).
@@ -245,10 +249,12 @@ def run_mask_optimization(
     device.  ``num_pairs`` defaults to ``E_pad``, as in the explainer.
     The initial state is ``init_state`` (numpy ``(edge_logits,
     feat_logits[, bias_logits])``, each with the query axis) when given,
-    else :func:`init_masks` drawn from ``generator``, which also draws the
-    ``marginalize`` noise.  Returns the final state and the per-epoch
-    loss terms ``[Q, T]``, with ``density`` after each update and, when
-    ``cfg.log_mask_every > 0``, ``masked_w [Q, T, E_pad]``."""
+    else :func:`init_masks` drawn from ``generator`` (on any device); the
+    ``marginalize`` noise comes from ``noise_generator`` (default
+    ``generator``), which must be on ``x``'s device.  Returns the final
+    state and the per-epoch loss terms ``[Q, T]``, with ``density`` after
+    each update and, when ``cfg.log_mask_every > 0``, ``masked_w [Q, T,
+    E_pad]``."""
     dev = x.device
     g = g.to(dev)
     node_idx = torch.as_tensor(np.asarray(node_idx), device=dev).long()
@@ -266,7 +272,8 @@ def run_mask_optimization(
                         for t in init))
     opt = torch.optim.Adam([t for t in state if t is not None], lr=cfg.lr,
                            eps=1e-8)
-    noise_gen = generator if cfg.marginalize else None
+    noise_gen = ((noise_generator or generator) if cfg.marginalize
+                 else None)
     hist: Dict[str, list] = {}
     for _ in range(cfg.num_epochs):
         opt.zero_grad(set_to_none=True)

@@ -19,7 +19,7 @@ from torch import nn
 
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.nn.initializers import torch_linear_bias, torch_linear_kernel
-from tpugraph_torch.nn.layers import Adjacency, GraphConv
+from tpugraph_torch.nn.layers import Adjacency, GraphConv, fresh_batch_norm
 
 
 def _torch_dense(out_dim: int, in_dim: int,
@@ -53,9 +53,11 @@ class PredHead(nn.Module):
 
 
 class ConvStack(nn.Module):
-    """conv_first -> (L-2) x conv_block -> conv_last with ReLU between,
-    L2-normalized embeddings, returning the per-layer concatenation
-    (``tpugraph/nn/encoders.py:71``).  ``bn`` is not ported."""
+    """conv_first -> (L-2) x conv_block -> conv_last with ReLU (and, with
+    ``bn``, :func:`fresh_batch_norm`) between, L2-normalized embeddings,
+    returning the per-layer concatenation
+    (``tpugraph/nn/encoders.py:71``).  ``dropout`` reaches the
+    ``conv_block`` layers only, as in ``tpugraph``."""
 
     def __init__(self, input_dim: int, hidden_dim: int, embedding_dim: int,
                  num_layers: int, add_self: bool = False,
@@ -63,8 +65,7 @@ class ConvStack(nn.Module):
                  dropout: float = 0.0, concat: bool = True,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if bn:
-            raise NotImplementedError("bn is not ported yet")
+        self.bn = bn
         self.concat = concat
 
         def conv(in_dim, out_dim, block):
@@ -79,16 +80,17 @@ class ConvStack(nn.Module):
         self.conv_last = conv(hidden_dim, embedding_dim, False)
 
     def forward(self, x: torch.Tensor, adj: Adjacency,
-                embedding_mask: Optional[torch.Tensor] = None):
-        x, adj_att = self.conv_first(x, adj)
-        x = torch.relu(x)
-        x_all, att_all = [x], [adj_att]
-        for conv in self.conv_block:
-            x, adj_att = conv(x, adj)
+                embedding_mask: Optional[torch.Tensor] = None,
+                dropout_gen: Optional[torch.Generator] = None):
+        x_all, att_all = [], []
+        for conv in [self.conv_first, *self.conv_block]:
+            x, adj_att = conv(x, adj, dropout_gen)
             x = torch.relu(x)
+            if self.bn:
+                x = fresh_batch_norm(x)
             x_all.append(x)
             att_all.append(adj_att)
-        x, adj_att = self.conv_last(x, adj)
+        x, adj_att = self.conv_last(x, adj, dropout_gen)
         x_all.append(x)
         att_all.append(adj_att)
         x_tensor = torch.cat(x_all, dim=-1) if self.concat else x
@@ -104,7 +106,8 @@ class GcnEncoderNode(nn.Module):
     ``StackedAdj`` or ``PacketAdj``) -> ``(ypred [N, C], att_list)``.
 
     Parameters are drawn from ``generator`` on the CPU, then the module
-    moves to ``device`` (``None`` = CUDA)."""
+    moves to ``device`` (``None`` = CUDA).  In training mode ``dropout``
+    draws its masks from the ``dropout_gen`` passed to ``forward``."""
 
     def __init__(self, input_dim: int, hidden_dim: int, embedding_dim: int,
                  label_dim: int, num_layers: int,
@@ -121,6 +124,10 @@ class GcnEncoderNode(nn.Module):
         self.embedding_dim = embedding_dim
         self.label_dim = label_dim
         self.num_layers = num_layers
+        self.bn = bn
+        self.dropout = dropout
+        self.add_self = add_self
+        self.att = att
         self.stack = ConvStack(input_dim, hidden_dim, embedding_dim,
                                num_layers, add_self=add_self,
                                use_bias=use_bias, att=att, bn=bn,
@@ -133,14 +140,17 @@ class GcnEncoderNode(nn.Module):
         self.to(device)
 
     def forward(self, x: torch.Tensor, adj: Adjacency,
-                node_mask: Optional[torch.Tensor] = None):
-        embedding, att_all = self.stack(x, adj, node_mask)
+                node_mask: Optional[torch.Tensor] = None,
+                dropout_gen: Optional[torch.Generator] = None):
+        embedding, att_all = self.stack(x, adj, node_mask, dropout_gen)
         return self.pred_model(embedding), att_all
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """A ``state_dict`` from a ``tpugraph`` flax parameter tree (the output
-    of ``model.init`` or a restored ``params.msgpack``), on the CPU."""
+    of ``model.init`` or a restored ``params.msgpack``), on the CPU.  Leaf
+    names carry over, ``GraphConv``'s ``self_weight`` and ``att_weight``
+    included."""
     tree = tree.get("params", tree)
     out: Dict[str, torch.Tensor] = {}
 

@@ -16,8 +16,10 @@ from tpugraph_torch.ops.bcsr import (  # noqa: F401
 )
 from tpugraph_torch.ops.bcsr_kernels import (  # noqa: F401
     bcsr_matvec,
+    bcsr_matvec_dw,
     bcsr_matvec_dw_pair,
     sddmm_bcsr,
+    sddmm_dw,
     spmm_bcsr,
     spmm_bcsr_packed,
 )

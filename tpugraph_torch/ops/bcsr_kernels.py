@@ -37,7 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
-from tpugraph_torch.ops.bcsr import BCSR
+from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose, transpose_tiles
 
 _TILE_MULTIPLE = 64  # the kernels' CTA slice of a tile (64 tile rows)
 _STRIP_ROWS = 8      # tile rows of a warp's strip in B1/B3
@@ -472,6 +472,66 @@ class BCSRMatvecDWPair(torch.autograd.Function):
         return dtiles, dx, None, None, None
 
 
+def _transposed(tiles: torch.Tensor, tp: BCSRTranspose) -> BCSR:
+    """The BCSR of ``A^T`` whose tiles are ``transpose_tiles(tiles, tp)``."""
+    return BCSR(tiles=transpose_tiles(tiles, tp), col_blk=tp.col_blk,
+                row_ptr=tp.row_ptr, row_of=tp.row_of, num_nodes=tp.num_nodes,
+                block=tp.block, longest_list=tp.longest_list)
+
+
+class BCSRMatvecDW(torch.autograd.Function):
+    """``A @ x`` differentiable in the tile values and ``x``, with ``A^T``'s
+    tiles built in the backward from the transpose plan ``tp``: forward
+    B1(``m``), backward ``dx`` = B1 on ``transpose_tiles(m.tiles, tp)``
+    and ``dtiles`` = B2(``m``, g, x) (``tpugraph/ops/pallas_spmm.py:457``).
+    The GAT layer's aggregation over score-scaled tiles, which change
+    every step."""
+
+    @staticmethod
+    def forward(ctx, tiles, x, m, tp):
+        m = dataclasses.replace(m, tiles=tiles)
+        ctx.save_for_backward(tiles, x)
+        ctx.m, ctx.tp = m, tp
+        return spmm_bcsr(m, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        tiles, x = ctx.saved_tensors
+        g = g.contiguous()
+        dtiles = dx = None
+        if ctx.needs_input_grad[0]:
+            dtiles = sddmm_bcsr(dataclasses.replace(ctx.m, tiles=tiles), g, x)
+        if ctx.needs_input_grad[1]:
+            dx = spmm_bcsr(_transposed(tiles, ctx.tp), g)
+        return dtiles, dx, None, None
+
+
+class SDDMMDW(torch.autograd.Function):
+    """Per-tile ``(a_row b_col^T) * [tiles != 0]``, differentiable in ``a``
+    and ``b`` (``tpugraph/ops/pallas_spmm.py:546``): forward B2, backward
+    with ``gs = g * [tiles != 0]`` as tile values, ``da`` = B1 on ``gs``
+    and ``db`` = B1 on ``transpose_tiles(gs, tp)``.  The tiles give only
+    their support, so no gradient reaches them."""
+
+    @staticmethod
+    def forward(ctx, a, b, m, tp):
+        ctx.save_for_backward(a, b)
+        ctx.m, ctx.tp = m, tp
+        return sddmm_bcsr(m, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        m = ctx.m
+        gs = g * (m.tiles != 0)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = spmm_bcsr(dataclasses.replace(m, tiles=gs), b)
+        if ctx.needs_input_grad[1]:
+            db = spmm_bcsr(_transposed(gs, ctx.tp), a)
+        return da, db, None, None
+
+
 def bcsr_matvec(m: BCSR, m_t: BCSR, x: torch.Tensor,
                 k_pack: Optional[int] = None) -> torch.Tensor:
     """Differentiable ``A @ x`` with static weights (gradient to ``x``);
@@ -487,3 +547,16 @@ def bcsr_matvec_dw_pair(m: BCSR, m_t: BCSR, x: torch.Tensor,
     (e.g. ``torch.bfloat16``) is the dtype the kernels read ``m.tiles``
     at; the gradient to ``m.tiles`` keeps their dtype."""
     return BCSRMatvecDWPair.apply(m.tiles, x, m, m_t, spmm_dtype)
+
+
+def bcsr_matvec_dw(m: BCSR, tp: BCSRTranspose, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``A @ x`` in both ``m.tiles`` (float32) and ``x``, the
+    transposed tiles rebuilt from ``tp`` in the backward."""
+    return BCSRMatvecDW.apply(m.tiles, x, m, tp)
+
+
+def sddmm_dw(m: BCSR, tp: BCSRTranspose, a: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
+    """Differentiable ``(a_row b_col^T) * [tiles != 0]`` per tile, float32
+    ``[T, B, B]``: the GAT scores on the tile support."""
+    return SDDMMDW.apply(a, b, m, tp)

@@ -17,18 +17,29 @@ as ``tpugraph/train/loop.py:316-475`` does (:func:`resolve_bcsr_format`):
 * ``bcsr_resident="on"`` — column-stacked tiles (``stack=1``, padded to
   64), int8 when every weight is an integer in [-127, 127] and bf16
   otherwise, kernel B4;
+* an attention model — f32 tiles and their transpose plan, the scores by
+  B2 and the aggregation over the score-scaled tiles by B1
+  (``tpugraph/train/loop.py:442-453``);
 * otherwise dense f32 tiles, kernel B1, or B3 with ``bcsr_k_pack > 1``
   (``-1`` picks it from the tile counts).
 
-``"auto"`` resolves to tiles with resident off on the card, as the JAX
-package does on any device that is not a TPU; its TPU cost model is not
-ported.  GAT (``att=True``) is not ported, so no model here takes the
-JAX package's GAT-on-BCSR branch.
+``"auto"`` applies where the adjacency goes to the CUDA card: a graph
+whose mean tile occupancy is under 1% is low-locality, and there
+``bcsr_format="auto"`` weighs pack time against steady state at the
+card's own rates (:func:`resolve_bcsr_format`, ``TPUGRAPH_RATES``
+overrides them) and ``bcsr_resident="auto"`` takes the resident format
+where the block suits the tensor cores.  On the CPU ``"auto"`` is tiles
+with resident off, as the JAX package's is off the TPU.
+
+With ``dropout``, the masks come from a ``torch.Generator`` on the
+device seeded with ``seed + 1`` (JAX: ``PRNGKey(seed + 1)``, whose stream
+torch cannot replay); evaluation runs without dropout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -41,7 +52,8 @@ from tpugraph_torch.nn.layers import (Adjacency, BCSRAdj, PacketAdj,
                                       SparseAdj, StackedAdj)
 from tpugraph_torch.nn.losses import node_cross_entropy
 from tpugraph_torch.ops.bcsr import (bcsr_from_coo, bcsr_transpose_host,
-                                     choose_k_pack_counts, coo_tile_counts)
+                                     bcsr_transpose_plan, choose_k_pack_counts,
+                                     coo_tile_counts)
 from tpugraph_torch.ops.packets import pack_edges, pack_edges_transpose
 from tpugraph_torch.ops.resident_kernels import stack_bcsr
 from tpugraph_torch.train.metrics import eval_node
@@ -84,35 +96,121 @@ class TrainConfig:
     packet_compute_dtype: Optional[torch.dtype] = None
 
 
+# Rates of the format rule, measured on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit by chip_smoke.py's lowloc phase (PERF.md section 5):
+# one forward+backward aggregation pair at D = 128 on the 65,536-node
+# power-law graph (2,097,152 edges, block 256), and the pack of A and A^T
+# with the upload, per 256^2 int8 tile (resident) or per edge (packets).
+# Override any subset with
+#   TPUGRAPH_RATES="res_edges_per_s=6.8e8,pkt_edges_per_s=2.3e9,
+#                   res_pack_s_per_tile=1.5e-4,pkt_pack_s_per_edge=5e-7"
+# or pin TrainConfig.bcsr_format.
+_RATE_DEFAULTS = {
+    "res_edges_per_s": 6.8e8,       # resident-stacked kernel B4, a pair
+    "pkt_edges_per_s": 2.3e9,       # edge-packet kernel B7, a pair
+    "res_pack_s_per_tile": 1.5e-4,  # int8 tiles, stack and upload
+    "pkt_pack_s_per_edge": 5e-7,    # packets of A and A^T and upload
+}
+_SPMM_PAIRS_PER_EPOCH = 3  # a 3-layer encoder: one pair a layer
+_LOW_LOCALITY_DENSITY = 0.01  # tile occupancy under which a graph is low-locality
+_PACKETS_DENSITY = 3e-3      # occupancy under which packets are a candidate
+_RESIDENT_BLOCK = 128        # the tensor-core phase's block multiple
+
+
+def _format_rates() -> Dict[str, float]:
+    """The card's rates, overridden by ``TPUGRAPH_RATES`` (comma-separated
+    ``key=value`` pairs; an unknown key raises)
+    (``tpugraph/train/loop.py:115``)."""
+    out = dict(_RATE_DEFAULTS)
+    for part in os.environ.get("TPUGRAPH_RATES", "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        k, _, v = part.partition("=")
+        k = k.strip()
+        if k not in out:
+            raise ValueError(f"TPUGRAPH_RATES: unknown key {k!r} "
+                             f"(valid: {sorted(out)})")
+        out[k] = float(v)
+    return out
+
+
 def resolve_bcsr_format(cfg: TrainConfig, n_live: int, t_probe: int,
                         density: float, low_locality: bool,
-                        on_tpu: bool, att: bool = False) -> str:
-    """The aggregation format (``tpugraph/train/loop.py:137``): an
-    attention model or ``bcsr_resident="on"`` forces ``"tiles"``; an
-    explicit ``bcsr_format`` wins next; ``"auto"`` is ``"tiles"`` unless
-    ``on_tpu`` and the graph is low-locality.  That last case is the JAX
-    package's cost model over TPU-measured rates; the port has no rates
-    of its own yet, so it raises there.  The port always passes
-    ``on_tpu=False``."""
+                        on_card: bool, att: bool = False) -> str:
+    """The aggregation format by total time, pack plus training
+    (``tpugraph/train/loop.py:137``).  An attention model or
+    ``bcsr_resident="on"`` forces ``"tiles"``; an explicit ``bcsr_format``
+    wins next.  ``"auto"`` is ``"tiles"`` unless ``on_card`` and the graph
+    is low-locality with a tile occupancy under 3e-3; then it compares the
+    resident tiles' pack (``t_probe`` tiles at ``cfg.bcsr_block``, the
+    per-256^2-tile rate scaled by ``(block / 256)^2``) and
+    ``3 * num_epochs`` aggregation pairs against the packets', at the
+    rates of :func:`_format_rates`, and prints its decision."""
     if att or cfg.bcsr_resident == "on":
         return "tiles"
     fmt = cfg.bcsr_format
     if fmt != "auto":
         return fmt
-    if not (on_tpu and low_locality and density < 3e-3):
+    if not (on_card and low_locality and density < _PACKETS_DENSITY):
         return "tiles"
-    raise NotImplementedError(
-        f"bcsr_format='auto' on a low-locality graph ({n_live} edges, "
-        f"{t_probe} tiles) needs a cost model with measured rates, which "
-        "is not ported; set bcsr_format")
+    r = _format_rates()
+    pairs = _SPMM_PAIRS_PER_EPOCH * cfg.num_epochs
+    pack_s_per_tile = r["res_pack_s_per_tile"] * (cfg.bcsr_block / 256.0) ** 2
+    est_tiles = (pack_s_per_tile * t_probe
+                 + pairs * n_live / r["res_edges_per_s"])
+    est_pkt = (r["pkt_pack_s_per_edge"] * n_live
+               + pairs * n_live / r["pkt_edges_per_s"])
+    fmt = "packets" if est_pkt < est_tiles else "tiles"
+    print(f"tpugraph_torch: bcsr_format auto -> {fmt} (est total tiles "
+          f"{est_tiles:.3g}s vs packets {est_pkt:.3g}s for {cfg.num_epochs} "
+          "epochs; H100-measured rates, TPUGRAPH_RATES overrides)", flush=True)
+    return fmt
 
 
-def build_adjacency(g: Graph, cfg: TrainConfig,
-                    device: torch.device) -> Tuple[Adjacency, int]:
+def choose_format(s_np: np.ndarray, r_np: np.ndarray, w_np: np.ndarray,
+                  n_pad: int, cfg: TrainConfig, on_card: bool,
+                  att: bool = False) -> str:
+    """The block-sparse format :func:`build_adjacency` packs the edges in
+    (``tpugraph/train/loop.py:356-397``): ``"packets"``, ``"resident"``,
+    ``"tiles_att"`` (an attention model's tiles and transpose plan) or
+    ``"tiles"``.  ``on_card``: the adjacency goes to the CUDA card, where
+    the ``"auto"`` settings read the graph's locality and the resident
+    format needs ``bcsr_block % 128 == 0`` (the card's own gate: it has
+    no VMEM window to fit)."""
+    block = cfg.bcsr_block
+    n_live = int((w_np != 0).sum())
+    t_probe, density = 1, 1.0
+    if on_card and "auto" in (cfg.bcsr_resident, cfg.bcsr_format):
+        # mean tile occupancy, a host-side O(E) count
+        # (tpugraph/train/loop.py:356-371)
+        cnt = coo_tile_counts(s_np, r_np, n_pad, block=block, weights=w_np)
+        t_probe = max(int(cnt.sum()), 1)
+        density = n_live / (t_probe * block ** 2)
+    low_locality = density < _LOW_LOCALITY_DENSITY
+    fmt = resolve_bcsr_format(cfg, n_live, t_probe, density, low_locality,
+                              on_card, att=att)
+    if fmt not in ("tiles", "packets"):
+        raise ValueError(f"unknown bcsr_format {fmt!r}")
+    if fmt == "packets":
+        return fmt
+    if att:
+        return "tiles_att"
+    if cfg.bcsr_resident == "on" or (
+            cfg.bcsr_resident == "auto" and on_card and low_locality
+            and block % _RESIDENT_BLOCK == 0):
+        return "resident"
+    return "tiles"
+
+
+def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
+                    att: bool = False) -> Tuple[Adjacency, int]:
     """Pack ``g`` in the format ``cfg`` selects and move it to ``device``
     (``tpugraph/train/loop.py:316-477``); returns the adjacency and the
     padded node count it needs (a multiple of the block for the tile
-    formats).  Without ``use_bcsr`` it is the COO edge list itself."""
+    formats).  Without ``use_bcsr`` it is the COO edge list itself;
+    otherwise :func:`choose_format` picks the format (``att``: an
+    attention model, which takes f32 tiles with a transpose plan)."""
     if not cfg.use_bcsr:
         return (SparseAdj(g.senders.to(device, torch.int64),
                           g.receivers.to(device, torch.int64),
@@ -121,10 +219,9 @@ def build_adjacency(g: Graph, cfg: TrainConfig,
     r_np = g.receivers.numpy()
     w_np = g.edge_weight.numpy()
     n_pad = g.num_nodes_padded
-    fmt = resolve_bcsr_format(cfg, int((w_np != 0).sum()), 1, 1.0, False,
-                              on_tpu=False)
-    if fmt not in ("tiles", "packets"):
-        raise ValueError(f"unknown bcsr_format {fmt!r}")
+    block = cfg.bcsr_block
+    fmt = choose_format(s_np, r_np, w_np, n_pad, cfg,
+                        torch.device(device).type == "cuda", att)
     if fmt == "packets":
         br, bc, kk = cfg.packet_geom
         p = pack_edges(s_np, r_np, w_np, n_pad, block_r=br, block_c=bc, k=kk)
@@ -132,8 +229,7 @@ def build_adjacency(g: Graph, cfg: TrainConfig,
                                    block_c=bc, k=kk)
         return (PacketAdj(p.to(device), p_t.to(device),
                           cfg.packet_compute_dtype), p.num_nodes)
-    block = cfg.bcsr_block
-    if cfg.bcsr_resident == "on":
+    if fmt == "resident":
         integral = bool(np.all(w_np == np.rint(w_np))
                         and np.abs(w_np).max(initial=0) <= 127)
         tdt = torch.int8 if integral else torch.bfloat16
@@ -148,6 +244,10 @@ def build_adjacency(g: Graph, cfg: TrainConfig,
                                   tile_dtype=tdt)
         st_t = stack_bcsr(m_t, stack=1, k_pack=_RESIDENT_K_PACK).to(device)
         return StackedAdj(st, st_t), st.num_nodes
+    if fmt == "tiles_att":
+        m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block)
+        tp = bcsr_transpose_plan(m)
+        return BCSRAdj(m.to(device), None, tp=tp.to(device)), m.num_nodes
     if cfg.bcsr_k_pack < 0:
         kp = choose_k_pack_counts(coo_tile_counts(s_np, r_np, n_pad,
                                                   block=block, weights=w_np))
@@ -193,7 +293,9 @@ def train_node_classifier(
     (the ``state_dict``), ``ypred [1, N_pad, C]``, the split, the metric
     history, train/test results, the seconds of the epoch loop
     (``"elapsed"``) and of packing and uploading the adjacency
-    (``"pack_s"``), and the packed adjacency (``"adj"``).
+    (``"pack_s"``), and the packed adjacency (``"adj"``).  A model with
+    ``dropout`` draws its masks from a generator on ``device`` seeded with
+    ``seed + 1``.
     """
     device = default_device(device)
     rng = np.random.default_rng(seed)
@@ -201,7 +303,8 @@ def train_node_classifier(
     train_idx, test_idx = split_nodes(n_real, cfg.train_ratio, rng)
 
     t_pack = time.perf_counter()
-    sp, n_new = build_adjacency(g, cfg, device)
+    sp, n_new = build_adjacency(g, cfg, device,
+                                att=bool(getattr(model, "att", False)))
     pack_s = time.perf_counter() - t_pack
 
     feat_pad = np.zeros((n_new, feat.shape[1]), dtype=np.float32)
@@ -229,11 +332,14 @@ def train_node_classifier(
     def acc(correct, mask):
         return torch.sum(correct * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
+    drop_gen = None
+    if getattr(model, "dropout", 0.0) > 0.001:
+        drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
     hist: Dict[str, List[torch.Tensor]] = {"loss": [], "train_acc": [],
                                            "test_acc": []}
     begin = time.time()
     for epoch in range(1, cfg.num_epochs + 1):
-        logits, _ = model(x, sp)
+        logits, _ = model(x, sp, dropout_gen=drop_gen)
         loss = node_cross_entropy(logits, y, node_mask=train_mask_d)
         opt.zero_grad()
         loss.backward()
