@@ -92,7 +92,24 @@ nvcc per source, sm_90a, all started together), then:
    CLI's own stacks of A and A^T at D = 10 and 20, bf16 x; B1 and B2 at
    the attention path's shapes (syn1's tiles scaled by their scores, and
    their transpose);
-8. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
+8. graph — the paper's second experiment through the same entry points:
+   SYNBENCH (``bench_catalog.py:54-101``, written here without networkx:
+   1,000 TU-format graphs of 12-80 nodes, seed 0) trained by ``cli.train
+   --bmname SYNBENCH --max-nodes 100`` at the default widths (hidden and
+   output 20, 3 GraphConv layers, batches of 20, Adam at 0.001 with clip
+   2.0; DiffPool with assign ratio 0.1 and one pooling stage): base 20
+   epochs (test acc >= 0.9), ``--method att`` 10 and ``--method
+   soft-assign --linkpred`` 10 (loss finite, train acc > 0.5), graphs/s
+   each; a 64-graph copy 5 epochs on the card (deterministic) and on the
+   CPU from the same weights (losses within 1e-4); ``cli.explain
+   --graph-mode`` (graphs 1-4), ``--graph-idx 0`` and ``--multigraph-class
+   0`` (31 graphs) on the base checkpoint, each mask finite, square and
+   not all zero; then ``Explainer.explain_graph_bcsr`` on graphs 1-4 at
+   block 128 (B1 forward and backward, B2 for the mask gradient, launches
+   counted under ``graph_explain_bcsr``), and B1/B2 held to their plain
+   versions at that path's shapes (one 128^2 tile, D = the feature width
+   and 20);
+9. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
    dependent launches of ``probe_tiny`` (grid 1 and 2) and
    ``probe_resident`` (n = 4,096, 16,384, 65,536), a fit of the time a
    launch against the bytes it writes, and the host cost of one wrapper
@@ -112,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -1411,6 +1429,73 @@ def phase_coo(banded_tile_sps):
                        "spmm_stacked_resident": stacked_shapes}}
 
 
+def _ordered_edges(adj):
+    """Each undirected edge once, in ``nx.Graph.edges()`` order: by node,
+    then by neighbour insertion, skipping neighbours already visited."""
+    seen = set()
+    for u, nbrs in adj.items():
+        for v in nbrs:
+            if v not in seen:
+                yield u, v
+        seen.add(u)
+
+
+def write_tu_synthetic(root, name, n_graphs=1000, seed=0):
+    """SYNBENCH, the catalog's reference-scale TU-format synthetic
+    (``bench_catalog.py:54-101``) without networkx, byte for byte: class 0
+    is a cycle with ``n // 6`` random chords, class 1 two stars joined at
+    their centres, 12-80 nodes each, node labels the degree mod 3, graph
+    labels 3 and 7 (remapped to 0 and 1 by the reader).  Returns the
+    graph and node counts."""
+    import numpy as np
+
+    def add_edge(adj, u, v):
+        adj.setdefault(u, {})[v] = None
+        adj.setdefault(v, {})[u] = None
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, name)
+    os.makedirs(d, exist_ok=True)
+    indicator, node_labels, edges, graph_labels = [], [], [], []
+    node_id = 1
+    for gi in range(1, n_graphs + 1):
+        n = int(rng.integers(12, 81))
+        adj = {u: {} for u in range(n)}  # nodes in nx's order: 0..n-1
+        if gi % 2 == 1:  # nx.cycle_graph(n), then the chords
+            for u in range(n):
+                add_edge(adj, u, (u + 1) % n)
+            for _ in range(n // 6):
+                u, v = rng.integers(0, n, 2)
+                if u != v:
+                    add_edge(adj, int(u), int(v))
+            graph_labels.append(3)
+        else:  # nx.disjoint_union(star_graph(k), star_graph(n - k - 2))
+            k = n // 2
+            for v in range(1, k + 1):
+                add_edge(adj, 0, v)
+            for v in range(k + 2, n):
+                add_edge(adj, k + 1, v)
+            add_edge(adj, 0, k + 1)
+            graph_labels.append(7)
+        for u in range(n):
+            indicator.append(gi)
+            node_labels.append(len(adj[u]) % 3)
+        for u, v in _ordered_edges(adj):
+            edges.append((node_id + u, node_id + v))
+            edges.append((node_id + v, node_id + u))
+        node_id += n
+    prefix = os.path.join(d, name)
+    with open(prefix + "_graph_indicator.txt", "w") as f:
+        f.write("\n".join(map(str, indicator)) + "\n")
+    with open(prefix + "_node_labels.txt", "w") as f:
+        f.write("\n".join(map(str, node_labels)) + "\n")
+    with open(prefix + "_A.txt", "w") as f:
+        f.write("\n".join(f"{a}, {b}" for a, b in edges) + "\n")
+    with open(prefix + "_graph_labels.txt", "w") as f:
+        f.write("\n".join(map(str, graph_labels)) + "\n")
+    return n_graphs, node_id - 1
+
+
 # The syn phase's rows: (key, cli.train flags, node explained in tile space
 # or None, the format it trains in on the card).  The format auto runs on
 # the card at block 128: resident for syn3 (tile occupancy 0.0067); an
@@ -1583,6 +1668,198 @@ def phase_syn(gen):
                                              device="cuda"))]
         shapes["sddmm_bcsr"].append(both["sddmm_bcsr"])
     del m, tp, eff, eff_t
+    torch.cuda.empty_cache()
+    return {"launches": launches, "figures": figures, "shapes": shapes}
+
+
+# The graph phase: SYNBENCH (bench_catalog.py:54-101) trained through
+# cli.train at tpugraph/cli/config.py's default widths, (method, flags,
+# epochs) a row
+GRAPH_ROWS = (("base", [], 20), ("att", ["--method", "att"], 10),
+              ("soft-assign", ["--method", "soft-assign", "--linkpred"], 10))
+GRAPH_N, GRAPH_TRAIN = 1000, 800  # graphs, and the 80% split cli.train trains on
+GRAPH_BASE_ACC = 0.9       # base's test accuracy floor
+GRAPH_REDUCED, GRAPH_REDUCED_EPOCHS = 64, 5
+GRAPH_TRAJ_TOL = 1e-4      # |card - CPU| of the reduced copy's per-epoch loss
+GRAPH_EXPLAIN = (["--graph-mode"], ["--graph-idx", "0"], ["--multigraph-class", "0"])
+GRAPH_BCSR = (1, 2, 3, 4)  # graphs explained in tile space at block 128
+
+
+def last_epoch_scalars(text):
+    """The metrics of the last ``epoch N: k: v; ...`` line a CLI printed."""
+    line = [ln for ln in text.splitlines() if ln.startswith("epoch ")][-1]
+    return {k: float(v) for k, v in
+            (kv.split(": ") for kv in line.split(": ", 1)[1].split("; "))}
+
+
+def graph_reduced_copy(tmp):
+    """A 64-graph SYNBENCH trained 5 epochs through ``cli/tasks.py``'s
+    ``benchmark_task`` on the card (deterministic algorithms) and on the
+    CPU, from the one set of weights ``--seed`` draws.  Held: seeded N(0, 1)
+    node attributes (``_node_attributes.txt``, ``feat="node-feat"``), whose
+    per-epoch losses stay within GRAPH_TRAJ_TOL and accuracies within one
+    graph.  Printed only: the CLI's own node-label features, where every
+    leaf of a star is alike, gradients that cancel exactly come out as
+    rounding noise, and Adam's first steps turn noise into lr-sized steps
+    (5.5e-4 apart within 5 epochs on an H100 80GB HBM3 at 700 W)."""
+    import numpy as np
+    import torch
+
+    from tpugraph_torch.cli.config import parse_train_args
+    from tpugraph_torch.cli.tasks import benchmark_task
+
+    data = os.path.join(tmp, "reduced")
+    _, n_nodes = write_tu_synthetic(data, "SYNB64", n_graphs=GRAPH_REDUCED, seed=0)
+    attrs = np.random.default_rng(0).standard_normal((n_nodes, 4))
+    with open(os.path.join(data, "SYNB64", "SYNB64_node_attributes.txt"), "w") as f:
+        f.write("\n".join(", ".join(f"{v:.6f}" for v in row) for row in attrs) + "\n")
+    out = {}
+    for (method, flags, _), feat in itertools.product(
+            (GRAPH_ROWS[0], GRAPH_ROWS[2]), ("node-feat", "node-label")):
+        argv = ["--bmname", "SYNB64", "--datadir", data, "--max-nodes", "100",
+                "--epochs", str(GRAPH_REDUCED_EPOCHS), "--eval-every", "1",
+                "--ckptdir", os.path.join(tmp, "reduced_ckpt"),
+                "--logdir", os.path.join(tmp, "reduced_log")] + flags
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = benchmark_task(parse_train_args(argv + ["--platform", "cpu"]),
+                                 feat=feat)
+            was = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                card = benchmark_task(parse_train_args(argv), feat=feat)
+            finally:
+                torch.use_deterministic_algorithms(was)
+        err = float(np.max(np.abs(np.subtract(card["history"]["loss"],
+                                              cpu["history"]["loss"]))))
+        acc_err = max(float(np.max(np.abs(np.subtract(card["history"][k],
+                                                      cpu["history"][k]))))
+                      for k in ("train_acc", "val_acc", "test_acc"))
+        held = feat == "node-feat"
+        print(f"  reduced copy {method}, {feat}: {GRAPH_REDUCED} graphs x "
+              f"{GRAPH_REDUCED_EPOCHS} epochs, card vs CPU: loss max |diff| "
+              f"{err:.3g} ({f'tol {GRAPH_TRAJ_TOL}' if held else 'not held'}), "
+              f"accuracy max |diff| {acc_err:.3g}; loss "
+              f"{card['history']['loss'][0]:.5f} -> "
+              f"{card['history']['loss'][-1]:.5f}", flush=True)
+        if held:
+            check(err <= GRAPH_TRAJ_TOL,
+                  f"reduced graph copy {method}: card and CPU losses differ by {err}")
+            check(acc_err <= 1.0 / 6 + 1e-9,  # one graph of the 6-graph splits
+                  f"reduced graph copy {method}: accuracies differ by {acc_err}")
+        out[f"{method}_{feat}"] = {"loss_err": err, "acc_err": acc_err}
+    return out
+
+
+def phase_graph(gen):
+    """Graph classification and its explanation through the CLI on
+    SYNBENCH: ``cli.train --bmname`` for base, att and soft-assign
+    --linkpred (graphs/s; base's test acc >= 0.9, DiffPool's loss finite
+    and its train acc > 0.5), the reduced copy against the CPU, the three
+    graph-mode ``cli.explain`` calls on the base checkpoint (COO), then
+    ``explain_graph_bcsr`` on four graphs at block 128 with B1 and B2 held
+    to their plain versions at the shapes that path gives them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.cli import explain as cli_explain
+    from tpugraph_torch.cli import train as cli_train
+    from tpugraph_torch.cli.config import parse_explain_args
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    launches, figures = {}, {}
+    shapes = {"spmm_bcsr": [], "sddmm_bcsr": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_graphs, n_nodes = write_tu_synthetic(os.path.join(tmp, "data"),
+                                               "SYNBENCH", n_graphs=GRAPH_N, seed=0)
+        print(f"  SYNBENCH: {n_graphs} graphs, {n_nodes} nodes, written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        base = ["--bmname", "SYNBENCH", "--datadir", os.path.join(tmp, "data"),
+                "--max-nodes", "100", "--ckptdir", os.path.join(tmp, "ckpt"),
+                "--logdir", os.path.join(tmp, "log")]
+        for method, flags, epochs in GRAPH_ROWS:
+            ops.reset_launch_counts()
+            summary, wall, text = run_cli(cli_train.main,
+                                          base + flags + ["--epochs", str(epochs)])
+            check(sum(ops.launch_counts().values()) == 0,
+                  f"graph training {method} launched a tile kernel")
+            last = last_epoch_scalars(text)
+            acc = summary["test_result"]["acc"]
+            gps = epochs * GRAPH_TRAIN / summary["elapsed_s"]
+            figures[f"{method}_graphs_per_s"] = gps
+            figures[f"{method}_test_acc"] = acc
+            print(f"  cli.train --bmname SYNBENCH {' '.join(flags) or '(base)'}: "
+                  f"{epochs} epochs, {gps:.1f} graphs/s ({summary['elapsed_s']} s "
+                  f"the loop, {wall:.2f} s the call); last epoch {last}; best val "
+                  f"{summary['best_val']['acc']:.4f}, test acc {acc:.4f} "
+                  f"[{CARD}]", flush=True)
+            if method == "base":
+                check(acc >= GRAPH_BASE_ACC,
+                      f"graph base: test acc {acc} < {GRAPH_BASE_ACC}")
+            if method == "soft-assign":
+                check(math.isfinite(last["loss"]) and last["train_acc"] > 0.5,
+                      f"DiffPool: loss {last['loss']}, train acc {last['train_acc']}")
+        figures["reduced"] = graph_reduced_copy(tmp)
+
+        logdir = os.path.join(tmp, "log", "SYNBENCH_base_h20_o20_explain")
+        for flags in GRAPH_EXPLAIN:
+            ops.reset_launch_counts()
+            summary, wall, text = run_cli(cli_explain.main, base + flags)
+            check(sum(ops.launch_counts().values()) == 0,
+                  f"the COO graph explain {flags} launched a kernel")
+            idxs = summary.get("graph_indices", [summary.get("graph_idx")])
+            for gi in idxs:
+                mask = np.load(os.path.join(
+                    logdir, f"masked_adj_node_idx_0graph_idx_{gi}.npy"))
+                check(mask.ndim == 2 and mask.shape[0] == mask.shape[1]
+                      and bool(np.all(np.isfinite(mask))) and bool(np.any(mask != 0)),
+                      f"cli.explain {flags}: bad mask of graph {gi}")
+            figures[f"explain{flags[0]}_graphs_per_s"] = len(idxs) / wall
+            print(f"  cli.explain {' '.join(flags)}: {len(idxs)} graphs, masks "
+                  f"{mask.shape}; {wall:.2f} s the call "
+                  f"({len(idxs) / wall:.2f} graphs/s) [{CARD}]", flush=True)
+
+        ex = cli_explain.build_explainer(parse_explain_args(base + ["--graph-mode"]))
+        ex.print_training = False
+        ex.explain_graph_bcsr(GRAPH_BCSR[0], block=128)  # warm-up: pack, build
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = [ex.explain_graph_bcsr(gi, block=128) for gi in GRAPH_BCSR]
+        torch.cuda.synchronize()
+        per_graph = (time.perf_counter() - t0) / len(GRAPH_BCSR)
+        launches["graph_explain_bcsr"] = ops.launch_counts()
+        counts = launches["graph_explain_bcsr"]
+        for res in results:
+            ma = res["masked_adj"]
+            check(ma.shape == (len(res["neighbors"]),) * 2
+                  and bool(np.all(np.isfinite(ma))) and bool(np.any(ma != 0)),
+                  f"explain_graph_bcsr: bad mask of graph {res['graph_idx']}")
+        for k in ("spmm_bcsr", "sddmm_bcsr"):
+            check(counts[k] > 0, f"explain_graph_bcsr did not launch {k}")
+        figures["bcsr_s_per_graph"] = per_graph
+        print(f"  explain_graph_bcsr graphs {list(GRAPH_BCSR)} at block 128: "
+              f"{per_graph:.3f} s a graph ({ex.cfg.num_epochs} mask epochs); "
+              f"launches { {k: v for k, v in counts.items() if v} } [{CARD}]",
+              flush=True)
+
+        # B1 and B2 at this path's shapes: a graph's tiles under a mask
+        # gate, x of the layer widths (the node-label features, then 20),
+        # B1 on them and on their transpose (dx), B2 on their support
+        _, _, m, tp, _, _, _ = ex._bcsr_pack(GRAPH_BCSR[0], 128)
+        eff = dataclasses.replace(m, tiles=m.tiles * torch.rand(
+            m.tiles.shape, generator=gen, device="cuda"))
+        eff_t = bk._transposed(eff.tiles, tp)
+        for d in (ex.feat.shape[-1], 20):
+            both = measure_kernels("graph-b128", eff, d, gen)
+            shapes["spmm_bcsr"] += [both["spmm_bcsr"], measure_spmm(
+                "graph-b128-T", eff_t, torch.randn((m.num_nodes, d), generator=gen,
+                                                   device="cuda"))]
+            shapes["sddmm_bcsr"].append(both["sddmm_bcsr"])
+        del ex, m, tp, eff, eff_t
     torch.cuda.empty_cache()
     return {"launches": launches, "figures": figures, "shapes": shapes}
 
@@ -1908,7 +2185,13 @@ def main() -> int:
     syn = phase_syn(gen)
     print(f"  syn phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 8: launch probes
+    # ---- phase 8: graph classification and graph-mode explanation
+    print("phase graph", flush=True)
+    t0 = time.perf_counter()
+    graph = phase_graph(gen)
+    print(f"  graph phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 9: launch probes
     print("phase launch_probes", flush=True)
     probes = phase_probes(gen)
 
@@ -1916,7 +2199,7 @@ def main() -> int:
     paths = {"train": train_launches, "explain": explain_launches,
              "explain_bf16": bf16_launches,
              **{f"explain_banded_{k}": c for k, c in banded["launches"].items()},
-             **coo["launches"], **syn["launches"],
+             **coo["launches"], **syn["launches"], **graph["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
              **diff["launches"], "launch_probes": probes["launches"]}
     meta = {
@@ -1924,12 +2207,13 @@ def main() -> int:
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
                       [sh["spmm_bcsr"] for sh in shapes] + [low["shapes"]["tiles"],
                        banded["shapes"]["spmm_bcsr"]] + dtypes["spmm_bcsr"]
-                      + b1_mixed["spmm_bcsr"] + syn["shapes"]["spmm_bcsr"]),
+                      + b1_mixed["spmm_bcsr"] + syn["shapes"]["spmm_bcsr"]
+                      + graph["shapes"]["spmm_bcsr"]),
         "sddmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                        "tpugraph/ops/pallas_spmm.py:175", shapes[1]["sddmm_bcsr"],
                        [sh["sddmm_bcsr"] for sh in shapes]
                        + [banded["shapes"]["sddmm_bcsr"]] + b2_mixed
-                       + syn["shapes"]["sddmm_bcsr"]),
+                       + syn["shapes"]["sddmm_bcsr"] + graph["shapes"]["sddmm_bcsr"]),
         "spmm_bcsr_packed": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                              "tpugraph/ops/pallas_spmm.py:312",
                              low["shapes"]["k_pack4"],

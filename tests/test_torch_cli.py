@@ -101,6 +101,20 @@ def test_cli_without_platform_needs_cuda(monkeypatch, tmp_path):
     assert not os.listdir(tmp_path)
 
 
+@pytest.mark.parametrize("main,flags", [
+    (cli_train.main, ["--bmname", "TOY"]),
+    (cli_explain.main, ["--bmname", "TOY", "--graph-mode"]),
+], ids=["train --bmname", "explain --graph-mode"])
+def test_graph_cli_without_platform_needs_cuda(monkeypatch, tmp_path, main, flags):
+    """The graph task and graph-mode explainer also default to the card and
+    raise without one, before they read or write anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(flags + ["--datadir", str(tmp_path / "none"),
+                      "--ckptdir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+
+
 def test_platform_flag():
     assert cli_device(Config(platform="cpu")) == torch.device("cpu")
     with pytest.raises(ValueError, match="--platform 'tpu'"):
@@ -126,24 +140,20 @@ UNPORTED_TRAIN = [
     (["--opt", "sgd"], "--opt sgd", "item 6"),
     (["--opt-scheduler", "cos"], "--opt-scheduler cos", "item 6"),
     (["--resume"], "--resume", "item 6"),
-    (["--bmname", "ENZYMES"], "--bmname", "items 8-9"),
-    (["--pkl", "x.pkl"], "--pkl", "items 8-9"),
-    (["--dataset", "enron"], "--dataset enron", "items 8-9"),
-    (["--dataset", "ppi_essential"], "--dataset ppi_essential", "items 8-9"),
+    (["--pkl", "x.pkl"], "--pkl", "item 9"),
+    (["--dataset", "enron"], "--dataset enron", "item 9"),
+    (["--dataset", "ppi_essential"], "--dataset ppi_essential", "item 9"),
     (["--halo", "4"], "--halo", "item 11"),
     (["--dp", "2"], "--dp", "item 11"),
 ]
 UNPORTED_EXPLAIN = [
     (["--log-mask-every", "25"], "--log-mask-every", "item 10"),
-    (["--graph-mode"], "--graph-mode", "items 8-9"),
-    (["--graph-idx", "1"], "--graph-idx", "items 8-9"),
-    (["--multigraph-class", "0"], "--multigraph-class", "items 8-9"),
     (["--multinode-class", "1"], "--multinode-class", "item 8"),
     (["--explainer-model", "grad"], "--explainer-model grad", "item 8"),
     (["--explainer-model", "att"], "--explainer-model att", "item 8"),
     (["--mesh", "4"], "--mesh", "item 11"),
     (["--dataset", "enron_multigraph"], "--dataset enron_multigraph",
-     "items 8-9"),
+     "item 9"),
 ]
 
 
@@ -190,6 +200,48 @@ def test_ported_train_flag_runs(tmp_path, args):
         e = cli_explain.main(dirs + keep + ["--epochs", "2", "--bcsr",
                                             "--explain-node", "305"])
         assert e["mask_shape"][0] == e["mask_shape"][1] > 1
+
+
+@pytest.fixture(scope="module")
+def toy_graph_dirs(tmp_path_factory):
+    """The TU-format TOY dataset of ``tests/test_tasks.py`` and the flags
+    that point the CLI at it, with a checkpoint trained for 5 epochs."""
+    from test_tasks import write_tu_dataset
+
+    root = str(tmp_path_factory.mktemp("toy"))
+    write_tu_dataset(root, "TOY")
+    dirs = ["--platform", "cpu", "--datadir", root, "--bmname", "TOY",
+            "--max-nodes", "0", "--ckptdir", os.path.join(root, "ckpt"),
+            "--logdir", os.path.join(root, "log")]
+    cli_train.main(dirs + ["--epochs", "5", "--batch-size", "8"])
+    return dirs
+
+
+# The graph flags this port runs (they raised before graph classification
+# was ported): train on TOY, or explain the TOY checkpoint in graph mode.
+PORTED_GRAPH = [
+    ["--bmname"],
+    ["--graph-mode"],
+    ["--graph-idx", "1"],
+    ["--multigraph-class", "0"],
+]
+
+
+@pytest.mark.parametrize("args", PORTED_GRAPH, ids=" ".join)
+def test_ported_graph_flag_runs(toy_graph_dirs, args):
+    if args == ["--bmname"]:  # the fixture's flags already name TOY
+        s = cli_train.main(toy_graph_dirs + ["--epochs", "3", "--batch-size", "8",
+                                             "--name-suffix", "again"])
+        assert s["dataset"] == "TOY" and 0.0 <= s["test_result"]["acc"] <= 1.0
+        with open(os.path.join(s["ckpt_path"], "meta.json")) as f:
+            assert json.load(f)["task"] == "graph"
+        return
+    s = cli_explain.main(toy_graph_dirs + args + ["--epochs", "2"])
+    assert s["mode"] == "graph"
+    if "--graph-idx" in args:
+        assert s["graph_idx"] == 1 and s["mask_shape"] == [9, 9]
+    else:
+        assert len(s["graph_indices"]) > 1
 
 
 @pytest.mark.parametrize("args,flag,item", UNPORTED_EXPLAIN)

@@ -935,3 +935,80 @@ def test_att_training_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(gpu["history"]["loss"], cpu["history"]["loss"],
                                rtol=1e-4, atol=1e-4)
     assert gpu["history"]["loss"][-1] < gpu["history"]["loss"][0]
+
+
+def _synbench(tmp_path, n_graphs, random_feats):
+    """SYNBENCH's first ``n_graphs`` graphs (``chip_smoke.write_tu_synthetic``,
+    seed 0) split as the CLI splits them, with node-label features or
+    seeded N(0, 1) features of width 4 (one maximum a channel in the
+    max-pool readout)."""
+    import chip_smoke
+    from tpugraph_torch.data import prepare_data, read_graphfile
+
+    chip_smoke.write_tu_synthetic(str(tmp_path), "SYNB", n_graphs=n_graphs, seed=0)
+    graphs = read_graphfile(str(tmp_path), "SYNB", max_nodes=100)
+    rng = np.random.default_rng(1)
+    for G in graphs:
+        G.feat = {u: (rng.standard_normal(4).astype(np.float32) if random_feats
+                      else np.asarray(lab, np.float32))
+                  for u, lab in G.node_label.items()}
+    return prepare_data(graphs, max_nodes=100, rng=np.random.default_rng(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["base", "soft-assign"])
+def test_graph_training_on_card_matches_cpu(cuda_device, tmp_path, method):
+    """5 epochs of graph classification (40 SYNBENCH graphs, batches of 8)
+    on the card and on the CPU from one set of parameters: the loss
+    trajectories agree within 1e-4 (f32 sums of the dense matmuls in
+    another order; TF32 off)."""
+    from tpugraph_torch.nn import GcnEncoderGraph, SoftPoolingGcnEncoder
+    from tpugraph_torch.train import TrainConfig, train_graph_classifier
+
+    tr, va, te = _synbench(tmp_path, 40, random_feats=True)
+    if method == "base":
+        make = lambda dev: GcnEncoderGraph(tr.feat_dim, 20, 20, 2, 3, device=dev)
+    else:
+        make = lambda dev: SoftPoolingGcnEncoder(
+            tr.max_num_nodes, tr.feat_dim, 20, 20, 2, 3, 20, assign_ratio=0.1,
+            assign_input_dim=tr.assign_feat_dim, device=dev)
+    init = make("cpu").state_dict()
+    cfg = TrainConfig(num_epochs=5, batch_size=8, eval_every=2)
+    outs = [train_graph_classifier(make(dev), tr, cfg, val_batcher=va,
+                                   test_batcher=te, linkpred=method != "base",
+                                   init_params=init, device=dev)
+            for dev in ("cpu", cuda_device)]
+    np.testing.assert_allclose(outs[1]["history"]["loss"],
+                               outs[0]["history"]["loss"], rtol=1e-4, atol=1e-4)
+    assert np.all(np.isfinite(outs[1]["cg"]["pred"]))
+
+
+@pytest.mark.cuda
+def test_explain_graph_bcsr_on_card_matches_cpu(cuda_device, tmp_path):
+    """The tile-space graph explainer at block 128 on the card (B1 forward
+    and backward, B2 for the mask gradient) against the CPU's plain
+    versions from the same init (a CPU generator), 20 mask epochs: every
+    mask entry within 1e-4, and B1/B2 launched on the card."""
+    from tpugraph_torch import ops
+    from tpugraph_torch.explain import ExplainConfig, Explainer
+    from tpugraph_torch.nn import GcnEncoderGraph
+
+    tr, _, _ = _synbench(tmp_path, 20, random_feats=True)
+    b = tr.batch(np.arange(len(tr)))
+    init = GcnEncoderGraph(tr.feat_dim, 20, 20, 2, 3,
+                           generator=torch.Generator().manual_seed(0),
+                           device="cpu").state_dict()
+    masks = []
+    for dev in ("cpu", cuda_device):
+        ex = Explainer(GcnEncoderGraph(tr.feat_dim, 20, 20, 2, 3, device=dev),
+                       init, b.adj, b.feats, b.label, np.zeros((1, len(b.label), 2)),
+                       graph_mode=True, cfg=ExplainConfig(num_epochs=20),
+                       device=dev)
+        ops.reset_launch_counts()
+        masks.append([ex.explain_graph_bcsr(i)["masked_adj"] for i in (0, 1)])
+        counts = ops.launch_counts()
+    assert counts["spmm_bcsr"] > 0 and counts["sddmm_bcsr"] > 0
+    for got, ref in zip(masks[1], masks[0]):
+        assert got.shape == ref.shape == (100, 100)
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+        assert np.any(got != 0)

@@ -15,8 +15,12 @@ layout, ``GcnEncoderNode`` on ``SparseAdj`` and ``BCSRAdj``, full-batch
 node training on COO and in every static-weight format, the checkpoint +
 cg bundle, the batched COO GNNExplainer and the tile-space one (with bf16
 kernel tiles) and their motif AUC, graph diffusion
-(``ops.DiffusionOperator``, ``ops.diffuse``), and the node half of the
-CLI (``python -m tpugraph_torch.cli.train`` / ``.explain``, syn1).
+(``ops.DiffusionOperator``, ``ops.diffuse``), the node CLI
+(``python -m tpugraph_torch.cli.train`` / ``.explain``, syn1–syn5), and
+graph classification on TU-format datasets (the reader, the batching
+pipeline, ``GcnEncoderGraph``, the DiffPool ``SoftPoolingGcnEncoder``,
+``train_graph_classifier``, ``--bmname``) with its graph-mode explainer
+on COO and on the tile kernels.
 """
 
 __version__ = "0.1.0"

@@ -237,13 +237,9 @@ def check_ported(cfg: Config) -> None:
          "item 6"),
         (cfg.resume, "--resume", "item 6"),
         (cfg.log_mask_every > 0, "--log-mask-every", "item 10"),
-        (cfg.bmname is not None, "--bmname", "items 8-9"),
-        (cfg.pkl_fname is not None, "--pkl", "items 8-9"),
+        (cfg.pkl_fname is not None, "--pkl", "item 9"),
         (cfg.dataset in ("enron", "enron_multigraph", "ppi_essential"),
-         f"--dataset {cfg.dataset}", "items 8-9"),
-        (cfg.graph_mode, "--graph-mode", "items 8-9"),
-        (cfg.graph_idx >= 0, "--graph-idx", "items 8-9"),
-        (cfg.multigraph_class >= 0, "--multigraph-class", "items 8-9"),
+         f"--dataset {cfg.dataset}", "item 9"),
         (cfg.multinode_class >= 0, "--multinode-class", "item 8"),
         (cfg.explainer_model != "exp",
          f"--explainer-model {cfg.explainer_model}", "item 8"),

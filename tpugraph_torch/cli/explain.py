@@ -1,16 +1,23 @@
-"""Explainer entry point (port of ``tpugraph/cli/explain.py``, node mode).
+"""Explainer entry point (port of ``tpugraph/cli/explain.py``).
 
 Usage:
   python -m tpugraph_torch.cli.explain --dataset=syn1           # AUC over nodes 400:700:5
   python -m tpugraph_torch.cli.explain --dataset=syn1 --explain-node=301 [--bcsr]
+  python -m tpugraph_torch.cli.explain --bmname=SYNBENCH --graph-mode   # graphs 1-4
+  python -m tpugraph_torch.cli.explain --bmname=SYNBENCH --graph-idx=0
+  python -m tpugraph_torch.cli.explain --bmname=SYNBENCH --multigraph-class=0
 
 ``--dataset`` is any of syn1–syn5; the model (GCN or ``--method att``,
 with or without batch norm) is rebuilt from the checkpoint's ``meta``.
 ``--explain-node`` explains one node on the COO path, or in tile space
 with ``--bcsr``; without it the 60 stats nodes are explained together on
-the COO path and scored against the dataset's motifs.  No graph renders,
-heatmaps or TensorBoard events are written yet (ROADMAP section 1 item
-10), and the summary has no key for them.
+the COO path and scored against the dataset's motifs.  Graph mode
+(``--graph-mode``, ``--graph-idx`` or ``--multigraph-class``) explains a
+graph classifier's predictions over its graph cg bundle: graphs 1-4, one
+graph, or the first 31 graphs of a class, on the COO path.  A DiffPool
+(``soft-assign``) checkpoint cannot be explained, as in ``tpugraph``.
+No graph renders, heatmaps or TensorBoard events are written yet
+(ROADMAP section 1 item 10), and the summary has no key for them.
 """
 
 from __future__ import annotations
@@ -19,11 +26,13 @@ import json
 import os
 from typing import Dict
 
+import numpy as np
+
 from tpugraph_torch.cli.config import (Config, check_ported, cli_device,
                                        parse_explain_args)
 from tpugraph_torch.explain.explainer import Explainer
 from tpugraph_torch.explain.module import ExplainConfig
-from tpugraph_torch.nn import GcnEncoderNode
+from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode
 from tpugraph_torch.train.checkpoint import (gen_explainer_prefix, gen_prefix,
                                              load_checkpoint)
 
@@ -43,18 +52,30 @@ def build_explainer(cfg: Config) -> Explainer:
     # the trained model's options come from its meta (tpugraph reads them
     # from the flags, which must then repeat the training's)
     meta = ckpt["meta"] or {}
-    model = GcnEncoderNode(
+    model_type = meta.get("model_type", cfg.method)
+    graph_mode = (cfg.graph_mode or cfg.multigraph_class >= 0
+                  or cfg.graph_idx >= 0)
+    if graph_mode and model_type == "soft-assign":
+        raise ValueError(
+            f"checkpoint {prefix} holds a DiffPool (soft-assign) model; the "
+            "graph-mode explainer rebuilds GcnEncoderGraph only, as "
+            "tpugraph's does (train --method base or att to explain)")
+    common = dict(
         input_dim=int(cg["feat"].shape[2]),
         hidden_dim=cfg.hidden_dim,
         embedding_dim=cfg.output_dim,
         label_dim=int(cg["pred"].shape[2]),
         num_layers=cfg.num_gc_layers,
         bn=bool(meta.get("bn", cfg.bn)),
-        add_self=bool(meta.get("add_self", False)),
         use_bias=cfg.bias,
-        att=meta.get("model_type", cfg.method) == "att",
+        att=model_type == "att",
         device=device,
     )
+    if graph_mode:
+        model = GcnEncoderGraph(**common)
+    else:
+        model = GcnEncoderNode(**common,
+                               add_self=bool(meta.get("add_self", False)))
     logdir = os.path.join(cfg.logdir,
                           gen_explainer_prefix(prefix, cfg.explainer_suffix))
     os.makedirs(logdir, exist_ok=True)
@@ -75,6 +96,8 @@ def build_explainer(cfg: Config) -> Explainer:
         label=cg["label"],
         pred=cg["pred"],
         n_hops=cfg.num_gc_layers,
+        graph_mode=graph_mode,
+        graph_idx=max(cfg.graph_idx, 0),
         cfg=ecfg,
         logdir=logdir,
         dataset=cfg.name,
@@ -89,7 +112,7 @@ def main(argv=None) -> Dict:
     the summary it prints."""
     cfg = parse_explain_args(argv)
     ex = build_explainer(cfg)
-    summary = {"dataset": cfg.name, "mode": "node"}
+    summary = {"dataset": cfg.name, "mode": "graph" if ex.graph_mode else "node"}
     if cfg.explain_node is not None:
         if cfg.use_bcsr:
             r = ex.explain_node_bcsr(cfg.explain_node, block=cfg.bcsr_block)
@@ -98,6 +121,22 @@ def main(argv=None) -> Dict:
         ex._save_npy(r["masked_adj"], cfg.explain_node)
         summary["explain_node"] = cfg.explain_node
         summary["mask_shape"] = list(r["masked_adj"].shape)
+    elif ex.graph_mode:
+        if cfg.multigraph_class >= 0:
+            labels = np.asarray(ex.label).reshape(-1)
+            graph_indices = [i for i, lab in enumerate(labels)
+                             if lab == cfg.multigraph_class][:31]
+            ex.explain_graphs(graph_indices)
+            summary["graph_indices"] = graph_indices
+        elif cfg.graph_idx == -1:
+            graph_indices = [1, 2, 3, 4]
+            ex.explain_graphs(graph_indices)
+            summary["graph_indices"] = graph_indices
+        else:
+            masked_adj = ex.explain(node_idx=0, graph_idx=cfg.graph_idx,
+                                    graph_mode=True)
+            summary["graph_idx"] = cfg.graph_idx
+            summary["mask_shape"] = list(masked_adj.shape)
     else:
         node_indices = list(range(400, 700, 5))
         res = ex.explain_nodes_gnn_stats(node_indices,

@@ -3,6 +3,8 @@
 Usage:
   python -m tpugraph_torch.cli.train --dataset=syn1 [--epochs N] [--bcsr]
   python -m tpugraph_torch.cli.train --dataset=syn1 --platform cpu
+  python -m tpugraph_torch.cli.train --bmname=SYNBENCH --datadir D \
+      [--method base|att|soft-assign [--linkpred]]
 
 Prints the metrics every 25 epochs and a JSON summary at the end.  No
 TensorBoard events or accuracy-curve PNG are written yet (ROADMAP
@@ -34,10 +36,12 @@ def main(argv=None) -> Dict:
         "ckpt_path": out.get("ckpt_path"),
         "elapsed_s": round(out.get("elapsed", 0.0), 2),
     }
-    for key in ("result_train", "result_test"):
-        summary[key] = {k: v for k, v in out[key].items() if k != "conf_mat"}
-    print("train conf_mat:\n", out["result_train"]["conf_mat"])
-    print("test conf_mat:\n", out["result_test"]["conf_mat"])
+    for key in ("result_train", "result_test", "best_val", "test_result"):
+        if out.get(key) is not None:
+            summary[key] = {k: v for k, v in out[key].items() if k != "conf_mat"}
+    if "result_train" in out:
+        print("train conf_mat:\n", out["result_train"]["conf_mat"])
+        print("test conf_mat:\n", out["result_test"]["conf_mat"])
     print(json.dumps(summary, indent=2, default=float))
     return summary
 

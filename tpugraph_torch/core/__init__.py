@@ -1,10 +1,13 @@
 """Graph containers and k-hop extraction (port of ``tpugraph/core``)."""
 
 from tpugraph_torch.core.graph import (  # noqa: F401
+    BatchedGraphs,
     Graph,
+    batch_graphs,
     graph_from_dense,
     graph_from_edge_list,
     graph_from_edges,
+    graph_to_dense,
 )
 from tpugraph_torch.core.khop import (  # noqa: F401
     extract_dense_subgraph,

@@ -12,7 +12,7 @@ layout, as a ``SparseAdj`` or, for the COO explainer, as itself
 
 from __future__ import annotations
 
-from typing import Iterable, NamedTuple, Optional, Tuple
+from typing import Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +49,35 @@ class Graph(NamedTuple):
             "senders", "receivers", "edge_weight", "node_mask", "edge_pair")})
 
 
+class BatchedGraphs(NamedTuple):
+    """Same-budget padded graphs stacked on a leading batch axis
+    (``tpugraph/core/graph.py:62``): each field is the :class:`Graph`
+    field with that axis in front (``n_node`` / ``n_edge`` int64[B])."""
+
+    senders: torch.Tensor      # int32[B, E_pad]
+    receivers: torch.Tensor    # int32[B, E_pad]
+    edge_weight: torch.Tensor  # float32[B, E_pad]
+    node_mask: torch.Tensor    # float32[B, N_pad]
+    n_node: torch.Tensor       # int64[B]
+    n_edge: torch.Tensor       # int64[B]
+    edge_pair: torch.Tensor    # int32[B, E_pad]
+
+    @property
+    def num_nodes_padded(self) -> int:
+        return self.node_mask.shape[-1]
+
+    @property
+    def num_edges_padded(self) -> int:
+        return self.senders.shape[-1]
+
+    def graph(self, i: int) -> Graph:
+        return Graph(*(x[i] if k not in ("n_node", "n_edge") else int(x[i])
+                       for k, x in zip(self._fields, self)))
+
+    def to(self, device) -> "BatchedGraphs":
+        return BatchedGraphs(*(x.to(device) for x in self))
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -59,10 +88,13 @@ def graph_from_edges(
     num_nodes: int,
     edge_weight: Optional[np.ndarray] = None,
     pad_multiple: int = 8,
+    *,
+    num_edges_padded: Optional[int] = None,
 ) -> Graph:
     """Padded :class:`Graph` from host-side directed edge arrays
-    (``tpugraph/core/graph.py:87`` without normalization or explicit
-    padding budgets)."""
+    (``tpugraph/core/graph.py:87`` without normalization or a node
+    budget); ``num_edges_padded`` fixes the edge budget, which must hold
+    every edge."""
     senders = np.asarray(senders, dtype=np.int32)
     receivers = np.asarray(receivers, dtype=np.int32)
     e = senders.shape[0]
@@ -72,7 +104,9 @@ def graph_from_edges(
         edge_weight = np.asarray(edge_weight, dtype=np.float32)
 
     n_pad = _round_up(max(num_nodes, 1), pad_multiple)
-    e_pad = _round_up(max(e, 1), pad_multiple)
+    e_pad = num_edges_padded or _round_up(max(e, 1), pad_multiple)
+    if e_pad < e:
+        raise ValueError(f"padding budget too small: edges {e}>{e_pad}")
     s = np.zeros((e_pad,), dtype=np.int32)
     r = np.zeros((e_pad,), dtype=np.int32)
     w = np.zeros((e_pad,), dtype=np.float32)
@@ -99,10 +133,12 @@ def graph_from_edges(
     )
 
 
-def graph_from_dense(adj: np.ndarray) -> Graph:
+def graph_from_dense(adj: np.ndarray, *,
+                     num_edges_padded: Optional[int] = None) -> Graph:
     """Dense adjacency (the cg bundle's format, optionally with a leading
     batch dim of 1) to a padded :class:`Graph`; nonzero ``adj[i, j]`` is
-    the directed edge i -> j (``tpugraph/core/graph.py:159``)."""
+    the directed edge i -> j (``tpugraph/core/graph.py:159``), and
+    ``num_edges_padded`` fixes the edge budget."""
     adj = np.asarray(adj)
     if adj.ndim == 3:
         adj = adj[0]
@@ -112,6 +148,7 @@ def graph_from_dense(adj: np.ndarray) -> Graph:
         receivers.astype(np.int32),
         adj.shape[0],
         edge_weight=adj[senders, receivers].astype(np.float32),
+        num_edges_padded=num_edges_padded,
     )
 
 
@@ -132,4 +169,29 @@ def graph_from_edge_list(num_nodes: int,
         np.asarray(senders, dtype=np.int32),
         np.asarray(receivers, dtype=np.int32),
         num_nodes,
+    )
+
+
+def graph_to_dense(g: Graph, num_nodes: Optional[int] = None) -> torch.Tensor:
+    """The ``[N, N]`` adjacency of ``g`` (``tpugraph/core/graph.py:216``):
+    ``dense[r, s]`` sums the weights of the edges s -> r; ``N`` defaults
+    to the padded node count."""
+    n = num_nodes or g.num_nodes_padded
+    dense = torch.zeros((n, n), dtype=g.edge_weight.dtype,
+                        device=g.edge_weight.device)
+    return dense.index_put_((g.receivers.long(), g.senders.long()),
+                            g.edge_weight, accumulate=True)
+
+
+def batch_graphs(graphs: List[Graph]) -> BatchedGraphs:
+    """Same-budget padded graphs stacked on a batch axis
+    (``tpugraph/core/graph.py:251``)."""
+    return BatchedGraphs(
+        senders=torch.stack([g.senders for g in graphs]),
+        receivers=torch.stack([g.receivers for g in graphs]),
+        edge_weight=torch.stack([g.edge_weight for g in graphs]),
+        node_mask=torch.stack([g.node_mask for g in graphs]),
+        n_node=torch.tensor([g.n_node for g in graphs], dtype=torch.int64),
+        n_edge=torch.tensor([g.n_edge for g in graphs], dtype=torch.int64),
+        edge_pair=torch.stack([g.edge_pair for g in graphs]),
     )

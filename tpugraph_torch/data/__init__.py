@@ -1,4 +1,5 @@
-"""Synthetic datasets (port of ``tpugraph/data``: syn1–syn5)."""
+"""Datasets (port of ``tpugraph/data``): syn1–syn5, the TU-format reader
+and the graph-classification batching pipeline."""
 
 from tpugraph_torch.data.featgen import (  # noqa: F401
     ConstFeatureGen,
@@ -17,3 +18,9 @@ from tpugraph_torch.data.gengraph import (  # noqa: F401
     preprocess_input_graph,
 )
 from tpugraph_torch.data.shapes import SimpleGraph, build_graph  # noqa: F401
+from tpugraph_torch.data.pipeline import (  # noqa: F401
+    DenseGraphBatch,
+    GraphBatcher,
+    prepare_data,
+)
+from tpugraph_torch.data.readers import LabeledGraph, read_graphfile  # noqa: F401

@@ -11,6 +11,9 @@ the JAX ``lax.scan`` of Adam steps is a Python loop of
 ``torch.optim.Adam`` steps (same defaults and bias correction).
 ``spmm_dtype`` (e.g. ``torch.bfloat16``) is the dtype the kernels read
 the masked tiles at; the mask logits, the loss and Adam stay float32.
+``graph_mode`` explains a graph classifier's prediction of the whole
+graph: the loss reads the softmax of the graph logits and has no
+Laplacian term (``tpugraph/explain/bcsr_explain.py:141, 227-233``).
 """
 
 from __future__ import annotations
@@ -44,11 +47,12 @@ def init_tile_masks(
 ) -> BCSRMaskState:
     """Reference init: mask ~ N(1, sqrt(2) * sqrt(2 / 2n)), feature mask 0
     (``tpugraph/explain/bcsr_explain.py:52``; ``jax.random`` there, so the
-    draws differ — tests hand both sides one init)."""
+    draws differ — tests hand both sides one init).  The draw runs on the
+    generator's device and moves to ``device``."""
     n = max(float(num_sub_nodes), 1.0)
     std = math.sqrt(2.0) * math.sqrt(2.0 / (2.0 * n))
     noise = torch.randn((num_tiles, block, block), generator=generator,
-                        device=device)
+                        device=generator.device).to(device)
     return BCSRMaskState(1.0 + std * noise,
                          torch.zeros((feat_dim,), device=device))
 
@@ -94,9 +98,11 @@ def bcsr_explain_loss(
     pred_label_vec: torch.Tensor,
     num_sub_nodes: int,
     keep: Optional[torch.Tensor] = None,
+    graph_mode: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The 5-term objective in tile space (``:109``): pred + size + lap +
-    ent + feat_size; ``feat_ent`` is computed but not added."""
+    ent + feat_size; ``feat_ent`` is computed but not added, and lap is 0
+    in ``graph_mode``."""
     pred_loss = -torch.log(probs[gt_label] + 1e-12)
 
     support = (base.tiles != 0).to(gate.dtype)
@@ -111,13 +117,16 @@ def bcsr_explain_loss(
     feat_size_loss = cfg.coeff_feat_size * torch.mean(feat_gate)
     feat_ent_loss = cfg.coeff_feat_ent * torch.mean(_binary_ent(feat_gate))
 
-    # entry (i, j) of tile t couples receiver row_of[t]*B+i with
-    # sender col_blk[t]*B+j
-    yb = pred_label_vec.to(torch.float32).reshape(-1, base.block)
-    y_row = yb[base.row_of.long()]
-    y_col = yb[base.col_blk.long()]
-    diff = y_col[:, None, :] - y_row[:, :, None]
-    lap_loss = cfg.coeff_lap * 0.5 * torch.sum(w_tiles * diff * diff) / n2
+    if graph_mode:
+        lap_loss = torch.zeros_like(pred_loss)
+    else:
+        # entry (i, j) of tile t couples receiver row_of[t]*B+i with
+        # sender col_blk[t]*B+j
+        yb = pred_label_vec.to(torch.float32).reshape(-1, base.block)
+        y_row = yb[base.row_of.long()]
+        y_col = yb[base.col_blk.long()]
+        diff = y_col[:, None, :] - y_row[:, :, None]
+        lap_loss = cfg.coeff_lap * 0.5 * torch.sum(w_tiles * diff * diff) / n2
 
     total = pred_loss + size_loss + lap_loss + mask_ent_loss + feat_size_loss
     terms = {"pred": pred_loss, "size": size_loss, "ent": mask_ent_loss,
@@ -140,6 +149,7 @@ def bcsr_mask_loss(
     num_sub_nodes: int,
     node_keep: Optional[torch.Tensor] = None,
     spmm_dtype: Optional[torch.dtype] = None,
+    graph_mode: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One evaluation of the objective: masked tiles, the frozen model's
     forward on them, and :func:`bcsr_explain_loss` (the ``loss_fn`` of
@@ -168,10 +178,10 @@ def bcsr_mask_loss(
         block=tp.block, longest_list=tp.longest_list,
     )
     ypred, _ = model(xx, BCSRAdj(masked, masked_t, tp, spmm_dtype=spmm_dtype))
-    probs = torch.softmax(ypred[node_idx], dim=-1)
+    probs = torch.softmax(ypred if graph_mode else ypred[node_idx], dim=-1)
     total, terms = bcsr_explain_loss(
         probs, w_tiles, gate, base, state, cfg, gt_label, pred_label_vec,
-        num_sub_nodes, keep=keep)
+        num_sub_nodes, keep=keep, graph_mode=graph_mode)
     terms["density"] = bcsr_mask_density(base, w_tiles)
     return total, terms
 
@@ -191,9 +201,10 @@ def run_bcsr_mask_optimization(
     node_keep: Optional[torch.Tensor] = None,
     init_state: Optional[Tuple[np.ndarray, np.ndarray]] = None,
     spmm_dtype: Optional[torch.dtype] = None,
+    graph_mode: bool = False,
 ) -> Tuple[BCSRMaskState, torch.Tensor, Dict[str, np.ndarray]]:
     """``cfg.num_epochs`` Adam steps on the tile-space mask (``:169``);
-    ``spmm_dtype`` as in :func:`bcsr_mask_loss`.
+    ``spmm_dtype`` and ``graph_mode`` as in :func:`bcsr_mask_loss`.
 
     The initial state is ``init_state`` (numpy ``(tile_logits,
     feat_logits)``) when given, else :func:`init_tile_masks` with
@@ -216,7 +227,7 @@ def run_bcsr_mask_optimization(
         opt.zero_grad(set_to_none=True)
         total, terms = bcsr_mask_loss(
             model, base, tp, sym_partner, x, state, cfg, node_idx, gt_label,
-            pred_label_vec, num_sub_nodes, node_keep, spmm_dtype)
+            pred_label_vec, num_sub_nodes, node_keep, spmm_dtype, graph_mode)
         total.backward()
         opt.step()
         for k, v in terms.items():

@@ -9,11 +9,16 @@ a trained model and its cg bundle, on two paths.
   BCSR (plus its transpose plan and symmetry partners) and moved to the
   device; every query then restricts the mask to its k-hop nodes with a
   node mask, so nothing is repacked per query.
+* Graph mode (``graph_mode=True``, a graph classifier over a graph cg
+  bundle): ``explain(graph_mode=True)`` / ``_explain_graph`` and
+  ``explain_graphs`` learn a mask over every edge of each graph on the
+  COO path, all the graphs of a call in one batched forward a step, and
+  ``explain_graph_bcsr`` learns it in tile space on B1/B2.
 
 Results keep the reference's dense ``masked_adj`` contract
 (ascending-neighbor sub-adjacency) and its ``.npy`` file names.
 Single-device only: the ``mesh`` query sharding is not ported, and nor
-are graph mode, the grad/att baselines, alignment and the PR-curve PNG.
+are the grad/att baselines, alignment and the PR-curve PNG.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from tpugraph_torch._device import DeviceLike, default_device
-from tpugraph_torch.core.graph import Graph, graph_from_dense
+from tpugraph_torch.core.graph import Graph, batch_graphs, graph_from_dense
 from tpugraph_torch.core.khop import extract_dense_subgraph, khop_subgraph
 from tpugraph_torch.explain.bcsr_explain import (
     run_bcsr_mask_optimization,
@@ -35,6 +40,7 @@ from tpugraph_torch.explain.bcsr_explain import (
 from tpugraph_torch.explain.groundtruth import explanation_auc
 from tpugraph_torch.explain.module import (
     ExplainConfig,
+    init_masks,
     masked_edge_weights,
     run_mask_optimization,
 )
@@ -56,12 +62,16 @@ class Explainer:
     """Per-checkpoint explanation engine (``tpugraph/explain/explainer.py:51``).
 
     Args:
-      model: a :class:`tpugraph_torch.nn.GcnEncoderNode`; it is moved to
-        ``device``, loaded with ``params`` (a ``state_dict``) when given,
-        and frozen.
+      model: a :class:`tpugraph_torch.nn.GcnEncoderNode` (a
+        :class:`tpugraph_torch.nn.GcnEncoderGraph` in ``graph_mode``); it
+        is moved to ``device``, loaded with ``params`` (a ``state_dict``)
+        when given, and frozen.
       adj/feat/label/pred: the cg bundle — ``adj [B, N, N]``,
-        ``feat [B, N, D]``, ``label [B, N]``, ``pred [B, N, C]``.
+        ``feat [B, N, D]``, ``label [B, N]``, ``pred [B, N, C]``; in
+        ``graph_mode`` ``label [B]`` and ``pred [1, B, C]``.
       n_hops: neighborhood radius (the number of GC layers).
+      graph_mode: explain whole-graph predictions; ``graph_idx`` names
+        the graph in the ``.npy`` files of single explanations.
       dataset: names the motif ground truth of the AUC.
       device: ``None`` = CUDA; raises without it.
     """
@@ -75,6 +85,7 @@ class Explainer:
         label: np.ndarray,
         pred: np.ndarray,
         n_hops: int = 3,
+        graph_mode: bool = False,
         graph_idx: int = 0,
         cfg: ExplainConfig = ExplainConfig(),
         logdir: Optional[str] = None,
@@ -94,6 +105,7 @@ class Explainer:
         self.label = np.asarray(label)
         self.pred = np.asarray(pred)
         self.n_hops = n_hops
+        self.graph_mode = graph_mode
         self.graph_idx = graph_idx
         self.cfg = cfg
         self.logdir = logdir
@@ -229,11 +241,14 @@ class Explainer:
         return results
 
     def explain(self, node_idx: int, graph_idx: int = 0,
-                model: str = "exp") -> np.ndarray:
-        """One node's dense masked sub-adjacency, saved as ``.npy``
-        (``tpugraph/explain/explainer.py:605``).  The grad/att baselines
-        are not ported and raise; graph mode is not ported."""
+                graph_mode: bool = False, model: str = "exp") -> np.ndarray:
+        """One node's dense masked sub-adjacency, or with ``graph_mode``
+        (or an explainer built in graph mode) graph ``graph_idx``'s, saved
+        as ``.npy`` (``tpugraph/explain/explainer.py:605``).  The grad/att
+        baselines are not ported and raise."""
         _check_explainer_model(model)
+        if graph_mode or self.graph_mode:
+            return self._explain_graph(graph_idx, model=model)
         masked_adj = self.explain_nodes_batch([node_idx],
                                               graph_idx)[0]["masked_adj"]
         self._save_npy(masked_adj, node_idx)
@@ -285,8 +300,10 @@ class Explainer:
         x = np.zeros((m.num_nodes, self.feat.shape[-1]), dtype=np.float32)
         x[: self.feat.shape[1]] = self.feat[graph_idx]
         pred_vec = np.zeros((m.num_nodes,), dtype=np.int32)
-        pl = np.argmax(self.pred[graph_idx], axis=-1)
-        pred_vec[: pl.shape[0]] = pl
+        if not self.graph_mode:
+            # the Laplacian term's labels; graph mode has no such term
+            pl = np.argmax(self.pred[graph_idx], axis=-1)
+            pred_vec[: pl.shape[0]] = pl
         dev = self.device
         hit = (g, m, m.to(dev), tp.to(dev), partner.to(dev),
                torch.from_numpy(x).to(dev), torch.from_numpy(pred_vec).to(dev))
@@ -350,3 +367,114 @@ class Explainer:
                   f"({m.num_tiles} tiles of {block}^2) in "
                   f"{time.time() - t0:.2f}s")
         return results
+
+    def explain_graph_bcsr(self, graph_idx: int, block: int = 128,
+                           init_state: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                           ) -> Dict:
+        """Whole-graph explanation in tile space
+        (``tpugraph/explain/explainer.py:511``): the mask covers every edge
+        of graph ``graph_idx`` and the loss reads its graph logits; the
+        frozen classifier runs on B1 forward and backward and the mask
+        gradient on B2.  The init comes from a CPU generator seeded with
+        ``seed`` (so the card explains from the CPU's init), or is
+        ``init_state`` (numpy ``(tile_logits, feat_logits)``).  Returns
+        ``graph_idx``, ``neighbors``, the dense ``masked_adj`` over the
+        graph's nodes, the loss-term ``history`` and ``feat_mask``."""
+        g, m_host, m, tp, partner, x, pred_vec = self._bcsr_pack(graph_idx, block)
+        node_keep = np.zeros((m.num_nodes,), np.float32)
+        node_keep[: g.num_nodes_padded] = g.node_mask.numpy()
+        gt = int(np.asarray(self.label[graph_idx]).flat[0])
+        t0 = time.time()
+        state, w_tiles, hist = run_bcsr_mask_optimization(
+            self.model, m, tp, partner, x, node_idx=0, gt_label=gt,
+            pred_label_vec=pred_vec, num_sub_nodes=g.n_node, cfg=self.cfg,
+            generator=torch.Generator().manual_seed(self.seed),
+            node_keep=torch.from_numpy(node_keep).to(self.device),
+            init_state=init_state, spmm_dtype=self._spmm_dtype, graph_mode=True)
+        w_edges = tiles_to_edge_weights(m_host, w_tiles.cpu().numpy(),
+                                        g.senders.numpy(), g.receivers.numpy())
+        if self.print_training:
+            print(f"bcsr-explained graph {graph_idx} ({m.num_tiles} tiles of "
+                  f"{block}^2) in {time.time() - t0:.2f}s")
+        neighbors = np.nonzero(node_keep)[0]
+        return {
+            "graph_idx": int(graph_idx),
+            "node_idx": int(graph_idx),
+            "node_idx_new": 0,
+            "neighbors": neighbors,
+            "masked_adj": self._densify_mask(g, w_edges, neighbors),
+            "history": hist,
+            "feat_mask": torch.sigmoid(state.feat_logits).cpu().numpy(),
+        }
+
+    def _graph_masks(self, idxs: List[int],
+                     init_state: Optional[Tuple[np.ndarray, np.ndarray]]
+                     ) -> List[np.ndarray]:
+        """The COO graph-mode mask optimization of graphs ``idxs`` at once
+        (``tpugraph/explain/explainer.py:645, 838``): the graphs padded to
+        one edge budget, Q disjoint graphs in one forward a step, each
+        graph's dense ``[N, N]`` mask.  Graph ``i``'s mask init is drawn
+        over its own edge budget from a CPU generator seeded ``seed + i``
+        (the rest of the batch budget is never read), so its result does
+        not depend on the other graphs of the call; ``init_state``
+        (numpy ``(edge_logits [Q, E_pad], feat_logits [Q, D])`` over the
+        batch budget) replaces it."""
+        dev = self.device
+        nnz = [int((self.adj[i] != 0).sum()) for i in idxs]
+        e_pad = max(8, ((max(nnz) + 7) // 8) * 8)
+        graphs = [graph_from_dense(self.adj[i], num_edges_padded=e_pad)
+                  for i in idxs]
+        x = np.stack([self._padded_feat(i, g) for i, g in zip(idxs, graphs)])
+        n_nodes = [g.n_node for g in graphs]
+        if init_state is None:
+            edge = np.ones((len(idxs), e_pad), np.float32)
+            for k, (i, e) in enumerate(zip(idxs, nnz)):
+                own = ((max(e, 1) + 7) // 8) * 8
+                init = init_masks(torch.Generator().manual_seed(self.seed + i),
+                                  own, x.shape[-1], torch.tensor([n_nodes[k]]),
+                                  self.cfg)
+                edge[k, :own] = init.edge_logits[0].numpy()
+            init_state = (edge, np.zeros((len(idxs), x.shape[-1]), np.float32))
+        bg = batch_graphs(graphs).to(dev)
+        state, _ = run_mask_optimization(
+            self.model, bg, torch.from_numpy(x).to(dev), np.zeros(len(idxs)),
+            np.asarray([int(self.label[i]) for i in idxs]), None, None,
+            n_nodes, self.cfg, init_state=init_state,
+            noise_generator=torch.Generator(device=dev).manual_seed(self.seed),
+            graph_mode=True)
+        with torch.no_grad():
+            w = masked_edge_weights(bg, state, self.cfg).cpu().numpy()
+        return [self._densify_mask(g, w[k], np.arange(g.n_node))
+                for k, g in enumerate(graphs)]
+
+    def _explain_graph(self, graph_idx: int, model: str = "exp",
+                       init_state: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                       ) -> np.ndarray:
+        """Graph ``graph_idx``'s dense masked adjacency, saved as ``.npy``
+        (``tpugraph/explain/explainer.py:645``; the ``exp`` model only)."""
+        _check_explainer_model(model)
+        dense = self._graph_masks([int(graph_idx)], init_state)[0]
+        self._save_npy(dense, 0)
+        return dense
+
+    def explain_graphs(self, graph_indices: Sequence[int],
+                       init_state: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                       ) -> List[np.ndarray]:
+        """Several graphs' masks in one batched optimization, each saved as
+        ``.npy`` under its own graph index
+        (``tpugraph/explain/explainer.py:838``); one graph goes through
+        :meth:`_explain_graph`.  With ``cfg.marginalize`` the feature noise
+        is drawn for the whole batch at once."""
+        idxs = [int(gi) for gi in graph_indices]
+        if not idxs:
+            return []
+        if len(idxs) == 1:
+            return [self._explain_graph(idxs[0], init_state=init_state)]
+        t0 = time.time()
+        out = self._graph_masks(idxs, init_state)
+        if self.print_training:
+            print(f"explained {len(idxs)} graphs in {time.time() - t0:.2f}s "
+                  f"({self.cfg.num_epochs} epochs each, batched)")
+        for i, dense in zip(idxs, out):
+            self._save_npy(dense, 0, graph_idx=i)
+        return out

@@ -16,6 +16,13 @@ disjoint copies of the graph (node ids offset by ``q * N_pad``, the
 edge weights ``[Q * E_pad]``, each copy's features under its own
 feature gate).  Adam is elementwise and the copies share no node, so
 each query's step on the summed loss equals its step run alone.
+
+``graph_mode`` explains whole-graph predictions: the loss reads the
+softmax of the graph logits and has no Laplacian term
+(``tpugraph/explain/module.py:175-178, 235-236``), and the Q queries may
+be Q different graphs (a :class:`~tpugraph_torch.core.graph.BatchedGraphs`
+of one edge budget, with features ``[Q, N_pad, D]``), run as Q disjoint
+graphs in one forward of the graph classifier.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from tpugraph_torch.core.graph import Graph
+from tpugraph_torch.core.graph import BatchedGraphs, Graph
 from tpugraph_torch.nn.layers import SparseAdj
 
 
@@ -97,13 +104,24 @@ def _binary_ent(p: torch.Tensor) -> torch.Tensor:
     return -p * torch.log(p + 1e-12) - (1 - p) * torch.log(1 - p + 1e-12)
 
 
+def _at_pairs(values: torch.Tensor, pair: torch.Tensor) -> torch.Tensor:
+    """``values [Q, P]`` at the pair ids of each edge: ``pair [E]`` shared
+    by the queries, or ``pair [Q, E]`` one row a query (batched graphs)."""
+    if pair.dim() == 1:
+        return values[..., pair]
+    return torch.gather(values, -1, pair.long())
+
+
 def _feat_gate(state: MaskState, cfg: ExplainConfig) -> torch.Tensor:
     return (torch.sigmoid(state.feat_logits) if cfg.use_sigmoid
             else state.feat_logits)
 
 
+GraphLike = Union[Graph, BatchedGraphs]
+
+
 def masked_edge_weights(
-    g: Graph,
+    g: GraphLike,
     state: MaskState,
     cfg: ExplainConfig,
     edge_keep: Optional[torch.Tensor] = None,
@@ -111,15 +129,16 @@ def masked_edge_weights(
     """``[Q, E_pad]`` masked weights ``A * act(mask) * (1 - I)``,
     restricted to each query's ``edge_keep [Q, E_pad]``
     (``tpugraph/explain/module.py:93``).  Both directions of an edge read
-    its pair's logit; padding edges stay 0."""
+    its pair's logit; padding edges stay 0.  For batched graphs every
+    array of ``g`` has the query axis in front."""
     pair = torch.clamp(g.edge_pair, max=state.edge_logits.shape[-1] - 1)
-    gate = _act(state.edge_logits, cfg.mask_act)[..., pair]
+    gate = _at_pairs(_act(state.edge_logits, cfg.mask_act), pair)
     if cfg.mask_bias and state.bias_logits is not None:
         # jnp.clip's gradient: half at the bounds, where the bias starts
         b = state.bias_logits
         b6 = torch.minimum(torch.maximum(b * 6.0, b.new_zeros(())),
                            b.new_full((), 6.0))
-        gate = gate + (b6 / 6.0)[..., pair]
+        gate = gate + _at_pairs(b6 / 6.0, pair)
     w = g.edge_weight * gate
     w = torch.where(g.senders == g.receivers, torch.zeros_like(w), w)
     w = w * (g.edge_weight != 0)
@@ -129,7 +148,7 @@ def masked_edge_weights(
 
 
 def mask_density(
-    g: Graph, state: MaskState, cfg: ExplainConfig,
+    g: GraphLike, state: MaskState, cfg: ExplainConfig,
     edge_keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``[Q]`` sum(masked adj) / sum(adj) over each neighborhood
@@ -143,21 +162,24 @@ def mask_density(
 
 def explain_forward(
     model: torch.nn.Module,
-    g: Graph,
+    g: GraphLike,
     x: torch.Tensor,
     state: MaskState,
     cfg: ExplainConfig,
     node_idx: torch.Tensor,
     edge_keep: Optional[torch.Tensor],
     generator: Optional[torch.Generator] = None,
+    graph_mode: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The frozen model on the masked graph of each query; returns the
-    softmax at each query ``[Q, C]`` and the masked weights ``[Q, E_pad]``
-    (``tpugraph/explain/module.py:138``).  ``x [N_pad, D]`` is shared;
-    with ``cfg.marginalize`` and a ``generator`` the masked-out features
-    are replaced by noise ``z ~ N(-x, 1/2)`` drawn afresh on each call."""
+    softmax at each query ``[Q, C]`` (of each graph's logits in
+    ``graph_mode``) and the masked weights ``[Q, E_pad]``
+    (``tpugraph/explain/module.py:138``).  ``x [N_pad, D]`` is shared, or
+    ``x [Q, N_pad, D]`` holds each query's own features; with
+    ``cfg.marginalize`` and a ``generator`` the masked-out features are
+    replaced by noise ``z ~ N(-x, 1/2)`` drawn afresh on each call."""
     w = masked_edge_weights(g, state, cfg, edge_keep)
-    q, (n, d) = w.shape[0], x.shape
+    q, (n, d) = w.shape[0], x.shape[-2:]
     xx = x.expand(q, n, d)
     if cfg.mask_features:
         gate = _feat_gate(state, cfg)[:, None, :]
@@ -170,6 +192,9 @@ def explain_forward(
     off = torch.arange(q, device=x.device)[:, None] * n
     adj = SparseAdj((g.senders + off).reshape(-1),
                     (g.receivers + off).reshape(-1), w.reshape(-1))
+    if graph_mode:
+        ypred, _ = model(xx, adj)  # [Q, C]: a readout of each copy
+        return torch.softmax(ypred, dim=-1), w
     ypred, _ = model(xx.reshape(q * n, d), adj)
     logits = ypred.reshape(q, n, -1)[torch.arange(q, device=x.device),
                                      node_idx]
@@ -179,19 +204,21 @@ def explain_forward(
 def explain_loss(
     probs: torch.Tensor,
     w: torch.Tensor,
-    g: Graph,
+    g: GraphLike,
     state: MaskState,
     cfg: ExplainConfig,
     gt_label: torch.Tensor,
-    pred_label_vec: torch.Tensor,
+    pred_label_vec: Optional[torch.Tensor],
     edge_keep: Optional[torch.Tensor],
     num_sub_nodes: torch.Tensor,
+    graph_mode: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The 5-term objective of each query, ``[Q]`` per term
     (``tpugraph/explain/module.py:176``): pred = -log p[gt]; size and the
     mean entropy of the edge gates over the neighborhood's directed
     edges (entropy over n_sub^2); feat_size; lap = 0.5 * sum_e w_e
-    (y_s - y_r)^2 / n_sub^2 on the predicted labels."""
+    (y_s - y_r)^2 / n_sub^2 on the predicted labels, 0 in
+    ``graph_mode``."""
     pred_loss = -torch.log(probs.gather(-1, gt_label[:, None])[:, 0] + 1e-12)
 
     gate_e = _act(state.edge_logits, cfg.mask_act)
@@ -199,7 +226,7 @@ def explain_loss(
     live = (g.edge_weight != 0).to(torch.float32)
     if edge_keep is not None:
         live = live * edge_keep.to(live.dtype)
-    gate_on_edges = gate_e[..., pair]
+    gate_on_edges = _at_pairs(gate_e, pair)
     size_loss = cfg.coeff_size * torch.sum(gate_on_edges * live, dim=-1)
     n2 = torch.clamp(num_sub_nodes.to(torch.float32) ** 2, min=1.0)
     mask_ent_loss = (cfg.coeff_ent
@@ -210,9 +237,12 @@ def explain_loss(
     feat_ent_loss = cfg.coeff_feat_ent * torch.mean(_binary_ent(feat_gate),
                                                     dim=-1)
 
-    y = pred_label_vec.to(torch.float32)
-    diff = y[g.senders] - y[g.receivers]
-    lap_loss = cfg.coeff_lap * 0.5 * torch.sum(w * diff * diff, dim=-1) / n2
+    if graph_mode:
+        lap_loss = torch.zeros_like(pred_loss)
+    else:
+        y = pred_label_vec.to(torch.float32)
+        diff = y[g.senders] - y[g.receivers]
+        lap_loss = cfg.coeff_lap * 0.5 * torch.sum(w * diff * diff, dim=-1) / n2
 
     total = pred_loss + size_loss + lap_loss + mask_ent_loss + feat_size_loss
     terms = {"pred": pred_loss, "size": size_loss, "ent": mask_ent_loss,
@@ -226,11 +256,11 @@ IntsLike = Union[Sequence[int], np.ndarray, torch.Tensor]
 
 def run_mask_optimization(
     model: torch.nn.Module,
-    g: Graph,
+    g: GraphLike,
     x: torch.Tensor,
     node_idx: IntsLike,
     gt_label: IntsLike,
-    pred_label_vec: torch.Tensor,
+    pred_label_vec: Optional[torch.Tensor],
     edge_keep: Optional[torch.Tensor],
     num_sub_nodes: IntsLike,
     cfg: ExplainConfig,
@@ -238,6 +268,7 @@ def run_mask_optimization(
     generator: Optional[torch.Generator] = None,
     init_state: Optional[Tuple[Optional[np.ndarray], ...]] = None,
     noise_generator: Optional[torch.Generator] = None,
+    graph_mode: bool = False,
 ) -> Tuple[MaskState, Dict[str, np.ndarray]]:
     """``cfg.num_epochs`` Adam(lr) steps on the masks of Q queries at once
     (``tpugraph/explain/module.py:242``, vmapped over the queries there).
@@ -254,7 +285,9 @@ def run_mask_optimization(
     ``generator``), which must be on ``x``'s device.  Returns the final
     state and the per-epoch loss terms ``[Q, T]``, with ``density`` after
     each update and, when ``cfg.log_mask_every > 0``, ``masked_w [Q, T,
-    E_pad]``."""
+    E_pad]``.  ``graph_mode`` (see the module docstring) takes the
+    graph classifier, ``g`` one graph or a :class:`BatchedGraphs` of the
+    Q graphs with ``x [Q, N_pad, D]``, and no ``pred_label_vec``."""
     dev = x.device
     g = g.to(dev)
     node_idx = torch.as_tensor(np.asarray(node_idx), device=dev).long()
@@ -278,9 +311,10 @@ def run_mask_optimization(
     for _ in range(cfg.num_epochs):
         opt.zero_grad(set_to_none=True)
         probs, w = explain_forward(model, g, x, state, cfg, node_idx,
-                                   edge_keep, noise_gen)
+                                   edge_keep, noise_gen, graph_mode)
         total, terms = explain_loss(probs, w, g, state, cfg, gt_label,
-                                    pred_label_vec, edge_keep, num_sub)
+                                    pred_label_vec, edge_keep, num_sub,
+                                    graph_mode)
         total.sum().backward()
         opt.step()
         with torch.no_grad():

@@ -2,8 +2,10 @@
 
 from tpugraph_torch.nn.encoders import (  # noqa: F401
     ConvStack,
+    GcnEncoderGraph,
     GcnEncoderNode,
     PredHead,
+    SoftPoolingGcnEncoder,
     params_from_jax,
 )
 from tpugraph_torch.nn.layers import (  # noqa: F401
@@ -13,4 +15,9 @@ from tpugraph_torch.nn.layers import (  # noqa: F401
     SparseAdj,
     StackedAdj,
 )
-from tpugraph_torch.nn.losses import node_cross_entropy, softmax_cross_entropy  # noqa: F401
+from tpugraph_torch.nn.losses import (  # noqa: F401
+    link_prediction_loss,
+    margin_loss,
+    node_cross_entropy,
+    softmax_cross_entropy,
+)

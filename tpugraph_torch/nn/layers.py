@@ -24,13 +24,18 @@ and on hand-written kernels:
   (``bcsr_matvec_dw``), forward and backward;
 * ``StackedAdj`` (``:401-417``) — training on column-stacked int8/bf16
   tiles, B4;
-* ``PacketAdj`` (``:385-400``) — training on edge packets, B7.
+* ``PacketAdj`` (``:385-400``) — training on edge packets, B7;
+
+and a dense ``[..., N, N]`` tensor (the final branch, ``:609-619``), the
+graph classifier's batched adjacency: ``torch.matmul``, as JAX computes
+it with ``jnp.matmul`` outside any Pallas kernel, with the attention
+scores ``(x W_a)(x W_a)^T`` multiplied in densely.
 
 The kernels take any feature width, so ``D`` is not padded to 128 lanes.
 ``weight`` is ``[in, out]`` as in the JAX package.  Attention on
 ``StackedAdj`` or ``PacketAdj`` raises, as in JAX (their static weights
-carry no score gradient); the dense and halo adjacencies are not ported
-and raise.  Dropout draws its mask from the ``torch.Generator`` passed to
+carry no score gradient); the halo adjacencies are not ported and
+raise.  Dropout draws its mask from the ``torch.Generator`` passed to
 ``forward`` (flax's mask stream cannot be replayed).
 """
 
@@ -46,6 +51,7 @@ from tpugraph_torch.nn.initializers import xavier_relu_uniform
 from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose
 from tpugraph_torch.ops.bcsr_kernels import (bcsr_matvec, bcsr_matvec_dw,
                                              bcsr_matvec_dw_pair, sddmm_dw)
+from tpugraph_torch.ops.dense import dense_spmm
 from tpugraph_torch.ops.message import sddmm, spmm
 from tpugraph_torch.ops.packets import EdgePackets
 from tpugraph_torch.ops.packets_kernels import packets_matvec
@@ -103,7 +109,7 @@ class PacketAdj:
     compute_dtype: Optional[torch.dtype] = None
 
 
-Adjacency = Union[SparseAdj, BCSRAdj, StackedAdj, PacketAdj]
+Adjacency = Union[SparseAdj, BCSRAdj, StackedAdj, PacketAdj, torch.Tensor]
 
 
 def normalize_embedding(y: torch.Tensor) -> torch.Tensor:
@@ -167,7 +173,12 @@ class GraphConv(nn.Module):
         if self.training and self.dropout > 0.001:
             x = apply_dropout(x, self.dropout, dropout_gen)
         adj_att = adj
-        if isinstance(adj, SparseAdj):
+        if isinstance(adj, torch.Tensor):
+            if self.att:
+                x_att = torch.matmul(x, self.att_weight)
+                adj_att = adj * torch.matmul(x_att, x_att.transpose(-1, -2))
+            y = dense_spmm(adj_att, x)
+        elif isinstance(adj, SparseAdj):
             weight = adj.weight
             if self.att:
                 x_att = torch.matmul(x, self.att_weight)

@@ -1,4 +1,6 @@
-"""Port of ``tpugraph/nn/losses.py`` (the cross-entropy losses)."""
+"""Port of ``tpugraph/nn/losses.py``: the cross-entropy losses, the
+graph classifier's ``margin_loss`` and DiffPool's
+``link_prediction_loss``."""
 
 from __future__ import annotations
 
@@ -31,3 +33,35 @@ def node_cross_entropy(
 ) -> torch.Tensor:
     """Per-node CE over ``logits [..., N, C]`` (``tpugraph/nn/losses.py:35``)."""
     return softmax_cross_entropy(logits, labels, class_weight, node_mask)
+
+
+def margin_loss(logits: torch.Tensor, labels: torch.Tensor,
+                num_classes: int) -> torch.Tensor:
+    """Mean over the batch of ``sum_{j != y} max(0, 1 - x_y + x_j)`` over
+    ``num_classes`` (``tpugraph/nn/losses.py:46``, torch's
+    ``MultiLabelMarginLoss`` with one positive class)."""
+    labels = labels.long()
+    x_y = torch.gather(logits, -1, labels[..., None])
+    margins = torch.clamp(1.0 - x_y + logits, min=0.0)
+    onehot = torch.nn.functional.one_hot(labels, num_classes).to(logits.dtype)
+    margins = margins * (1.0 - onehot)
+    return torch.mean(torch.sum(margins, dim=-1) / num_classes)
+
+
+def link_prediction_loss(assign_tensor: torch.Tensor, adj: torch.Tensor,
+                         node_mask: Optional[torch.Tensor] = None,
+                         eps: float = 1e-7) -> torch.Tensor:
+    """DiffPool's auxiliary loss (``tpugraph/nn/losses.py:58``): binary
+    cross-entropy between ``min(S S^T, 1)`` and the adjacency, averaged over
+    the real-node pairs of ``node_mask`` (every entry without one)."""
+    pred_adj = torch.clamp(
+        torch.matmul(assign_tensor, assign_tensor.transpose(-1, -2)), max=1.0)
+    bce = (-adj * torch.log(pred_adj + eps)
+           - (1 - adj) * torch.log(1 - pred_adj + eps))
+    if node_mask is not None:
+        pair_mask = node_mask[..., :, None] * node_mask[..., None, :]
+        bce = bce * pair_mask
+        num = torch.sum(pair_mask)
+    else:
+        num = torch.tensor(float(bce.numel()), device=bce.device)
+    return torch.sum(bce) / torch.clamp(num, min=1.0)

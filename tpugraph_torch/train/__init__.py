@@ -11,5 +11,6 @@ from tpugraph_torch.train.loop import (  # noqa: F401
     TrainConfig,
     resolve_bcsr_format,
     split_nodes,
+    train_graph_classifier,
     train_node_classifier,
 )

@@ -1,5 +1,7 @@
 """Port of ``tpugraph/train/loop.py``: full-batch node classification on
-the COO edge list and on the static-weight aggregation formats.
+the COO edge list and on the static-weight aggregation formats, and
+minibatch graph classification on dense batched adjacencies
+(:func:`train_graph_classifier`).
 
 The JAX loop fuses epochs into one ``lax.scan`` per device call; here it
 is an eager Python loop, one optimizer step per epoch, with the same node
@@ -50,13 +52,14 @@ from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.core.graph import Graph
 from tpugraph_torch.nn.layers import (Adjacency, BCSRAdj, PacketAdj,
                                       SparseAdj, StackedAdj)
-from tpugraph_torch.nn.losses import node_cross_entropy
+from tpugraph_torch.nn.losses import (link_prediction_loss, node_cross_entropy,
+                                      softmax_cross_entropy)
 from tpugraph_torch.ops.bcsr import (bcsr_from_coo, bcsr_transpose_host,
                                      bcsr_transpose_plan, choose_k_pack_counts,
                                      coo_tile_counts)
 from tpugraph_torch.ops.packets import pack_edges, pack_edges_transpose
 from tpugraph_torch.ops.resident_kernels import stack_bcsr
-from tpugraph_torch.train.metrics import eval_node
+from tpugraph_torch.train.metrics import eval_graph_preds, eval_node
 from tpugraph_torch.train.optim import OptimizerConfig, build_optimizer
 
 
@@ -74,6 +77,9 @@ class TrainConfig:
     device, f32 on the CPU, the JAX package's accelerator/interpret
     default).
 
+    ``batch_size`` and ``eval_every`` are read by the graph classifier
+    only.
+
     ``bcsr_block`` is the BCSR tile size (128 or 256 in use, as in
     ``tpugraph``).  On the CPU any size runs.  On the card the tile
     kernels B1/B3 need ``bcsr_block % 64 == 0``, and the resident format
@@ -85,6 +91,8 @@ class TrainConfig:
     clip: float = 2.0
     weight_decay: float = 0.005
     train_ratio: float = 0.8
+    batch_size: int = 20
+    eval_every: int = 25  # graph classification: epochs between evaluations
     opt: str = "adam"
     opt_scheduler: str = "none"
     use_bcsr: bool = False
@@ -376,3 +384,152 @@ def train_node_classifier(
         "pack_s": pack_s,
         "adj": sp,
     }
+
+
+def train_graph_classifier(
+    model: torch.nn.Module,
+    train_batcher,
+    cfg: TrainConfig,
+    val_batcher=None,
+    test_batcher=None,
+    linkpred: bool = False,
+    seed: int = 0,
+    log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    max_eval_examples: Optional[int] = 100,
+    mesh=None,
+    init_params: Optional[Dict[str, torch.Tensor]] = None,
+    device: DeviceLike = None,
+) -> Dict[str, Any]:
+    """Minibatch graph classification (``tpugraph/train/loop.py:699``):
+    Adam at lr 0.001 with ``cfg.clip`` and no weight decay (the
+    reference's fixed choice for this task), batches of
+    ``cfg.batch_size`` graphs in the order of ``np.random.default_rng(seed)``,
+    and every ``cfg.eval_every`` epochs (and after the last) the accuracy
+    on the first ``max_eval_examples`` training graphs and on all of the
+    validation and test graphs, with best-validation tracking.
+
+    ``model`` is a :class:`~tpugraph_torch.nn.GcnEncoderGraph` or a
+    :class:`~tpugraph_torch.nn.SoftPoolingGcnEncoder` (which also gets
+    each batch's ``assign_feats``); it moves to ``device`` (``None`` =
+    CUDA) and trains in place from ``init_params`` (a ``state_dict``)
+    when given.  ``linkpred`` adds ``link_prediction_loss`` of the first
+    assignment tensor.  ``log_fn(epoch, scalars)`` sees each evaluation.
+    A model with ``dropout`` draws its masks from a generator on
+    ``device`` seeded with ``seed + 1``.  Returns the ``state_dict``, the
+    history (``loss`` every epoch; the accuracies at each evaluation),
+    ``best_val``, ``test_result``, the cg bundle of the last epoch (its
+    first 20 batches and the logits of its first 5) and the seconds of
+    the epoch loop.  ``mesh`` (data parallelism) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel graph training is not "
+                                  "ported yet (ROADMAP section 1 item 11)")
+    device = default_device(device)
+    rng = np.random.default_rng(seed)
+    uses_assign = linkpred or getattr(model, "assign_hidden_dim", None) is not None
+    model.to(device)
+    if init_params is not None:
+        model.load_state_dict(init_params)
+    opt = build_optimizer(model.parameters(), OptimizerConfig(
+        opt="adam", lr=0.001, clip=cfg.clip, weight_decay=0.0))
+    drop_gen = None
+    if getattr(model, "dropout", 0.0) > 0.001:
+        drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def tensors(batch):
+        dev = lambda a: torch.from_numpy(a).to(device)
+        return (dev(batch.adj), dev(batch.feats), dev(batch.node_mask),
+                dev(batch.assign_feats) if uses_assign else None)
+
+    def forward(adj, x, mask, assign, gen=None):
+        kwargs = {"node_mask": mask, "dropout_gen": gen}
+        if uses_assign:
+            kwargs["assign_x"] = assign
+        return model(x, adj, **kwargs)
+
+    def evaluate(batcher, max_examples=None) -> Dict:
+        model.eval()
+        preds, labs, seen = [], [], 0
+        with torch.no_grad():
+            for batch in batcher.batches(cfg.batch_size, shuffle=False,
+                                         pad_final=True):
+                logits, _ = forward(*tensors(batch))
+                preds.append(torch.argmax(logits, dim=-1))
+                labs.append(batch.label)
+                seen += len(batch.label)
+                if max_examples is not None and seen >= max_examples:
+                    break
+        model.train()
+        return eval_graph_preds(torch.cat(preds).cpu().numpy(),
+                                np.concatenate(labs))
+
+    history: Dict[str, List[float]] = {"loss": [], "train_acc": [],
+                                       "val_acc": [], "test_acc": []}
+    best_val = {"epoch": 0, "acc": 0.0, "loss": 0.0}
+    test_result = {"epoch": 0, "acc": 0.0}
+    cg_batches, cg_preds = [], []
+    model.train()
+    begin = time.time()
+    for epoch in range(cfg.num_epochs):
+        losses = []
+        last = epoch == cfg.num_epochs - 1
+        for bi, batch in enumerate(train_batcher.batches(cfg.batch_size,
+                                                         shuffle=True, rng=rng)):
+            adj, x, mask, assign = tensors(batch)
+            logits, aux = forward(adj, x, mask, assign, drop_gen)
+            loss = softmax_cross_entropy(
+                logits, torch.from_numpy(batch.label).to(device))
+            if linkpred and isinstance(aux, (list, tuple)) and len(aux) > 0:
+                loss = loss + link_prediction_loss(aux[0], adj, mask)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+            if last:
+                # the cg bundle: the first 20 batches and the logits of the
+                # first 5 (tpugraph/train/loop.py:819-824)
+                if bi < 20:
+                    cg_batches.append(batch)
+                if bi < 5:
+                    cg_preds.append(logits.detach().cpu().numpy())
+        # a Python sum of the float32 losses, in batch order, as tpugraph's
+        avg_loss = 0.0
+        for v in (torch.stack(losses).tolist() if losses else []):
+            avg_loss += v
+        avg_loss /= max(len(losses), 1)
+        history["loss"].append(avg_loss)
+
+        if epoch % cfg.eval_every == 0 or last:
+            tr = evaluate(train_batcher, max_eval_examples)
+            history["train_acc"].append(tr["acc"])
+            scalars = {"loss": avg_loss, "train_acc": tr["acc"]}
+            if val_batcher is not None and len(val_batcher) > 0:
+                vr = evaluate(val_batcher)
+                history["val_acc"].append(vr["acc"])
+                scalars["val_acc"] = vr["acc"]
+                if vr["acc"] > best_val["acc"] - 1e-7:
+                    best_val = {"epoch": epoch, "acc": vr["acc"],
+                                "loss": avg_loss}
+            if test_batcher is not None and len(test_batcher) > 0:
+                te = evaluate(test_batcher)
+                history["test_acc"].append(te["acc"])
+                test_result = {"epoch": epoch, "acc": te["acc"]}
+                scalars["test_acc"] = te["acc"]
+            if log_fn is not None:
+                log_fn(epoch, scalars)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.time() - begin
+
+    cg_dict = None
+    if cg_batches:
+        cg_dict = {
+            "adj": np.concatenate([b.adj for b in cg_batches], axis=0),
+            "feat": np.concatenate([b.feats for b in cg_batches], axis=0),
+            "label": np.concatenate([b.label for b in cg_batches], axis=0),
+            "num_nodes": np.concatenate([b.num_nodes for b in cg_batches], axis=0),
+            "pred": np.concatenate(cg_preds, axis=0)[None],
+            "train_idx": np.arange(len(train_batcher)),
+        }
+    return {"params": model.state_dict(), "history": history,
+            "best_val": best_val, "test_result": test_result, "cg": cg_dict,
+            "elapsed": elapsed}

@@ -1,4 +1,5 @@
-"""Port of ``tpugraph/train/metrics.py`` (``eval_node``; numpy already)."""
+"""Port of ``tpugraph/train/metrics.py`` (``eval_node`` and
+``eval_graph_preds``; numpy already)."""
 
 from __future__ import annotations
 
@@ -41,3 +42,17 @@ def eval_node(
                 "conf_mat": conf}
 
     return split_result(train_idx), split_result(test_idx)
+
+
+def eval_graph_preds(preds: np.ndarray, labels: np.ndarray,
+                     num_classes: int = 0) -> Dict:
+    """Accuracy, macro precision/recall and confusion matrix of predicted
+    graph labels (``tpugraph/train/metrics.py:57``); ``num_classes``
+    defaults to the largest label or prediction plus one."""
+    preds = np.asarray(preds)
+    labels = np.asarray(labels)
+    if num_classes == 0:
+        num_classes = int(max(preds.max(), labels.max())) + 1
+    conf, prec, rec = _prf(labels, preds, num_classes)
+    return {"prec": prec, "recall": rec,
+            "acc": float((preds == labels).mean()), "conf_mat": conf}
