@@ -109,7 +109,28 @@ nvcc per source, sm_90a, all started together), then:
    counted under ``graph_explain_bcsr``), and B1/B2 held to their plain
    versions at that path's shapes (one 128^2 tile, D = the feature width
    and 20);
-9. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
+9. opt — syn1 (seed 0, published widths, 1000 epochs) through
+   ``cli.train`` with ``--opt sgd``, ``--opt rmsprop``, ``--opt adagrad
+   --opt-scheduler step``, ``--opt-scheduler cos`` (Adam) and ``--opt sgd
+   --bcsr`` (auto: B4's stacks, launches under ``cli_opt_sgd_bcsr_train``):
+   epochs/s, test acc and the last loss of each, and each row's first 20
+   epochs held within 1e-4 of the port's CPU run of the same flags
+   (deterministic mode); then ``--resume`` on COO and on ``--bcsr``: 500
+   epochs of Adam with a step decay every 250, 500 more resumed, held
+   within 1e-6 of 1000 straight (deterministic mode), the update count
+   1000 in ``opt_state.pt``;
+10. baselines — ``cli.explain --explainer-model grad`` (the stats over
+   nodes 400:700:5) on the coo phase's syn1 checkpoint and
+   ``--explainer-model att`` on the syn phase's ``--method att`` one, each
+   mask within 1e-5 of the port's CPU masks from the same checkpoint (the
+   AUC, the CPU's AUC and the seconds printed); ``--explain-node 305
+   --explainer-model grad``; ``--multinode-class 0`` (``aligned`` and
+   ``aligned_adj.npy``), with ``align_explanations`` on the card and on
+   the CPU from that run's own inputs (P within 1e-4 after 10 steps; after
+   1000 float32 rounding has grown, printed); the grad baseline of
+   SYNBENCH graph 1 in graph mode, card against CPU within 1e-5.  The
+   baselines run the model's dense path and launch no kernel;
+11. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
    dependent launches of ``probe_tiny`` (grid 1 and 2) and
    ``probe_resident`` (n = 4,096, 16,384, 65,536), a fit of the time a
    launch against the bytes it writes, and the host cost of one wrapper
@@ -133,6 +154,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1285,10 +1307,11 @@ def measure_cli_stacked(shape, argv, seed):
     return recs
 
 
-def phase_coo(banded_tile_sps):
+def phase_coo(banded_tile_sps, keep):
     """The COO main path through the CLI on syn1 (the default, ``--bcsr``
     and ``--bcsr --bcsr-format packets``), then ``bench_explain.py:138-156``'s
-    COO yardstick on the banded graph beside the tile-space rate."""
+    COO yardstick on the banded graph beside the tile-space rate.  The COO
+    checkpoint is copied to ``keep/coo`` for the baselines phase."""
     import numpy as np
     import torch
 
@@ -1386,6 +1409,9 @@ def phase_coo(banded_tile_sps):
                   f"call; explain_nodes_batch best of 3 {min(times):.3f} s = "
                   f"{sps:.1f} mask-opt steps/s [{CARD}]", flush=True)
             del ex
+            if arm == "coo":
+                shutil.copytree(os.path.join(tmp, arm, "ckpt"),
+                                os.path.join(keep, "coo"))
 
     # bench_explain.py:138-156: one query, every edge, 4 epochs on the banded
     # graph of phase 3, num_pairs = E_pad
@@ -1512,40 +1538,66 @@ SYN_ROWS = (
     ("bn", ["--bn"], None, "coo"),
 )
 # each row's test acc and stats-explain AUC in the port's own CPU run at
-# seed 0, written by ``syn_cpu_figures.py --write``
+# seed 0 on one thread, written by ``syn_cpu_figures.py --write``
 SYN_CPU_FILE = "syn_cpu_figures.json"
 SYN_TOL = 0.02  # |card - CPU| of test acc and of AUC
 SYN_AUC_FLOOR = 0.9  # syn1 and syn2 rows (the repo's own limit, tests/test_explain.py)
+SYN_TRAJ_EPOCHS, SYN_TRAJ_TOL = 20, 1e-4  # card vs CPU: the first epochs' losses
 
 
-def deterministic_row(argv):
+def deterministic_row(argv, traj):
     """``cli.train argv`` and then its stats ``cli.explain`` under
     ``torch.use_deterministic_algorithms``: index_add_ on the card then sums
     each row in edge order (a sort), not by atomics, so test acc and AUC
-    repeat from run to run and can be held to the CPU's (with atomics syn5's
-    AUC spread 0.45-0.54 over four runs of one tree).  Returns (acc, AUC)."""
-    import torch
-
+    repeat from run to run (with atomics syn5's AUC spread 0.45-0.54 over
+    four runs of one tree).  The same stats explain then runs on the CPU
+    from the checkpoint the card wrote: 1000 epochs of training turn a
+    difference in the last bit into other weights (syn5's differ by 0.2
+    between CPU runs on 1 and 2 threads), and near chance the AUC moves
+    with them, so the card's explanation is held to the CPU's of the same
+    model.  With ``traj`` (rows that train in the same format on both),
+    the first SYN_TRAJ_EPOCHS epochs also run on the card (deterministically)
+    and on the CPU.  Returns (acc, AUC, the CPU's AUC, the largest
+    difference of the short runs' losses or None)."""
     from tpugraph_torch.cli import explain as cli_explain
     from tpugraph_torch.cli import train as cli_train
+
+    with deterministic_mode():
+        train, _, _ = run_cli(cli_train.main, argv)
+        explain, _, _ = run_cli(cli_explain.main, argv)
+    cpu, _, _ = run_cli(cli_explain.main, argv + ["--platform", "cpu"])
+    err = None
+    if traj:
+        short = argv + ["--ckptdir", argv[argv.index("--ckptdir") + 1] + "_short",
+                        "--epochs", str(SYN_TRAJ_EPOCHS)]
+        with deterministic_mode():
+            card = task_run(short)
+        err = max_diff(card["history"]["loss"],
+                       task_run(short + ["--platform", "cpu"])["history"]["loss"])
+    return train["result_test"]["acc"], explain["auc"], cpu["auc"], err
+
+
+@contextlib.contextmanager
+def deterministic_mode():
+    """``torch.use_deterministic_algorithms`` for the block, restored after."""
+    import torch
 
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        train, _, _ = run_cli(cli_train.main, argv)
-        explain, _, _ = run_cli(cli_explain.main, argv)
+        yield
     finally:
         torch.use_deterministic_algorithms(was)
-    return train["result_test"]["acc"], explain["auc"]
 
 
-def phase_syn(gen):
+def phase_syn(gen, keep):
     """syn2-syn5 through the CLI (train, then the 60-node stats explain), on
     COO and for syn3 with ``--bcsr`` and a tile-space ``--explain-node``;
     syn1 with ``--method att`` on COO and ``--bcsr`` (launches under
     ``cli_att_bcsr``) and with ``--bn``.  Each row runs and is timed in the
     default mode, then runs again deterministically for the guard against
-    the CPU.  Then B1 and B2 at the shapes the attention path gives them."""
+    the CPU.  Then B1 and B2 at the shapes the attention path gives them.
+    The ``att`` row's checkpoint is copied to ``keep/att``."""
     import dataclasses
     import re
 
@@ -1631,22 +1683,34 @@ def phase_syn(gen):
             figures[f"{key}_explain_steps_per_s"] = sps
             figures[f"{key}_auc"] = auc
             # the guard: the same row again, deterministically
-            det_acc, det_auc = deterministic_row(
+            det_acc, det_auc, cpu_auc, traj = deterministic_row(
                 ["--ckptdir", os.path.join(tmp, key, "det"),
-                 "--logdir", os.path.join(tmp, key, "det_log")] + flags)
+                 "--logdir", os.path.join(tmp, key, "det_log")] + flags,
+                traj=want == "coo")
+            traj_text = ("" if traj is None else
+                         f"; first {SYN_TRAJ_EPOCHS} epochs, card vs CPU loss max "
+                         f"|diff| {traj:.3g} (tol {SYN_TRAJ_TOL})")
             print(f"  {key:9s} deterministic re-run: test acc {det_acc:.4f} (CPU "
-                  f"{ref_acc:.4f}), AUC {det_auc:.4f} (CPU {ref_auc:.4f}); guard "
-                  f"+-{SYN_TOL}{f', AUC > {floor}' if floor else ''}", flush=True)
+                  f"{ref_acc:.4f}), AUC {det_auc:.4f} (CPU from this checkpoint "
+                  f"{cpu_auc:.4f}, from its own {ref_auc:.4f}); guard "
+                  f"+-{SYN_TOL}{f', AUC > {floor}' if floor else ''}{traj_text}",
+                  flush=True)
             check(abs(det_acc - ref_acc) <= SYN_TOL,
                   f"{key}: test acc {det_acc} is not within {SYN_TOL} of the "
                   f"CPU's {ref_acc}")
-            check(abs(det_auc - ref_auc) <= SYN_TOL,
+            check(abs(det_auc - cpu_auc) <= SYN_TOL,
                   f"{key}: AUC {det_auc} is not within {SYN_TOL} of the CPU's "
-                  f"{ref_auc}")
+                  f"{cpu_auc} from the same checkpoint")
+            check(traj is None or traj <= SYN_TRAJ_TOL,
+                  f"{key}: card and CPU losses differ by {traj}")
             if floor:
                 check(det_auc > floor, f"{key}: deterministic AUC {det_auc} <= {floor}")
             figures[f"{key}_det_test_acc"] = det_acc
             figures[f"{key}_det_auc"] = det_auc
+            figures[f"{key}_det_cpu_auc"] = cpu_auc
+            if key == "att":
+                shutil.copytree(os.path.join(tmp, key, "ckpt"),
+                                os.path.join(keep, "att"))
 
     # B1 and B2 at the shapes the attention path gives them: syn1's tiles
     # scaled by their scores (x_att of D = 10, then 20), B1 on them and on
@@ -1703,7 +1767,6 @@ def graph_reduced_copy(tmp):
     rounding noise, and Adam's first steps turn noise into lr-sized steps
     (5.5e-4 apart within 5 epochs on an H100 80GB HBM3 at 700 W)."""
     import numpy as np
-    import torch
 
     from tpugraph_torch.cli.config import parse_train_args
     from tpugraph_torch.cli.tasks import benchmark_task
@@ -1723,16 +1786,10 @@ def graph_reduced_copy(tmp):
         with contextlib.redirect_stdout(io.StringIO()):
             cpu = benchmark_task(parse_train_args(argv + ["--platform", "cpu"]),
                                  feat=feat)
-            was = torch.are_deterministic_algorithms_enabled()
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
+            with deterministic_mode():
                 card = benchmark_task(parse_train_args(argv), feat=feat)
-            finally:
-                torch.use_deterministic_algorithms(was)
-        err = float(np.max(np.abs(np.subtract(card["history"]["loss"],
-                                              cpu["history"]["loss"]))))
-        acc_err = max(float(np.max(np.abs(np.subtract(card["history"][k],
-                                                      cpu["history"][k]))))
+        err = max_diff(card["history"]["loss"], cpu["history"]["loss"])
+        acc_err = max(max_diff(card["history"][k], cpu["history"][k])
                       for k in ("train_acc", "val_acc", "test_acc"))
         held = feat == "node-feat"
         print(f"  reduced copy {method}, {feat}: {GRAPH_REDUCED} graphs x "
@@ -1750,14 +1807,15 @@ def graph_reduced_copy(tmp):
     return out
 
 
-def phase_graph(gen):
+def phase_graph(gen, keep):
     """Graph classification and its explanation through the CLI on
     SYNBENCH: ``cli.train --bmname`` for base, att and soft-assign
     --linkpred (graphs/s; base's test acc >= 0.9, DiffPool's loss finite
     and its train acc > 0.5), the reduced copy against the CPU, the three
     graph-mode ``cli.explain`` calls on the base checkpoint (COO), then
     ``explain_graph_bcsr`` on four graphs at block 128 with B1 and B2 held
-    to their plain versions at the shapes that path gives them."""
+    to their plain versions at the shapes that path gives them.  The base
+    checkpoint is copied to ``keep/graph``."""
     import dataclasses
 
     import numpy as np
@@ -1803,6 +1861,7 @@ def phase_graph(gen):
                 check(math.isfinite(last["loss"]) and last["train_acc"] > 0.5,
                       f"DiffPool: loss {last['loss']}, train acc {last['train_acc']}")
         figures["reduced"] = graph_reduced_copy(tmp)
+        shutil.copytree(os.path.join(tmp, "ckpt"), os.path.join(keep, "graph"))
 
         logdir = os.path.join(tmp, "log", "SYNBENCH_base_h20_o20_explain")
         for flags in GRAPH_EXPLAIN:
@@ -1862,6 +1921,235 @@ def phase_graph(gen):
         del ex, m, tp, eff, eff_t
     torch.cuda.empty_cache()
     return {"launches": launches, "figures": figures, "shapes": shapes}
+
+
+# The opt phase: syn1 through cli.train with each optimizer chain, (key,
+# flags) a row; sgd_bcsr trains on --bcsr, which auto sends to B4 on the card
+OPT_ROWS = (("sgd", ["--opt", "sgd"]), ("rmsprop", ["--opt", "rmsprop"]),
+            ("adagrad_step", ["--opt", "adagrad", "--opt-scheduler", "step"]),
+            ("adam_cos", ["--opt-scheduler", "cos"]),
+            ("sgd_bcsr", ["--opt", "sgd", "--bcsr"]))
+OPT_TRAJ_EPOCHS, OPT_TRAJ_TOL = 20, 1e-4  # card vs CPU: the first epochs' losses
+RESUME_FLAGS = ["--opt-scheduler", "step", "--opt-decay-step", "250"]
+RESUME_SPLIT, RESUME_TOL = 500, 1e-6  # 500 + 500 resumed against 1000 straight
+
+
+def task_run(argv):
+    """``cli/tasks.py``'s ``run_task`` on ``argv`` (what ``cli.train.main``
+    runs), its printing kept out of the smoke's; returns its output,
+    per-epoch history included."""
+    from tpugraph_torch.cli.config import parse_train_args
+    from tpugraph_torch.cli.tasks import run_task
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run_task(parse_train_args(argv))
+
+
+def max_diff(a, b):
+    import numpy as np
+
+    return float(np.max(np.abs(np.subtract(a, b))))
+
+
+def phase_opt(keep):
+    """syn1 through ``cli.train`` with each optimizer chain of OPT_ROWS
+    (1000 epochs each; epochs/s, test acc, the last loss), each row's first
+    20 epochs held to the port's CPU run of the same flags
+    (deterministically); then ``--resume`` on COO and on ``--bcsr``: 500
+    epochs of Adam with a step decay every 250, 500 more resumed, held to
+    1000 straight within RESUME_TOL.  Checkpoints go under ``keep/opt``."""
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.cli import train as cli_train
+
+    launches, figures = {}, {}
+    tmp = os.path.join(keep, "opt")
+    for key, flags in OPT_ROWS:
+        dirs = ["--ckptdir", os.path.join(tmp, key, "ckpt"),
+                "--logdir", os.path.join(tmp, key, "log")]
+        ops.reset_launch_counts()
+        summary, wall, text = run_cli(cli_train.main, dirs + flags)
+        path = f"cli_opt_{key}_train"
+        launches[path] = ops.launch_counts()
+        fmt = format_ran(launches[path])
+        acc = summary["result_test"]["acc"]
+        eps = EPOCHS / summary["elapsed_s"]
+        last = last_epoch_scalars(text)["loss"]
+        print(f"  {key:12s} cli.train {' '.join(flags)}: ran {fmt}; test acc "
+              f"{acc:.4f}; last loss {last:.4f}; {eps:.1f} epochs/s over {EPOCHS} "
+              f"epochs ({wall:.2f} s the call); launches "
+              f"{ {k: v for k, v in launches[path].items() if v} } [{CARD}]",
+              flush=True)
+        want = "resident" if "--bcsr" in flags else "coo"
+        check(fmt == want, f"opt {key}: trained in {fmt}, not {want}")
+        check(math.isfinite(last), f"opt {key}: last loss {last}")
+        short = ["--ckptdir", os.path.join(tmp, key, "short"),
+                 "--epochs", str(OPT_TRAJ_EPOCHS)] + flags
+        with deterministic_mode():
+            card = task_run(short)
+        cpu = task_run(short + ["--platform", "cpu"])
+        err = max_diff(card["history"]["loss"], cpu["history"]["loss"])
+        print(f"  {key:12s} first {OPT_TRAJ_EPOCHS} epochs, card vs CPU loss max "
+              f"|diff| {err:.3g} (tol {OPT_TRAJ_TOL})", flush=True)
+        check(err <= OPT_TRAJ_TOL,
+              f"opt {key}: card and CPU losses differ by {err}")
+        figures[key] = {"epochs_per_s": eps, "test_acc": acc, "last_loss": last,
+                        "traj_err": err}
+
+    for arm, extra in (("coo", []), ("bcsr", ["--bcsr"])):
+        res = ["--ckptdir", os.path.join(tmp, f"resume_{arm}")] + RESUME_FLAGS + extra
+        straight = ["--ckptdir", os.path.join(tmp, f"straight_{arm}"),
+                    "--epochs", str(2 * RESUME_SPLIT)] + RESUME_FLAGS + extra
+        ops.reset_launch_counts()
+        with deterministic_mode():
+            first = task_run(res + ["--epochs", str(RESUME_SPLIT)])
+            resumed = task_run(res + ["--epochs", str(RESUME_SPLIT), "--resume"])
+        launches[f"cli_resume_{arm}"] = ops.launch_counts()
+        with deterministic_mode():
+            whole = task_run(straight)
+        err = max_diff(resumed["history"]["loss"],
+                       whole["history"]["loss"][RESUME_SPLIT:])
+        count = torch.load(os.path.join(resumed["ckpt_path"], "opt_state.pt"),
+                           weights_only=True)["count"]
+        fmt = format_ran(launches[f"cli_resume_{arm}"])
+        print(f"  --resume {arm}: {RESUME_SPLIT} + {RESUME_SPLIT} resumed epochs "
+              f"({fmt}) vs {2 * RESUME_SPLIT} straight: loss max |diff| {err:.3g} "
+              f"(tol {RESUME_TOL}); update count {count}; loss "
+              f"{first['history']['loss'][0]:.5f} -> "
+              f"{resumed['history']['loss'][-1]:.5f} [{CARD}]", flush=True)
+        check(err <= RESUME_TOL, f"--resume {arm}: losses differ by {err}")
+        check(count == 2 * RESUME_SPLIT, f"--resume {arm}: update count {count}")
+        check(fmt == ("resident" if extra else "coo"),
+              f"--resume {arm} trained in {fmt}")
+        figures[f"resume_{arm}"] = err
+    return {"launches": launches, "figures": figures}
+
+
+BASELINE_NODES = list(range(400, 700, 5))  # the stats explain's
+BASELINE_TOL = 1e-5   # |card - CPU| of every baseline mask entry
+ALIGN_TOL, ALIGN_STEPS = 1e-4, 10  # |card - CPU| of P, in the conditioned steps
+
+
+def phase_baselines(keep):
+    """The grad and att baselines through ``cli.explain --explainer-model``
+    (the stats over nodes 400:700:5) on the coo phase's syn1 checkpoint and
+    the syn phase's ``--method att`` one, each mask held to the port's CPU
+    masks from the same checkpoint; ``--explain-node 305 --explainer-model
+    grad``; ``--multinode-class 0`` (aligned, ``aligned_adj.npy``) with the
+    alignment on the card and on the CPU from its own inputs; and the grad
+    baseline of SYNBENCH graph 1 in graph mode, card against CPU.  None
+    launches a hand-written kernel: the baselines run the model's dense
+    path."""
+    import numpy as np
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.cli import explain as cli_explain
+    from tpugraph_torch.cli.config import parse_explain_args
+    from tpugraph_torch.data.pipeline import to_numpy_array
+    from tpugraph_torch.explain.align import align_explanations
+    from tpugraph_torch.viz import denoise_graph
+
+    launches, figures = {}, {}
+    log = os.path.join(keep, "baselines_log")
+    rows = (("grad", ["--ckptdir", os.path.join(keep, "coo")]),
+            ("att", ["--method", "att", "--ckptdir", os.path.join(keep, "att")]))
+    for model, dirs in rows:
+        argv = dirs + ["--logdir", log, "--explainer-model", model]
+        ops.reset_launch_counts()
+        summary, wall, _ = run_cli(cli_explain.main, argv)
+        launches[f"cli_{model}_stats"] = ops.launch_counts()
+        check(sum(launches[f"cli_{model}_stats"].values()) == 0,
+              f"the {model} baseline launched a kernel")
+        check(summary["num_nodes_explained"] == EXPLAIN_STATS_NODES,
+              f"{model}: the stats explain did not explain 60 nodes")
+        out = {}
+        for dev, plat in (("card", []), ("cpu", ["--platform", "cpu"])):
+            ex = cli_explain.build_explainer(parse_explain_args(argv + plat))
+            ex.logdir = None
+            t0 = time.perf_counter()
+            out[dev] = ex.explain_nodes_gnn_stats(BASELINE_NODES, model=model)
+            out[dev]["s"] = time.perf_counter() - t0
+        err = max(max_diff(a, b) for a, b in zip(out["card"]["masked_adjs"],
+                                                 out["cpu"]["masked_adjs"]))
+        print(f"  cli.explain --explainer-model {model}: AUC {summary['auc']:.4f} "
+              f"(CPU {out['cpu']['auc']:.4f}) over {EXPLAIN_STATS_NODES} nodes; "
+              f"{wall:.3f} s the call, the batched baseline {out['card']['s']:.3f} "
+              f"s (CPU {out['cpu']['s']:.3f} s); card vs CPU mask max |diff| "
+              f"{err:.3g} (tol {BASELINE_TOL}) [{CARD}]", flush=True)
+        check(err <= BASELINE_TOL, f"{model} baseline: card and CPU masks differ "
+              f"by {err}")
+        check(summary["auc"] is not None, f"{model} baseline: no AUC")
+        figures[model] = {"auc": summary["auc"], "cpu_auc": out["cpu"]["auc"],
+                          "call_s": wall, "batch_s": out["card"]["s"],
+                          "mask_err": err}
+
+    grad = rows[0][1] + ["--logdir", log]
+    summary, wall, _ = run_cli(cli_explain.main, grad + [
+        "--explain-node", "305", "--explainer-model", "grad"])
+    shape = summary["mask_shape"]
+    print(f"  cli.explain --explain-node 305 --explainer-model grad: mask {shape}; "
+          f"{wall:.3f} s the call [{CARD}]", flush=True)
+    check(len(shape) == 2 and shape[0] == shape[1] > 1,
+          f"grad --explain-node 305: bad mask shape {shape}")
+
+    summary, wall, _ = run_cli(cli_explain.main, grad + ["--multinode-class", "0"])
+    logdir = os.path.join(log, "syn1_base_h20_o20_explain")
+    aligned_file = os.path.join(logdir, "aligned_adj.npy")
+    check(summary["aligned"] is True and os.path.isfile(aligned_file),
+          f"--multinode-class 0 did not align: {summary}")
+    # the alignment's own inputs, rebuilt from the two saved masks
+    ex = cli_explain.build_explainer(parse_explain_args(grad))
+    nodes = [i for i, lab in enumerate(ex.label[0]) if lab == 0][:2]
+    ins = []
+    for node in nodes:
+        node_new, _, _, _, nbrs = ex.extract_neighborhood(node)
+        G = denoise_graph(np.load(os.path.join(
+            logdir, f"masked_adj_node_idx_{node}graph_idx_0.npy")), node_new,
+            feat=ex.feat[0][nbrs], threshold=0.1)
+        ins.append((np.array([G.feat[u] for u in G.nodes()]), to_numpy_array(G),
+                    G.nodes().index(node_new)))
+    (rf, ra, rc), (cf, ca, cc) = ins
+
+    def align(steps, dev):
+        return align_explanations(rf, ra, rc, cf, ca, cc, num_steps=steps,
+                                  device=dev)
+
+    full = align(ex.align_steps, "cuda")  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = align(ex.align_steps, "cuda")
+    align_s = time.perf_counter() - t0
+    err_file = max_diff(full[1], np.load(aligned_file))
+    err_short = max_diff(align(ALIGN_STEPS, "cuda")[0], align(ALIGN_STEPS, "cpu")[0])
+    err_full = max_diff(full[0], align(ex.align_steps, "cpu")[0])
+    print(f"  cli.explain --multinode-class 0: nodes {summary['num_nodes_explained']}"
+          f", aligned {summary['aligned']} ({ra.shape[0]} x {ca.shape[0]} nodes); "
+          f"{wall:.3f} s the call; align_explanations {ex.align_steps} steps "
+          f"{align_s:.3f} s on the card; P card vs CPU max |diff| {err_short:.3g} "
+          f"after {ALIGN_STEPS} steps (tol {ALIGN_TOL}), {err_full:.3g} after "
+          f"{ex.align_steps} (not held: float32 rounding grows); aligned_adj.npy "
+          f"vs the card's re-run {err_file:.3g} [{CARD}]", flush=True)
+    check(err_short <= ALIGN_TOL, f"align: card and CPU P differ by {err_short}")
+    check(err_file <= 1e-5, f"align: aligned_adj.npy is not the card's alignment "
+          f"of its inputs ({err_file})")
+    figures["multinode"] = {"call_s": wall, "align_s": align_s,
+                            "p_err_short": err_short, "p_err_full": err_full}
+
+    graph = ["--bmname", "SYNBENCH", "--ckptdir", os.path.join(keep, "graph"),
+             "--logdir", log, "--graph-idx", "1"]
+    sal = [cli_explain.build_explainer(parse_explain_args(graph + plat)).explain(
+        0, graph_idx=1, graph_mode=True, model="grad")
+        for plat in ([], ["--platform", "cpu"])]
+    err = max_diff(*sal)
+    print(f"  grad baseline, graph mode, SYNBENCH graph 1: mask {sal[0].shape}, "
+          f"card vs CPU max |diff| {err:.3g} (tol {BASELINE_TOL})", flush=True)
+    check(sal[0].shape[0] == sal[0].shape[1] and bool(np.any(sal[0] != 0)),
+          "graph-mode grad baseline: bad mask")
+    check(err <= BASELINE_TOL, f"graph-mode grad: card and CPU differ by {err}")
+    figures["graph_grad_err"] = err
+    return {"launches": launches, "figures": figures}
 
 
 def pair_csr(pair):
@@ -2173,25 +2461,42 @@ def main() -> int:
     diff = phase_diffuse(low.pop("graph"))
     print(f"  diffuse phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # checkpoints the baselines phase reads, from the coo, syn and graph phases
+    keep_dir = tempfile.TemporaryDirectory()
+    keep = keep_dir.name
+
     # ---- phase 6: the COO main path and the node CLI
     print("phase coo", flush=True)
     t0 = time.perf_counter()
-    coo = phase_coo(banded["steps_per_s"]["f32"])
+    coo = phase_coo(banded["steps_per_s"]["f32"], keep)
     print(f"  coo phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 7: syn2-syn5, attention and batch norm through the CLI
     print("phase syn", flush=True)
     t0 = time.perf_counter()
-    syn = phase_syn(gen)
+    syn = phase_syn(gen, keep)
     print(f"  syn phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- phase 8: graph classification and graph-mode explanation
     print("phase graph", flush=True)
     t0 = time.perf_counter()
-    graph = phase_graph(gen)
+    graph = phase_graph(gen, keep)
     print(f"  graph phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 9: launch probes
+    # ---- phase 9: optimizers, schedules and --resume through the CLI
+    print("phase opt", flush=True)
+    t0 = time.perf_counter()
+    opt = phase_opt(keep)
+    print(f"  opt phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- phase 10: the grad/att baselines and the alignment
+    print("phase baselines", flush=True)
+    t0 = time.perf_counter()
+    base_ph = phase_baselines(keep)
+    print(f"  baselines phase {time.perf_counter() - t0:.1f} s", flush=True)
+    keep_dir.cleanup()
+
+    # ---- phase 11: launch probes
     print("phase launch_probes", flush=True)
     probes = phase_probes(gen)
 
@@ -2200,6 +2505,7 @@ def main() -> int:
              "explain_bf16": bf16_launches,
              **{f"explain_banded_{k}": c for k, c in banded["launches"].items()},
              **coo["launches"], **syn["launches"], **graph["launches"],
+             **opt["launches"], **base_ph["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
              **diff["launches"], "launch_probes": probes["launches"]}
     meta = {

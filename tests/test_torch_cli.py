@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,8 +59,8 @@ def test_train_then_explain_cli(workdir):
     assert set(s) == {"dataset", "method", "ckpt_path", "elapsed_s",
                       "result_train", "result_test"}
     ck = os.path.join(workdir, "ckpt", "syn1_base_h20_o20")
-    assert sorted(os.listdir(ck)) == ["cg.npz", "meta.json", "params.pt",
-                                      "train_idx.npy"]
+    assert sorted(os.listdir(ck)) == ["cg.npz", "meta.json", "opt_state.pt",
+                                      "params.pt", "train_idx.npy"]
     with open(os.path.join(ck, "meta.json")) as f:
         meta = json.load(f)
     assert meta["task"] == "node" and meta["num_classes"] == 4
@@ -137,9 +138,6 @@ def test_missing_checkpoint_message(tmp_path):
 
 
 UNPORTED_TRAIN = [
-    (["--opt", "sgd"], "--opt sgd", "item 6"),
-    (["--opt-scheduler", "cos"], "--opt-scheduler cos", "item 6"),
-    (["--resume"], "--resume", "item 6"),
     (["--pkl", "x.pkl"], "--pkl", "item 9"),
     (["--dataset", "enron"], "--dataset enron", "item 9"),
     (["--dataset", "ppi_essential"], "--dataset ppi_essential", "item 9"),
@@ -148,9 +146,6 @@ UNPORTED_TRAIN = [
 ]
 UNPORTED_EXPLAIN = [
     (["--log-mask-every", "25"], "--log-mask-every", "item 10"),
-    (["--multinode-class", "1"], "--multinode-class", "item 8"),
-    (["--explainer-model", "grad"], "--explainer-model grad", "item 8"),
-    (["--explainer-model", "att"], "--explainer-model att", "item 8"),
     (["--mesh", "4"], "--mesh", "item 11"),
     (["--dataset", "enron_multigraph"], "--dataset enron_multigraph",
      "item 9"),
@@ -166,6 +161,9 @@ def test_unported_train_flag_raises(tmp_path, args, flag, item):
 
 
 PORTED_TRAIN = [
+    ["--opt", "sgd"],
+    ["--opt", "rmsprop", "--opt-scheduler", "cos", "--opt-restart", "3"],
+    ["--opt", "adagrad", "--opt-scheduler", "step", "--opt-decay-step", "2"],
     ["--method", "att"],
     ["--bn"],
     ["--dropout", "0.1"],
@@ -218,11 +216,13 @@ def toy_graph_dirs(tmp_path_factory):
 
 
 # The graph flags this port runs (they raised before graph classification
-# was ported): train on TOY, or explain the TOY checkpoint in graph mode.
+# was ported): train on TOY, or explain the TOY checkpoint in graph mode,
+# which ignores --explainer-model as tpugraph's CLI does.
 PORTED_GRAPH = [
     ["--bmname"],
     ["--graph-mode"],
     ["--graph-idx", "1"],
+    ["--graph-idx", "1", "--explainer-model", "grad"],
     ["--multigraph-class", "0"],
 ]
 
@@ -259,3 +259,78 @@ def test_explain_flags_reach_explain_config():
     assert (cfg.explainer_epochs, cfg.explainer_lr, cfg.mask_bias,
             cfg.marginalize, cfg.seed_ensemble, cfg.mask_act) == (
         7, 0.5, True, True, 3, "ReLU")
+
+
+def test_opt_flags_reach_train_config():
+    tc = train_config(parse_train_args(
+        ["--opt", "rmsprop", "--opt-scheduler", "cos", "--opt-restart", "7",
+         "--opt-decay-step", "3", "--opt-decay-rate", "0.25"]))
+    assert (tc.opt, tc.opt_scheduler, tc.opt_restart, tc.opt_decay_step,
+            tc.opt_decay_rate) == ("rmsprop", "cos", 7, 3, 0.25)
+
+
+def test_resume_continues_the_schedule(tmp_path):
+    """--resume: 6 epochs, then 4 resumed from params.pt and opt_state.pt,
+    equal 10 straight, with the step decay at the resume point."""
+    flags = ["--platform", "cpu", "--dataset", "syn1", "--opt", "sgd",
+             "--lr", "0.01", "--opt-scheduler", "step", "--opt-decay-step",
+             "6", "--opt-decay-rate", "0.5"]
+    a, b = (["--ckptdir", str(tmp_path / d)] for d in "ab")
+    cli_train.main(flags + a + ["--epochs", "6"])
+    s = cli_train.main(flags + a + ["--epochs", "4", "--resume"])
+    t = cli_train.main(flags + b + ["--epochs", "10"])
+    load = lambda d, f: torch.load(os.path.join(d, f), weights_only=True)
+    pa, pb = load(s["ckpt_path"], "params.pt"), load(t["ckpt_path"], "params.pt")
+    assert set(pa) == set(pb)
+    for k in pa:
+        torch.testing.assert_close(pa[k], pb[k], rtol=1e-6, atol=1e-7)
+    assert load(s["ckpt_path"], "opt_state.pt")["count"] == 10
+    assert s["result_test"] == pytest.approx(t["result_test"])
+    with pytest.raises(FileNotFoundError, match="train a model"):
+        cli_train.main(flags + ["--ckptdir", str(tmp_path / "c"), "--resume"])
+
+
+@pytest.fixture(scope="module")
+def syn1_ckpts(tmp_path_factory):
+    """syn1 trained 60 epochs on the CPU, base and --method att, and the
+    flags that point the explainer at them."""
+    root = str(tmp_path_factory.mktemp("syn1ck"))
+    dirs = ["--platform", "cpu", "--ckptdir", os.path.join(root, "ckpt"),
+            "--logdir", os.path.join(root, "log")]
+    for method in ("base", "att"):
+        cli_train.main(dirs + ["--method", method, "--epochs", "60"])
+    return root, dirs
+
+
+PORTED_EXPLAIN = [
+    ["--explainer-model", "grad"],
+    ["--explainer-model", "att", "--method", "att"],
+    ["--explainer-model", "grad", "--explain-node", "305"],
+    ["--explainer-model", "att", "--method", "att", "--explain-node", "305"],
+    ["--multinode-class", "0", "--epochs", "5", "--align-steps", "50"],
+]
+
+
+@pytest.mark.parametrize("args", PORTED_EXPLAIN, ids=" ".join)
+def test_ported_explain_flag_runs(syn1_ckpts, args):
+    """The baselines' stats run (AUC over nodes 400:700:5, the AUC file) and
+    one node (its .npy), and --multinode-class (5 nodes of the class, the
+    first two aligned, aligned_adj.npy)."""
+    root, dirs = syn1_ckpts
+    method = "att" if "--method" in args else "base"
+    logdir = os.path.join(root, "log", f"syn1_{method}_h20_o20_explain")
+    s = cli_explain.main(dirs + args)
+    assert s["mode"] == "node"
+    if "--multinode-class" in args:
+        assert s["num_nodes_explained"] == 5 and s["aligned"] is True
+        assert os.path.isfile(os.path.join(logdir, "aligned_adj.npy"))
+        return
+    model = args[1]
+    if "--explain-node" in args:
+        assert s["explain_node"] == 305 and s["mask_shape"][0] > 1
+        m = np.load(os.path.join(logdir, "masked_adj_node_idx_305graph_idx_0.npy"))
+        assert list(m.shape) == s["mask_shape"] and np.all(np.isfinite(m))
+        return
+    assert s["num_nodes_explained"] == 60 and 0.0 <= s["auc"] <= 1.0
+    with open(os.path.join(logdir, "pr", f"auc_syn1_{model}.txt")) as f:
+        assert f.read() == f"dataset: syn1, model: {model}, auc: {s['auc']}\n"

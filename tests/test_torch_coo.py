@@ -511,10 +511,14 @@ def test_explain_one_node_saves_npy_and_unported_raise(syn1, explainer_inputs,
     np.testing.assert_array_equal(ma, ex.explain_nodes_batch([NODE])[0]["masked_adj"])
     np.testing.assert_array_equal(
         np.load(tmp_path / f"masked_adj_node_idx_{NODE}graph_idx_0.npy"), ma)
+    # the grad/att baselines (ported in tests/test_torch_baselines.py) save
+    # their dense mask under the same name; mesh sharding stays unported
     for model in ("grad", "att"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ex.explain(NODE, model=model)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ex.explain_nodes_gnn_stats([NODE], model=model)
+        mb = ex.explain(NODE, model=model)
+        assert mb.shape == ma.shape and np.all(np.isfinite(mb))
+        np.testing.assert_array_equal(
+            np.load(tmp_path / f"masked_adj_node_idx_{NODE}graph_idx_0.npy"), mb)
+        stats = ex.explain_nodes_gnn_stats([NODE], model=model)
+        np.testing.assert_array_equal(stats["masked_adjs"][0], mb)
     with pytest.raises(NotImplementedError, match="item 11"):
         ex.explain_nodes_batch([NODE], mesh=object())

@@ -1012,3 +1012,89 @@ def test_explain_graph_bcsr_on_card_matches_cpu(cuda_device, tmp_path):
         assert got.shape == ref.shape == (100, 100)
         np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
         assert np.any(got != 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,sched", [("adam", "cos"), ("sgd", "step"),
+                                       ("rmsprop", "none"), ("adagrad", "step")])
+def test_optimizer_steps_on_card_match_cpu(cuda_device, opt, sched):
+    """100 updates of the optimizer chain (clip 2.0 acting on some, weight
+    decay, a schedule past its first decay or restart) on one gradient
+    stream, on the card and on the CPU: the parameters within 1e-6 of
+    their scale, and the update count in the state."""
+    from tpugraph_torch.train.optim import OptimizerConfig, build_optimizer
+
+    rng = np.random.default_rng(0)
+    shapes = [(10, 20), (20,), (20, 4)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[(10.0 ** rng.uniform(-2, 0) * rng.standard_normal(s)).astype(np.float32)
+              for s in shapes] for _ in range(100)]
+    cfg = OptimizerConfig(opt=opt, lr=0.01, scheduler=sched, decay_step=40,
+                          decay_rate=0.5, restart=60, weight_decay=0.005, clip=2.0)
+    out = []
+    for dev in ("cpu", cuda_device):
+        ps = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(dev)) for a in init]
+        o = build_optimizer(ps, cfg)
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.from_numpy(g).to(dev)
+            o.step()
+        assert o.state_dict()["count"] == 100
+        out.append([p.detach().cpu().numpy() for p in ps])
+    for got, ref in zip(out[1], out[0]):
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [False, True])
+def test_grad_baseline_batch_on_card_matches_cpu(cuda_device, bn):
+    """The grad and att baselines of 20 syn1 queries in one mapped call on
+    the card and on the CPU, from one set of parameters: every saliency
+    within 1e-5."""
+    from tpugraph_torch.core import extract_dense_subgraph
+    from tpugraph_torch.data import gen_syn1, preprocess_input_graph
+    from tpugraph_torch.explain import baselines
+    from tpugraph_torch.nn import GcnEncoderNode
+
+    G, labels, _ = gen_syn1(seed=0)
+    cg = preprocess_input_graph(G, labels)
+    n = cg["adj"].shape[1]
+    feat = np.random.default_rng(1).standard_normal((n, 10)).astype(np.float32)
+    qs = [extract_dense_subgraph(cg["adj"][0], feat, cg["labels"][0], q, 3)
+          for q in range(400, 700, 15)]
+    args = ([q[1] for q in qs], [q[2] for q in qs])
+    init = GcnEncoderNode(10, 20, 20, 4, 3, bn=bn, att=True,
+                          generator=torch.Generator().manual_seed(0),
+                          device="cpu").state_dict()
+    outs = []
+    for dev in ("cpu", cuda_device):
+        model = GcnEncoderNode(10, 20, 20, 4, 3, bn=bn, att=True, device=dev)
+        model.load_state_dict(init)
+        model.eval()
+        model.requires_grad_(False)
+        outs.append(baselines.grad_saliency_batch(
+            model, *args, [q[0] for q in qs], [q[0] % 4 for q in qs])
+            + baselines.attention_saliency_batch(model, *args))
+    for got, ref in zip(outs[1], outs[0]):
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_align_on_card_matches_cpu(cuda_device):
+    """align_explanations on the card and on the CPU from the same inputs:
+    P within 1e-5 after 300 steps at lr 1e-3 (the conditioned case) and
+    after 10 at the default lr."""
+    from tpugraph_torch.explain.align import align_explanations
+
+    rng = np.random.default_rng(0)
+    ins = []
+    for n in (7, 9):
+        up = np.triu(rng.uniform(0.1, 1.0, (n, n)) * (rng.random((n, n)) < 0.5), 1)
+        ins += [rng.standard_normal((n, 4)).astype(np.float32),
+                (up + up.T).astype(np.float32)]
+    for steps, lr in ((300, 1e-3), (10, 0.01)):
+        got, ref = (align_explanations(ins[0], ins[1], 2, ins[2], ins[3], 5,
+                                       num_steps=steps, lr=lr, device=dev)[0]
+                    for dev in (cuda_device, "cpu"))
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)

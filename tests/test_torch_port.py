@@ -47,8 +47,9 @@ def test_entry_points_raise_without_cuda(no_cuda):
 
 
 def test_unported_options_raise():
-    """Attention on a static-weight format (no score gradient) and the
-    unported optimizers raise; attention and bn themselves build."""
+    """Attention on a static-weight format (no score gradient) raises, and
+    so do an optimizer or a schedule that tpugraph does not have either;
+    attention and bn themselves build."""
     from tpugraph_torch.nn import PacketAdj
 
     model = GcnEncoderNode(**DIMS, att=True, bn=True, device="cpu")
@@ -56,9 +57,9 @@ def test_unported_options_raise():
         model(torch.zeros((8, 4)), PacketAdj(None, None))
     g = graph_from_edge_list(3, [(0, 1), (1, 2)])
     model = GcnEncoderNode(**DIMS, device="cpu")
-    for cfg in (TrainConfig(opt="rmsprop"), TrainConfig(opt="sgd"),
-                TrainConfig(opt_scheduler="step")):
-        with pytest.raises(NotImplementedError):
+    for cfg, what in ((TrainConfig(opt="lamb"), "optimizer"),
+                      (TrainConfig(opt_scheduler="poly"), "scheduler")):
+        with pytest.raises(ValueError, match=what):
             train_node_classifier(model, g, np.ones((8, 4), np.float32),
                                   np.zeros(3, int), cfg, device="cpu")
 
@@ -66,14 +67,15 @@ def test_unported_options_raise():
 def test_package_imports_neither_jax_nor_tpugraph():
     """Import every module of the package in a fresh interpreter and check
     that neither jax nor tpugraph got loaded, nor a package the card
-    machine lacks (networkx, sklearn, matplotlib, tensorboardX, msgpack)."""
+    machine lacks (optax, networkx, sklearn, matplotlib, tensorboardX,
+    msgpack)."""
     code = (
         "import pkgutil, sys, importlib, tpugraph_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tpugraph_torch.__path__, "
         "'tpugraph_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpugraph', 'flax',\n"
-        "    'networkx', 'sklearn', 'matplotlib', 'tensorboardX', 'msgpack'))\n"
+        "    'optax', 'networkx', 'sklearn', 'matplotlib', 'tensorboardX', 'msgpack'))\n"
         "assert len(mods) >= 20, mods\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -20,7 +20,9 @@ kernel tiles) and their motif AUC, graph diffusion
 graph classification on TU-format datasets (the reader, the batching
 pipeline, ``GcnEncoderGraph``, the DiffPool ``SoftPoolingGcnEncoder``,
 ``train_graph_classifier``, ``--bmname``) with its graph-mode explainer
-on COO and on the tile kernels.
+on COO and on the tile kernels; every optimizer chain and schedule of
+``tpugraph`` with ``--resume``, the grad/att baselines, representer
+scores, ``denoise_graph`` and the explanation alignment.
 """
 
 __version__ = "0.1.0"

@@ -3,6 +3,8 @@
 Usage:
   python -m tpugraph_torch.cli.explain --dataset=syn1           # AUC over nodes 400:700:5
   python -m tpugraph_torch.cli.explain --dataset=syn1 --explain-node=301 [--bcsr]
+  python -m tpugraph_torch.cli.explain --dataset=syn1 --explainer-model=grad
+  python -m tpugraph_torch.cli.explain --dataset=syn1 --multinode-class=0
   python -m tpugraph_torch.cli.explain --bmname=SYNBENCH --graph-mode   # graphs 1-4
   python -m tpugraph_torch.cli.explain --bmname=SYNBENCH --graph-idx=0
   python -m tpugraph_torch.cli.explain --bmname=SYNBENCH --multigraph-class=0
@@ -11,10 +13,16 @@ Usage:
 with or without batch norm) is rebuilt from the checkpoint's ``meta``.
 ``--explain-node`` explains one node on the COO path, or in tile space
 with ``--bcsr``; without it the 60 stats nodes are explained together on
-the COO path and scored against the dataset's motifs.  Graph mode
+the COO path and scored against the dataset's motifs.
+``--explainer-model grad|att`` replaces the GNNExplainer mask of both by
+the gradient or attention baseline on the dense neighborhood (``att``
+needs an attention checkpoint).  ``--multinode-class c`` explains the
+first 5 nodes of class ``c`` and aligns the first two explanations
+(``--align-steps``), writing ``aligned_adj.npy``.  Graph mode
 (``--graph-mode``, ``--graph-idx`` or ``--multigraph-class``) explains a
 graph classifier's predictions over its graph cg bundle: graphs 1-4, one
-graph, or the first 31 graphs of a class, on the COO path.  A DiffPool
+graph, or the first 31 graphs of a class, on the COO path; it ignores
+``--explainer-model``, as ``tpugraph``'s does.  A DiffPool
 (``soft-assign``) checkpoint cannot be explained, as in ``tpugraph``.
 No graph renders, heatmaps or TensorBoard events are written yet
 (ROADMAP section 1 item 10), and the summary has no key for them.
@@ -114,13 +122,17 @@ def main(argv=None) -> Dict:
     ex = build_explainer(cfg)
     summary = {"dataset": cfg.name, "mode": "graph" if ex.graph_mode else "node"}
     if cfg.explain_node is not None:
-        if cfg.use_bcsr:
-            r = ex.explain_node_bcsr(cfg.explain_node, block=cfg.bcsr_block)
+        if cfg.explainer_model != "exp":
+            masked_adj = ex.explain(cfg.explain_node, model=cfg.explainer_model)
         else:
-            r = ex.explain_nodes_batch([cfg.explain_node])[0]
-        ex._save_npy(r["masked_adj"], cfg.explain_node)
+            if cfg.use_bcsr:
+                r = ex.explain_node_bcsr(cfg.explain_node, block=cfg.bcsr_block)
+            else:
+                r = ex.explain_nodes_batch([cfg.explain_node])[0]
+            masked_adj = r["masked_adj"]
+            ex._save_npy(masked_adj, cfg.explain_node)
         summary["explain_node"] = cfg.explain_node
-        summary["mask_shape"] = list(r["masked_adj"].shape)
+        summary["mask_shape"] = list(masked_adj.shape)
     elif ex.graph_mode:
         if cfg.multigraph_class >= 0:
             labels = np.asarray(ex.label).reshape(-1)
@@ -137,6 +149,14 @@ def main(argv=None) -> Dict:
                                     graph_mode=True)
             summary["graph_idx"] = cfg.graph_idx
             summary["mask_shape"] = list(masked_adj.shape)
+    elif cfg.multinode_class >= 0:
+        labels = np.asarray(ex.label[0])
+        node_indices = [i for i, lab in enumerate(labels)
+                        if lab == cfg.multinode_class][:5]
+        ex.align_steps = cfg.align_steps
+        ex.explain_nodes(node_indices)
+        summary["num_nodes_explained"] = len(node_indices)
+        summary["aligned"] = ex.last_alignment is not None
     else:
         node_indices = list(range(400, 700, 5))
         res = ex.explain_nodes_gnn_stats(node_indices,

@@ -21,7 +21,8 @@ from tpugraph_torch.data.pipeline import prepare_data
 from tpugraph_torch.data.readers import read_graphfile
 from tpugraph_torch.data.shapes import SimpleGraph
 from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode, SoftPoolingGcnEncoder
-from tpugraph_torch.train.checkpoint import gen_prefix, save_checkpoint
+from tpugraph_torch.train.checkpoint import (gen_prefix, load_checkpoint,
+                                             save_checkpoint)
 from tpugraph_torch.train.loop import (TrainConfig, train_graph_classifier,
                                        train_node_classifier)
 
@@ -50,6 +51,9 @@ def train_config(cfg: Config) -> TrainConfig:
         eval_every=cfg.eval_every,
         opt=cfg.opt,
         opt_scheduler=cfg.opt_scheduler,
+        opt_decay_step=cfg.opt_decay_step,
+        opt_decay_rate=cfg.opt_decay_rate,
+        opt_restart=cfg.opt_restart,
         use_bcsr=cfg.use_bcsr,
         bcsr_block=cfg.bcsr_block,
         bcsr_format=cfg.bcsr_format,
@@ -78,8 +82,11 @@ def build_node_model(cfg: Config, input_dim: int, num_classes: int,
 
 def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
     """Padded graph, training on ``--platform``'s device, and the
-    checkpoint with the dense cg bundle and ``meta``
-    (``tpugraph/cli/tasks.py:64-176``, single device, no ``--resume``)."""
+    checkpoint with the dense cg bundle, the optimizer state and ``meta``
+    (``tpugraph/cli/tasks.py:64-176``, single device).  ``--resume``
+    starts from the checkpoint's ``params.pt`` (or ``tpugraph``'s
+    ``params.msgpack``) and ``opt_state.pt`` when it has one, trains
+    ``--epochs`` more and overwrites it."""
     device = cli_device(cfg)
     num_classes = int(max(labels)) + 1
     index = {u: i for i, u in enumerate(G.nodes())}
@@ -87,8 +94,16 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
                              [(index[u], index[v]) for u, v in G.edges()])
     feat = padded_features(G, g)
     model = build_node_model(cfg, feat.shape[1], num_classes, device)
+    prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
+                        cfg.bias, cfg.name_suffix)
+    init_params = init_opt = None
+    if cfg.resume:
+        ck = load_checkpoint(cfg.ckptdir, prefix)
+        init_params, init_opt = ck["params"], ck["opt_state"]
     out = train_node_classifier(model, g, feat, labels, train_config(cfg),
-                                seed=cfg.seed, log_fn=log_fn, device=device)
+                                seed=cfg.seed, log_fn=log_fn, device=device,
+                                init_params=init_params,
+                                init_opt_state=init_opt)
     data = preprocess_input_graph(G, labels)
     n_real = data["adj"].shape[1]
     cg = {
@@ -98,13 +113,12 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
         "pred": out["ypred"][:, :n_real],
         "train_idx": out["train_idx"],
     }
-    prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
-                        cfg.bias, cfg.name_suffix)
     path = save_checkpoint(
         cfg.ckptdir,
         prefix,
         out["params"],
         cg_dict=cg,
+        opt_state=out["opt_state"],
         meta={
             "model_type": cfg.method,
             "task": "node",

@@ -3,9 +3,16 @@
 Usage:
   python -m tpugraph_torch.cli.train --dataset=syn1 [--epochs N] [--bcsr]
   python -m tpugraph_torch.cli.train --dataset=syn1 --platform cpu
+  python -m tpugraph_torch.cli.train --dataset=syn1 --opt sgd \
+      --opt-scheduler step --opt-decay-step 250 [--resume]
   python -m tpugraph_torch.cli.train --bmname=SYNBENCH --datadir D \
       [--method base|att|soft-assign [--linkpred]]
 
+``--opt adam|sgd|rmsprop|adagrad`` and ``--opt-scheduler none|step|cos``
+(``--opt-decay-step``, ``--opt-decay-rate``, ``--opt-restart``) pick the
+node trainer's optimizer chain; graph classification keeps Adam at 0.001,
+as ``tpugraph``'s does.  ``--resume`` continues a node checkpoint for
+``--epochs`` more, the schedule from its saved update count.
 Prints the metrics every 25 epochs and a JSON summary at the end.  No
 TensorBoard events or accuracy-curve PNG are written yet (ROADMAP
 section 1 item 10), and the summary has no key for them.

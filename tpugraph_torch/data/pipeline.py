@@ -36,14 +36,14 @@ class DenseGraphBatch:
 
 
 def to_numpy_array(G: SimpleGraph) -> np.ndarray:
-    """``nx.to_numpy_array(G)`` of an unweighted graph: float64, entry
-    (i, j) is 1 for an edge between the i-th and j-th nodes of
-    ``G.nodes()``, and a self-loop is 1 on the diagonal."""
+    """``nx.to_numpy_array(G)``: float64, entry (i, j) is the weight of the
+    edge between the i-th and j-th nodes of ``G.nodes()`` (1 for an
+    unweighted one), and a self-loop's weight is on the diagonal."""
     nodes = G.nodes()
     index = {u: i for i, u in enumerate(nodes)}
     adj = np.zeros((len(nodes), len(nodes)))
     for u, v in G.edges():
-        adj[index[u], index[v]] = adj[index[v], index[u]] = 1.0
+        adj[index[u], index[v]] = adj[index[v], index[u]] = G.weight(u, v)
     return adj
 
 

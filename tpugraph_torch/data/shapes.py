@@ -30,11 +30,14 @@ import numpy as np
 class SimpleGraph:
     """Undirected simple graph with insertion-ordered nodes and neighbors
     (the subset of ``nx.Graph`` the generators use).  ``feat`` holds the
-    per-node feature vectors a feature generator attaches."""
+    per-node feature vectors a feature generator attaches; ``attrs`` any
+    other node attributes (``G.nodes[u]`` in networkx); an edge may carry
+    a ``weight`` (``None``: unweighted, read as 1)."""
 
     def __init__(self):
-        self._adj: Dict[int, Dict[int, None]] = {}
+        self._adj: Dict[int, Dict[int, Optional[float]]] = {}
         self.feat: Dict[int, np.ndarray] = {}
+        self.attrs: Dict[int, Dict[str, object]] = {}
 
     def add_node(self, u: int) -> None:
         if u not in self._adj:
@@ -44,11 +47,20 @@ class SimpleGraph:
         for u in nodes:
             self.add_node(u)
 
-    def add_edge(self, u: int, v: int) -> None:
+    def add_edge(self, u: int, v: int, weight: Optional[float] = None) -> None:
+        """Add ``u - v``; re-adding an edge keeps its place and takes the
+        new weight, as networkx's ``add_edge`` does."""
         self.add_node(u)
         self.add_node(v)
-        self._adj[u][v] = None
-        self._adj[v][u] = None
+        self._adj[u][v] = weight
+        self._adj[v][u] = weight
+
+    def weight(self, u: int, v: int) -> float:
+        w = self._adj[u][v]
+        return 1.0 if w is None else w
+
+    def neighbors(self, u: int) -> List[int]:
+        return list(self._adj[u])
 
     def add_edges_from(self, edges) -> None:
         for u, v in edges:
@@ -92,9 +104,10 @@ class SimpleGraph:
         h = SimpleGraph()
         h.add_nodes_from(self._adj)
         for u, nbrs in self._adj.items():
-            for v in nbrs:
-                h.add_edge(u, v)
+            for v, w in nbrs.items():
+                h.add_edge(u, v, w)
         h.feat = {u: f.copy() for u, f in self.feat.items()}
+        h.attrs = {u: dict(a) for u, a in self.attrs.items()}
         return h
 
     def relabeled(self, mapping: Dict[int, int]) -> "SimpleGraph":

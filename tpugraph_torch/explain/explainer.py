@@ -15,10 +15,18 @@ a trained model and its cg bundle, on two paths.
   COO path, all the graphs of a call in one batched forward a step, and
   ``explain_graph_bcsr`` learns it in tile space on B1/B2.
 
+* Baselines (``model="grad"`` or ``"att"`` in ``explain`` and
+  ``explain_nodes_gnn_stats``, ``model="grad"`` in graph mode): the
+  model's dense path on each query's dense sub-adjacency
+  (:mod:`tpugraph_torch.explain.baselines`), every query of a stats run in
+  one mapped call.
+* Alignment (``explain_nodes``): the first two COO explanations denoised
+  and aligned by :func:`tpugraph_torch.explain.align.align_explanations`.
+
 Results keep the reference's dense ``masked_adj`` contract
 (ascending-neighbor sub-adjacency) and its ``.npy`` file names.
-Single-device only: the ``mesh`` query sharding is not ported, and nor
-are the grad/att baselines, alignment and the PR-curve PNG.
+Single-device only: the ``mesh`` query sharding is not ported, and no
+PR-curve PNG or graph render is drawn (ROADMAP section 1 item 10).
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ import torch
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.core.graph import Graph, batch_graphs, graph_from_dense
 from tpugraph_torch.core.khop import extract_dense_subgraph, khop_subgraph
+from tpugraph_torch.data.pipeline import to_numpy_array
+from tpugraph_torch.explain import baselines
+from tpugraph_torch.explain.align import align_explanations
 from tpugraph_torch.explain.bcsr_explain import (
     run_bcsr_mask_optimization,
     tiles_to_edge_weights,
@@ -49,13 +60,7 @@ from tpugraph_torch.ops.bcsr import (
     bcsr_sym_partner,
     bcsr_transpose_plan,
 )
-
-
-def _check_explainer_model(model: str) -> None:
-    if model != "exp":
-        raise NotImplementedError(
-            f"explainer model {model!r} (the grad/att baselines) is not "
-            "ported yet (ROADMAP section 1 item 8)")
+from tpugraph_torch.viz.graphs import denoise_graph
 
 
 class Explainer:
@@ -112,6 +117,8 @@ class Explainer:
         self.dataset = dataset
         self.print_training = print_training
         self.seed = seed
+        self.align_steps = 1000
+        self.last_alignment: Optional[Dict[str, np.ndarray]] = None
         self._graphs: Dict[int, Graph] = {}
         self._bcsr_pack_cache: Dict = {}
         # the kernels' tile dtype (run_bcsr_mask_optimization's spmm_dtype);
@@ -240,17 +247,41 @@ class Explainer:
             })
         return results
 
+    def _baseline_masks(self, model: str, node_indices: Sequence[int],
+                        graph_idx: int):
+        """The grad or att baseline of every query's dense neighborhood in
+        one mapped call (grad at the query's predicted label); returns the
+        masks, the queries' subgraph indices and their neighbors."""
+        neigh = [self.extract_neighborhood(int(i), graph_idx)
+                 for i in node_indices]
+        starts = [nb[0] for nb in neigh]
+        sub_adjs = [nb[1] for nb in neigh]
+        sub_feats = [nb[2] for nb in neigh]
+        if model == "grad":
+            pred_labels = [int(np.argmax(self.pred[graph_idx][nb[4]], axis=1)[nb[0]])
+                           for nb in neigh]
+            masks = baselines.grad_saliency_batch(
+                self.model, sub_adjs, sub_feats, starts, pred_labels)
+        else:
+            masks = baselines.attention_saliency_batch(self.model, sub_adjs,
+                                                       sub_feats)
+        return masks, starts, [nb[4] for nb in neigh]
+
     def explain(self, node_idx: int, graph_idx: int = 0,
                 graph_mode: bool = False, model: str = "exp") -> np.ndarray:
         """One node's dense masked sub-adjacency, or with ``graph_mode``
-        (or an explainer built in graph mode) graph ``graph_idx``'s, saved
-        as ``.npy`` (``tpugraph/explain/explainer.py:605``).  The grad/att
-        baselines are not ported and raise."""
-        _check_explainer_model(model)
+        (or an explainer built in graph mode) graph ``graph_idx``'s
+        (``tpugraph/explain/explainer.py:605``): the GNNExplainer mask
+        (``model="exp"``) or the ``grad``/``att`` baseline on the dense
+        neighborhood, saved as ``.npy`` (a graph's grad baseline is not
+        saved, as in ``tpugraph``)."""
         if graph_mode or self.graph_mode:
             return self._explain_graph(graph_idx, model=model)
-        masked_adj = self.explain_nodes_batch([node_idx],
-                                              graph_idx)[0]["masked_adj"]
+        if model in ("grad", "att"):
+            masked_adj = self._baseline_masks(model, [node_idx], graph_idx)[0][0]
+        else:
+            masked_adj = self.explain_nodes_batch([node_idx],
+                                                  graph_idx)[0]["masked_adj"]
         self._save_npy(masked_adj, node_idx)
         return masked_adj
 
@@ -261,10 +292,20 @@ class Explainer:
         motif ground truth (``tpugraph/explain/explainer.py:697``): returns
         ``masked_adjs``, ``results``, ``auc`` (``None`` when the labels
         hold one class) and the ``real``/``pred`` arrays, and writes
-        ``pr/auc_<dataset>_<model>.txt`` under ``logdir``.  The PR-curve
-        PNG is not drawn (viz is not ported)."""
-        _check_explainer_model(model)
-        results = self.explain_nodes_batch(node_indices, graph_idx, mesh=mesh)
+        ``pr/auc_<dataset>_<model>.txt`` under ``logdir``.  ``model`` is
+        ``exp`` (the batched COO explain) or a baseline, ``grad`` or
+        ``att``, of every query in one mapped call.  The PR-curve PNG is
+        not drawn (ROADMAP section 1 item 10)."""
+        if model == "exp":
+            results = self.explain_nodes_batch(node_indices, graph_idx,
+                                               mesh=mesh)
+        else:
+            masks, starts, neighbors = self._baseline_masks(
+                model, node_indices, graph_idx)
+            results = [{"node_idx": int(i), "node_idx_new": st,
+                        "neighbors": nb, "masked_adj": ma}
+                       for i, st, nb, ma in zip(node_indices, starts,
+                                                neighbors, masks)]
         masked_adjs = [r["masked_adj"] for r in results]
         starts = [r["node_idx_new"] for r in results]
         for r in results:
@@ -282,6 +323,51 @@ class Explainer:
                 f.write(f"dataset: {self.dataset}, model: {model}, auc: {auc}\n")
         return {"masked_adjs": masked_adjs, "results": results, "auc": auc,
                 "real": real_all, "pred": pred_all}
+
+    def explain_nodes(self, node_indices: Sequence[int], graph_idx: int = 0,
+                      init_state: Optional[Tuple[Optional[np.ndarray], ...]] = None
+                      ) -> List[np.ndarray]:
+        """Explain several nodes on the COO path (``init_state`` as in
+        :meth:`explain_nodes_batch`), save each mask, then align the first
+        two explanations (``tpugraph/explain/explainer.py:777``): each is
+        denoised at threshold 0.1 to its largest component, and
+        :func:`align_explanations` runs ``align_steps`` steps on the
+        device.  Sets ``last_alignment`` (``P``, ``aligned_adj``,
+        ``aligned_feat``) and writes ``aligned_adj.npy`` under ``logdir``;
+        returns without aligning when a query is not in its largest
+        component.  No subgraph render is drawn (ROADMAP section 1 item
+        10)."""
+        results = self.explain_nodes_batch(node_indices, graph_idx,
+                                           init_state=init_state)
+        masked_adjs = [r["masked_adj"] for r in results]
+        for r in results:
+            self._save_npy(r["masked_adj"], r["node_idx"])
+        if len(node_indices) < 2:
+            return masked_adjs
+
+        def denoised(res):
+            G = denoise_graph(res["masked_adj"], res["node_idx_new"],
+                              feat=self.feat[graph_idx][res["neighbors"]],
+                              threshold=0.1)
+            feat = np.array([G.feat[u] for u in G.nodes()])
+            # list.index raises ValueError when the query fell out of the
+            # largest component, as in tpugraph
+            return feat, to_numpy_array(G), G.nodes().index(res["node_idx_new"])
+
+        try:
+            ref_feat, ref_adj, ref_c = denoised(results[0])
+            cur_feat, cur_adj, cur_c = denoised(results[1])
+        except ValueError:
+            return masked_adjs
+        P, aligned_adj, aligned_feat = align_explanations(
+            ref_feat, ref_adj, ref_c, cur_feat, cur_adj, cur_c,
+            num_steps=self.align_steps, device=self.device)
+        self.last_alignment = {"P": P, "aligned_adj": aligned_adj,
+                               "aligned_feat": aligned_feat}
+        if self.logdir is not None:
+            os.makedirs(self.logdir, exist_ok=True)
+            np.save(os.path.join(self.logdir, "aligned_adj.npy"), aligned_adj)
+        return masked_adjs
 
     def _bcsr_pack(self, graph_idx: int, block: int):
         """Cached full-graph pack per (graph_idx, block): host BCSR, its
@@ -451,8 +537,15 @@ class Explainer:
                        init_state: Optional[Tuple[np.ndarray, np.ndarray]] = None
                        ) -> np.ndarray:
         """Graph ``graph_idx``'s dense masked adjacency, saved as ``.npy``
-        (``tpugraph/explain/explainer.py:645``; the ``exp`` model only)."""
-        _check_explainer_model(model)
+        (``tpugraph/explain/explainer.py:645``); with ``model="grad"`` the
+        gradient baseline on the graph's dense ``[:n, :n]`` block, unsaved
+        (any other model is the GNNExplainer mask)."""
+        if model == "grad":
+            n = self._graph(graph_idx).n_node
+            pred_label = int(np.argmax(self.pred[0][graph_idx]))
+            return baselines.grad_saliency(
+                self.model, self.adj[graph_idx][:n, :n],
+                self.feat[graph_idx][:n], 0, pred_label, graph_mode=True)
         dense = self._graph_masks([int(graph_idx)], init_state)[0]
         self._save_npy(dense, 0)
         return dense

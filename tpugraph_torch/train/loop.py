@@ -78,7 +78,8 @@ class TrainConfig:
     default).
 
     ``batch_size`` and ``eval_every`` are read by the graph classifier
-    only.
+    only, the ``opt*`` fields by the node trainer only (graph
+    classification keeps Adam at 0.001, as ``tpugraph``'s does).
 
     ``bcsr_block`` is the BCSR tile size (128 or 256 in use, as in
     ``tpugraph``).  On the CPU any size runs.  On the card the tile
@@ -95,6 +96,9 @@ class TrainConfig:
     eval_every: int = 25  # graph classification: epochs between evaluations
     opt: str = "adam"
     opt_scheduler: str = "none"
+    opt_decay_step: int = 100
+    opt_decay_rate: float = 0.1
+    opt_restart: int = 200
     use_bcsr: bool = False
     bcsr_block: int = 128
     bcsr_k_pack: int = 0  # 0 off, >1 fixed, -1 chosen from the tile counts
@@ -102,6 +106,20 @@ class TrainConfig:
     bcsr_format: str = "auto"    # "tiles", "packets" or "auto"
     bcsr_resident: str = "auto"  # "on", "off" or "auto"
     packet_compute_dtype: Optional[torch.dtype] = None
+
+
+def _opt_config(cfg: TrainConfig) -> OptimizerConfig:
+    """The optimizer chain ``cfg`` names (``tpugraph/train/loop.py:83``)."""
+    return OptimizerConfig(
+        opt=cfg.opt,
+        lr=cfg.lr,
+        scheduler=cfg.opt_scheduler,
+        decay_step=cfg.opt_decay_step,
+        decay_rate=cfg.opt_decay_rate,
+        restart=cfg.opt_restart,
+        weight_decay=cfg.weight_decay,
+        clip=cfg.clip,
+    )
 
 
 # Rates of the format rule, measured on an NVIDIA H100 80GB HBM3 at a
@@ -288,20 +306,24 @@ def train_node_classifier(
     log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
     init_params: Optional[Dict[str, torch.Tensor]] = None,
     device: DeviceLike = None,
+    init_opt_state: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Full-batch node classification on one padded graph
     (``tpugraph/train/loop.py:279``).
 
     ``model`` is a :class:`tpugraph_torch.nn.GcnEncoderNode`; it moves to
     ``device`` (``None`` = CUDA) and trains in place, starting from
-    ``init_params`` (a ``state_dict``) when given.  ``feat`` is
+    ``init_params`` (a ``state_dict``) and ``init_opt_state`` (the
+    optimizer's ``state_dict``, its update count included) when given,
+    one optimizer update an epoch.  ``feat`` is
     ``float32[N_pad, D]``, ``labels`` ``int[N_real]``.  ``log_fn(epoch,
     {"loss", "train_acc", "test_acc"})`` is called every ``LOG_EVERY``
     epochs and after the last (each call waits for the device).  Returns params
     (the ``state_dict``), ``ypred [1, N_pad, C]``, the split, the metric
     history, train/test results, the seconds of the epoch loop
     (``"elapsed"``) and of packing and uploading the adjacency
-    (``"pack_s"``), and the packed adjacency (``"adj"``).  A model with
+    (``"pack_s"``), the packed adjacency (``"adj"``) and the optimizer's
+    ``state_dict`` (``"opt_state"``).  A model with
     ``dropout`` draws its masks from a generator on ``device`` seeded with
     ``seed + 1``.
     """
@@ -333,9 +355,9 @@ def train_node_classifier(
     if init_params is not None:
         model.load_state_dict(init_params)
     model.train()
-    opt = build_optimizer(model.parameters(), OptimizerConfig(
-        opt=cfg.opt, lr=cfg.lr, scheduler=cfg.opt_scheduler,
-        weight_decay=cfg.weight_decay, clip=cfg.clip))
+    opt = build_optimizer(model.parameters(), _opt_config(cfg))
+    if init_opt_state is not None:
+        opt.load_state_dict(init_opt_state)
 
     def acc(correct, mask):
         return torch.sum(correct * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -383,6 +405,7 @@ def train_node_classifier(
         "elapsed": elapsed,
         "pack_s": pack_s,
         "adj": sp,
+        "opt_state": opt.state_dict(),
     }
 
 
