@@ -1,9 +1,12 @@
 """The port's CLI end to end on the CPU, as subprocesses of
-``python -m tpugraph_torch.cli.{train,explain} --platform cpu``, and
-every flag whose module is not ported raising by name."""
+``python -m tpugraph_torch.cli.{train,explain} --platform cpu`` and in
+process; its events, figures and summaries against ``tpugraph``'s CLI on
+the same checkpoint; the item 9 tasks on their fixtures; and the
+multi-device flags raising by name."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -16,6 +19,8 @@ from tpugraph_torch.cli import train as cli_train
 from tpugraph_torch.cli.config import (Config, cli_device, parse_explain_args,
                                        parse_train_args)
 from tpugraph_torch.cli.tasks import train_config
+from tpugraph_torch.utils.tb_writer import read_scalars
+from tpugraph_torch.viz.writers import check_pdf, check_png
 
 torch.set_num_threads(1)
 
@@ -57,7 +62,13 @@ def test_train_then_explain_cli(workdir):
                            check_no_jax=True))
     assert s["result_test"]["acc"] > 0.7, s
     assert set(s) == {"dataset", "method", "ckpt_path", "elapsed_s",
-                      "result_train", "result_test"}
+                      "result_train", "result_test", "train_curve"}
+    assert s["train_curve"] == os.path.join("log", "results", "syn1_base_h20_o20.png")
+    check_png(os.path.join(workdir, s["train_curve"]))
+    (events,) = os.listdir(os.path.join(workdir, "log", "syn1_base_h20_o20"))
+    scalars = read_scalars(os.path.join(workdir, "log", "syn1_base_h20_o20", events))
+    assert sorted(scalars) == ["acc/test_acc", "acc/train_acc", "loss/avg_loss"]
+    assert [step for step, _ in scalars["loss/avg_loss"]] == list(range(25, 401, 25))
     ck = os.path.join(workdir, "ckpt", "syn1_base_h20_o20")
     assert sorted(os.listdir(ck)) == ["cg.npz", "meta.json", "opt_state.pt",
                                       "params.pt", "train_idx.npy"]
@@ -76,7 +87,10 @@ def test_train_then_explain_cli(workdir):
                                ["--dataset", "syn1", "--explain-node", "305",
                                 "--epochs", "10"] + extra, workdir,
                                check_no_jax=True))
-        assert s["explain_node"] == 305 and "viz" not in s
+        assert s["explain_node"] == 305
+        assert s["viz"] == os.path.join(logdir, "node_305_0.pdf").replace(
+            workdir + os.sep, "")
+        check_pdf(os.path.join(workdir, s["viz"]))
         assert s["mask_shape"][0] == s["mask_shape"][1] > 1
         assert os.path.isfile(npy)
         shapes.append(s["mask_shape"])
@@ -89,6 +103,16 @@ def test_train_then_explain_cli(workdir):
         assert f.read() == f"dataset: syn1, model: exp, auc: {s['auc']}\n"
     # the 60 stats nodes' masks beside node 305's
     assert len([f for f in os.listdir(logdir) if f.endswith(".npy")]) == 61
+    check_png(os.path.join(logdir, "pr", "pr_syn1_exp.png"))
+    for name in ("mask_adj_0.png", "mask_feat_mask_0.png"):
+        check_png(os.path.join(logdir, name))
+    assert len([f for f in os.listdir(logdir) if f.startswith("graph_syn1_exp_")]) == 4
+    (events,) = [f for f in os.listdir(logdir) if f.startswith("events.out")]
+    tags = read_scalars(os.path.join(logdir, events))
+    assert sorted(tags) == sorted(f"optimization/{t}_loss" for t in
+                                  ("pred", "size", "lap", "ent", "feat_size",
+                                   "feat_ent", "total", "density"))
+    assert all(len(v) == 20 for v in tags.values())
 
 
 def test_cli_without_platform_needs_cuda(monkeypatch, tmp_path):
@@ -138,17 +162,11 @@ def test_missing_checkpoint_message(tmp_path):
 
 
 UNPORTED_TRAIN = [
-    (["--pkl", "x.pkl"], "--pkl", "item 9"),
-    (["--dataset", "enron"], "--dataset enron", "item 9"),
-    (["--dataset", "ppi_essential"], "--dataset ppi_essential", "item 9"),
     (["--halo", "4"], "--halo", "item 11"),
     (["--dp", "2"], "--dp", "item 11"),
 ]
 UNPORTED_EXPLAIN = [
-    (["--log-mask-every", "25"], "--log-mask-every", "item 10"),
     (["--mesh", "4"], "--mesh", "item 11"),
-    (["--dataset", "enron_multigraph"], "--dataset enron_multigraph",
-     "item 9"),
 ]
 
 
@@ -276,6 +294,7 @@ def test_resume_continues_the_schedule(tmp_path):
              "--lr", "0.01", "--opt-scheduler", "step", "--opt-decay-step",
              "6", "--opt-decay-rate", "0.5"]
     a, b = (["--ckptdir", str(tmp_path / d)] for d in "ab")
+    flags += ["--logdir", str(tmp_path / "log")]
     cli_train.main(flags + a + ["--epochs", "6"])
     s = cli_train.main(flags + a + ["--epochs", "4", "--resume"])
     t = cli_train.main(flags + b + ["--epochs", "10"])
@@ -334,3 +353,152 @@ def test_ported_explain_flag_runs(syn1_ckpts, args):
     assert s["num_nodes_explained"] == 60 and 0.0 <= s["auc"] <= 1.0
     with open(os.path.join(logdir, "pr", f"auc_syn1_{model}.txt")) as f:
         assert f.read() == f"dataset: syn1, model: {model}, auc: {s['auc']}\n"
+
+
+# The item 9 tasks through cli.train on the fixtures of
+# tests/test_torch_tasks.py (they raised before these tasks were ported).
+ITEM9 = [
+    ["--pkl", "toy.pkl", "--batch-size", "6", "--eval-every", "2"],
+    ["--dataset", "enron"],
+    ["--dataset", "enron_multigraph"],
+    ["--dataset", "ppi_essential"],
+]
+
+
+@pytest.mark.parametrize("args", ITEM9, ids=" ".join)
+def test_item9_flag_runs(tmp_path, args):
+    """6 epochs on the CPU: the summary, the checkpoint (not for --pkl, as
+    in tpugraph), the TensorBoard scalars and the accuracy curve."""
+    from test_torch_tasks import write_enron, write_graph_pickle, write_ppi
+
+    write_graph_pickle(tmp_path / "toy.pkl")
+    write_enron(str(tmp_path))
+    write_ppi(str(tmp_path))
+    s = cli_train.main(["--platform", "cpu", "--datadir", str(tmp_path),
+                        "--ckptdir", str(tmp_path / "ckpt"), "--logdir",
+                        str(tmp_path / "log"), "--epochs", "6"] + args)
+    name = args[1] if args[0] == "--dataset" else "syn1"
+    prefix = f"{name}_base_h20_o20"
+    assert s["dataset"] == name and "train_curve" in s
+    check_png(s["train_curve"])
+    if args[0] == "--pkl":
+        assert s["ckpt_path"] is None and "test_result" in s
+    else:
+        assert os.path.isfile(os.path.join(s["ckpt_path"], "cg.npz"))
+        assert 0.0 <= s["result_test"]["acc"] <= 1.0
+    (events,) = os.listdir(tmp_path / "log" / prefix)
+    tags = read_scalars(str(tmp_path / "log" / prefix / events))
+    assert "loss/avg_loss" in tags and all(t.startswith(("acc/", "loss/")) for t in tags)
+
+
+@pytest.mark.parametrize("extra", [["--explain-node", "305"], []],
+                         ids=["explain-node", "stats"])
+def test_log_mask_every_runs(syn1_ckpts, extra):
+    """--log-mask-every: heatmaps at epochs 0, 2 and 4 of 5 for one node
+    (every 2), at epoch 0 of 3 for each of the 60 stats nodes (every 3),
+    counted in the summary's mask_heatmaps."""
+    root, dirs = syn1_ckpts
+    logdir = os.path.join(root, "log", "syn1_base_h20_o20_explain")
+    if extra:
+        s = cli_explain.main(dirs + extra + ["--epochs", "5", "--log-mask-every", "2"])
+        assert s["mask_heatmaps"] == 3
+        for ep in (0, 2, 4):
+            check_png(os.path.join(logdir, f"mask_masked_adj_{ep}.png"))
+        check_pdf(s["viz"])
+    else:
+        s = cli_explain.main(dirs + ["--epochs", "3", "--log-mask-every", "3"])
+        assert s["mask_heatmaps"] == 60
+        check_png(os.path.join(logdir, "mask_masked_adj_node455_0.png"))
+        # masked_w is 2-D and not a scalar: the events hold the 1-D terms
+        (events,) = [f for f in os.listdir(logdir) if f.startswith("events.out")]
+        assert not any("masked_w" in t for t in read_scalars(os.path.join(logdir, events)))
+
+
+def _jax_summary(main, argv, capsys):
+    main(argv)
+    text = capsys.readouterr().out
+    return json.loads(text[text.rindex("\n{\n") + 1:])
+
+
+def test_events_and_figures_match_tpugraph(tmp_path, monkeypatch, capsys):
+    """tpugraph's CLI and the port's on the same syn1 flags, the port from
+    tpugraph's initial weights: the same summary keys, files and scalar
+    tags, the training scalars within 1e-5; then both explainers' stats
+    run, one node and --multinode-class on tpugraph's checkpoint, the port
+    from tpugraph's mask init: the same files and summary keys, the
+    optimization scalars within 1e-4."""
+    import jax
+    import jax.numpy as jnp
+
+    from test_torch_tasks import jax_node_init
+    from tpugraph.cli import explain as jax_cli_explain
+    from tpugraph.cli import train as jax_cli_train
+    from tpugraph.explain.module import ExplainConfig as JaxExplainConfig
+    from tpugraph.explain.module import init_masks
+    from tpugraph_torch.cli import tasks
+    from tpugraph_torch.core.khop import khop_subgraph
+    from tpugraph_torch.explain.explainer import Explainer
+
+    ck = ["--ckptdir", str(tmp_path / "ckpt"), "--platform", "cpu", "--dataset", "syn1"]
+    train = ["--epochs", "50"]
+    jax_train = _jax_summary(jax_cli_train.main,
+                             ck + ["--logdir", str(tmp_path / "jax")] + train, capsys)
+    monkeypatch.setattr(tasks, "train_node_classifier",
+                        jax_node_init(tasks.train_node_classifier))
+    port_train = cli_train.main(ck[:1] + [str(tmp_path / "ckpt_port")] + ck[2:]
+                                + ["--logdir", str(tmp_path / "port")] + train)
+    assert set(port_train) == set(jax_train)
+
+    def files(root):  # the event file's name carries the wall-clock second
+        return sorted(re.sub(r"tfevents\.\d+\.", "tfevents.T.",
+                             os.path.relpath(os.path.join(d, f), root))
+                      for d, _, fs in os.walk(root) for f in fs)
+
+    def events(root, sub):
+        (f,) = [f for f in os.listdir(os.path.join(root, sub)) if f.startswith("events")]
+        return read_scalars(os.path.join(root, sub, f))
+
+    assert files(tmp_path / "port") == files(tmp_path / "jax")
+    ej, et = events(tmp_path / "jax", "syn1_base_h20_o20"), events(
+        tmp_path / "port", "syn1_base_h20_o20")
+    assert sorted(ej) == sorted(et)
+    for tag in ej:
+        assert [a for a, _ in et[tag]] == [a for a, _ in ej[tag]]
+        np.testing.assert_allclose([b for _, b in et[tag]], [b for _, b in ej[tag]],
+                                   atol=1e-5, err_msg=tag)
+
+    real = Explainer.explain_nodes_batch
+
+    def jax_init(self, node_indices, graph_idx=0, mesh=None, init_state=None):
+        if init_state is None:
+            g = self._graph(graph_idx)
+            keys = jax.random.split(jax.random.PRNGKey(self.seed), len(node_indices))
+            cfg_j = JaxExplainConfig(mask_bias=self.cfg.mask_bias)
+            states = [init_masks(k, g.num_edges_padded, self.feat.shape[-1],
+                                 jnp.int32(khop_subgraph(g, int(i), self.n_hops).num_nodes),
+                                 cfg_j) for k, i in zip(keys, node_indices)]
+            init_state = (np.stack([np.asarray(st.edge_logits) for st in states]),
+                          np.stack([np.asarray(st.feat_logits) for st in states]), None)
+        return real(self, node_indices, graph_idx, mesh, init_state)
+
+    monkeypatch.setattr(Explainer, "explain_nodes_batch", jax_init)
+    explain = ck + ["--epochs", "6"]
+    jax_ex = _jax_summary(jax_cli_explain.main,
+                          explain + ["--logdir", str(tmp_path / "jax_ex")], capsys)
+    port_ex = cli_explain.main(explain + ["--logdir", str(tmp_path / "port_ex")])
+    assert set(port_ex) == set(jax_ex)
+    assert port_ex["auc"] == pytest.approx(jax_ex["auc"], abs=1e-3)
+    assert files(tmp_path / "port_ex") == files(tmp_path / "jax_ex")
+    sub = "syn1_base_h20_o20_explain"
+    ej, et = events(tmp_path / "jax_ex", sub), events(tmp_path / "port_ex", sub)
+    assert sorted(ej) == sorted(et)
+    for tag in ej:
+        np.testing.assert_allclose([b for _, b in et[tag]], [b for _, b in ej[tag]],
+                                   atol=1e-4, err_msg=tag)
+    for extra in (["--explain-node", "305"], ["--multinode-class", "0", "--align-steps", "20"]):
+        want = _jax_summary(jax_cli_explain.main, explain + [
+            "--logdir", str(tmp_path / "jax_ex")] + extra, capsys)
+        got = cli_explain.main(explain + ["--logdir", str(tmp_path / "port_ex")] + extra)
+        assert set(got) == set(want)
+        assert files(tmp_path / "port_ex") == files(tmp_path / "jax_ex")
+    assert any(f.startswith(f"{sub}/align_ref_node_") for f in files(tmp_path / "port_ex"))

@@ -184,7 +184,9 @@ def test_cli_train_bmname(trained, method):
     s = trained["summaries"][method]
     assert s["dataset"] == "TOY" and s["method"] == method
     assert set(s) == {"dataset", "method", "ckpt_path", "elapsed_s",
-                      "best_val", "test_result"}
+                      "best_val", "test_result", "train_curve"}
+    assert s["train_curve"] == os.path.join(trained["root"], "log", "results",
+                                            f"TOY_{method}_h20_o20.png")
     assert 0.0 <= s["test_result"]["acc"] <= 1.0
     with open(os.path.join(s["ckpt_path"], "meta.json")) as f:
         meta = json.load(f)
@@ -206,8 +208,11 @@ def test_cli_explain_graph_modes(trained, method):
     keep = trained["dirs"] + ["--method", method, "--epochs", "5"]
     logdir = os.path.join(trained["root"], "log", f"TOY_{method}_h20_o20_explain")
     s = cli_explain.main(keep + ["--graph-mode"])
+    viz = s.pop("viz")
     assert s == {"dataset": "TOY", "mode": "graph", "graph_indices": [1, 2, 3, 4]}
+    assert viz == [os.path.join(logdir, f"graph_{gi}_0.pdf") for gi in (1, 2, 3, 4)]
     s = cli_explain.main(keep + ["--graph-idx", "0"])
+    assert s.pop("viz") == [os.path.join(logdir, "graph_0_0.pdf")]
     assert s == {"dataset": "TOY", "mode": "graph", "graph_idx": 0,
                  "mask_shape": [9, 9]}
     s = cli_explain.main(keep + ["--multigraph-class", "0"])

@@ -68,16 +68,23 @@ def test_package_imports_neither_jax_nor_tpugraph():
     """Import every module of the package in a fresh interpreter and check
     that neither jax nor tpugraph got loaded, nor a package the card
     machine lacks (optax, networkx, sklearn, matplotlib, tensorboardX,
-    msgpack)."""
+    msgpack), nor scipy, which only the Kamada-Kawai layout imports, when
+    it runs."""
     code = (
         "import pkgutil, sys, importlib, tpugraph_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(tpugraph_torch.__path__, "
         "'tpugraph_torch.')]\n"
         "[importlib.import_module(m) for m in mods]\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'tpugraph', 'flax',\n"
-        "    'optax', 'networkx', 'sklearn', 'matplotlib', 'tensorboardX', 'msgpack'))\n"
+        "    'optax', 'networkx', 'sklearn', 'matplotlib', 'tensorboardX', 'msgpack',\n"
+        "    'scipy'))\n"
         "assert len(mods) >= 20, mods\n"
         "assert not bad, bad\n"
+        "from tpugraph_torch.viz.layout import kamada_kawai_layout\n"
+        "from tpugraph_torch.data.shapes import SimpleGraph\n"
+        "g = SimpleGraph(); g.add_edge(0, 1)\n"
+        "kamada_kawai_layout(g)\n"
+        "assert 'scipy' in sys.modules\n"
         "print(len(mods))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -22,7 +22,11 @@ pipeline, ``GcnEncoderGraph``, the DiffPool ``SoftPoolingGcnEncoder``,
 ``train_graph_classifier``, ``--bmname``) with its graph-mode explainer
 on COO and on the tile kernels; every optimizer chain and schedule of
 ``tpugraph`` with ``--resume``, the grad/att baselines, representer
-scores, ``denoise_graph`` and the explanation alignment.
+scores, ``denoise_graph`` and the explanation alignment; the TensorBoard
+event writer, the profiling helpers and every figure ``tpugraph`` draws
+(``utils``, ``viz``); and the ``--pkl``, ppi_essential, enron,
+enron_multigraph and cross-validated tasks.  Not ported: the
+multi-device paths and the native graph engine.
 """
 
 __version__ = "0.1.0"

@@ -232,10 +232,6 @@ def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for the first flag of ``cfg`` whose
     module is not ported, naming the flag and its ROADMAP section 1 item."""
     unported = [
-        (cfg.log_mask_every > 0, "--log-mask-every", "item 10"),
-        (cfg.pkl_fname is not None, "--pkl", "item 9"),
-        (cfg.dataset in ("enron", "enron_multigraph", "ppi_essential"),
-         f"--dataset {cfg.dataset}", "item 9"),
         (cfg.halo_devices > 1, "--halo", "item 11"),
         (cfg.mesh_devices > 1, "--mesh", "item 11"),
         (cfg.dp_devices > 1, "--dp", "item 11"),

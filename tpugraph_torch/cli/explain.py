@@ -24,8 +24,19 @@ graph classifier's predictions over its graph cg bundle: graphs 1-4, one
 graph, or the first 31 graphs of a class, on the COO path; it ignores
 ``--explainer-model``, as ``tpugraph``'s does.  A DiffPool
 (``soft-assign``) checkpoint cannot be explained, as in ``tpugraph``.
-No graph renders, heatmaps or TensorBoard events are written yet
-(ROADMAP section 1 item 10), and the summary has no key for them.
+
+Renders land under ``<logdir>/<prefix>_explain[_suffix]``, as
+``tpugraph``'s do: one node's subgraph as ``node_<n>_0.pdf`` (the
+summary's ``viz``), with ``--log-mask-every k`` on the COO path the mask
+heatmaps ``mask_masked_adj_<epoch>.png`` every k epochs
+(``mask_heatmaps``); graph mode's ``graph_<i>_0.pdf`` (``viz``, a
+list); the stats run's first four subgraphs
+(``graph_<dataset>_<model>_<node>_0.pdf``), its PR curve
+(``pr/pr_<dataset>_<model>.png``) and, for ``exp``, the TensorBoard
+scalars ``optimization/<term>_loss`` of the first node, its mask
+``mask_adj_0.png`` and feature mask ``mask_feat_mask_0.png`` (with
+``--log-mask-every``, each node's heatmaps too); the alignment's two
+subgraphs.
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ from tpugraph_torch.explain.module import ExplainConfig
 from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode
 from tpugraph_torch.train.checkpoint import (gen_explainer_prefix, gen_prefix,
                                              load_checkpoint)
+from tpugraph_torch.utils.tb_writer import SummaryWriter
+from tpugraph_torch.viz.graphs import denoise_graph, log_graph, save_matrix_image
 
 
 def build_explainer(cfg: Config) -> Explainer:
@@ -115,6 +128,17 @@ def build_explainer(cfg: Config) -> Explainer:
     )
 
 
+def _mask_heatmaps(ex: Explainer, r: Dict, every: int, name: str) -> int:
+    """Heatmaps of a result's masked adjacency every ``every`` mask epochs
+    (``tpugraph/cli/explain.py:135-153``); the count drawn."""
+    w_hist = np.asarray(r["history"]["masked_w"])
+    g = ex._graph(0)
+    for ep in range(0, w_hist.shape[0], every):
+        save_matrix_image(ex._densify_mask(g, w_hist[ep], r["neighbors"]),
+                          name, outdir=ex.logdir, epoch=ep)
+    return len(range(0, w_hist.shape[0], every))
+
+
 def main(argv=None) -> Dict:
     """Run the explainer on ``argv`` (``sys.argv`` when ``None``); returns
     the summary it prints."""
@@ -124,31 +148,44 @@ def main(argv=None) -> Dict:
     if cfg.explain_node is not None:
         if cfg.explainer_model != "exp":
             masked_adj = ex.explain(cfg.explain_node, model=cfg.explainer_model)
+            new_idx = ex.extract_neighborhood(cfg.explain_node)[0]
         else:
             if cfg.use_bcsr:
                 r = ex.explain_node_bcsr(cfg.explain_node, block=cfg.bcsr_block)
             else:
                 r = ex.explain_nodes_batch([cfg.explain_node])[0]
-            masked_adj = r["masked_adj"]
+            masked_adj, new_idx = r["masked_adj"], r["node_idx_new"]
             ex._save_npy(masked_adj, cfg.explain_node)
+            if cfg.log_mask_every > 0 and "masked_w" in r["history"]:
+                summary["mask_heatmaps"] = _mask_heatmaps(
+                    ex, r, cfg.log_mask_every, "mask/masked_adj")
         summary["explain_node"] = cfg.explain_node
         summary["mask_shape"] = list(masked_adj.shape)
+        G = denoise_graph(masked_adj, new_idx, threshold_num=12)
+        summary["viz"] = log_graph(G, f"node_{cfg.explain_node}", outdir=ex.logdir)
     elif ex.graph_mode:
         if cfg.multigraph_class >= 0:
             labels = np.asarray(ex.label).reshape(-1)
             graph_indices = [i for i, lab in enumerate(labels)
                              if lab == cfg.multigraph_class][:31]
-            ex.explain_graphs(graph_indices)
+            masked = ex.explain_graphs(graph_indices)
             summary["graph_indices"] = graph_indices
         elif cfg.graph_idx == -1:
             graph_indices = [1, 2, 3, 4]
-            ex.explain_graphs(graph_indices)
+            masked = ex.explain_graphs(graph_indices)
             summary["graph_indices"] = graph_indices
         else:
             masked_adj = ex.explain(node_idx=0, graph_idx=cfg.graph_idx,
                                     graph_mode=True)
+            graph_indices, masked = [cfg.graph_idx], [masked_adj]
             summary["graph_idx"] = cfg.graph_idx
             summary["mask_shape"] = list(masked_adj.shape)
+        viz = []
+        for gi, ma in zip(graph_indices, masked):
+            G = denoise_graph(ma, 0, threshold_num=20, max_component=False)
+            if G.number_of_nodes():
+                viz.append(log_graph(G, f"graph_{gi}", outdir=ex.logdir))
+        summary["viz"] = viz
     elif cfg.multinode_class >= 0:
         labels = np.asarray(ex.label[0])
         node_indices = [i for i, lab in enumerate(labels)
@@ -163,6 +200,30 @@ def main(argv=None) -> Dict:
                                          model=cfg.explainer_model)
         summary["num_nodes_explained"] = len(node_indices)
         summary["auc"] = res["auc"]
+        if cfg.log_mask_every > 0:
+            summary["mask_heatmaps"] = sum(
+                _mask_heatmaps(ex, r, cfg.log_mask_every,
+                               f"mask/masked_adj_node{r['node_idx']}")
+                for r in res["results"] if "masked_w" in r.get("history", {}))
+        for r in res["results"][:4]:
+            G = denoise_graph(r["masked_adj"], r["node_idx_new"], threshold_num=20)
+            log_graph(G, f"graph_{cfg.name}_{cfg.explainer_model}_{r['node_idx']}",
+                      outdir=ex.logdir)
+        if cfg.explainer_model == "exp" and res["results"]:
+            # tpugraph writes every history term, and its 2-D masked_w (with
+            # --log-mask-every) fails float(); the port writes the 1-D terms
+            writer = SummaryWriter(ex.logdir)
+            for term, values in res["results"][0].get("history", {}).items():
+                values = np.asarray(values)
+                if values.ndim == 1:
+                    for epoch, v in enumerate(values.tolist()):
+                        writer.add_scalar(f"optimization/{term}_loss", v, epoch)
+            writer.close()
+            r0 = res["results"][0]
+            save_matrix_image(r0["masked_adj"], "mask/adj", outdir=ex.logdir)
+            if "feat_mask" in r0:
+                save_matrix_image(r0["feat_mask"][None], "mask/feat_mask",
+                                  outdir=ex.logdir)
     print(json.dumps(summary, indent=2, default=float))
     return summary
 

@@ -1,30 +1,40 @@
 """Port of ``tpugraph/cli/tasks.py``: build the dataset and the model,
 train, then save the checkpoint with the dense cg bundle.
 
-syn1–syn5 node classification and ``--bmname`` graph classification on a
-TU-format dataset (``benchmark_task``), on one device; the other tasks
-(cross-validation, ``--pkl``, enron, ppi) raise by name
+Every single-device task of ``tpugraph``: syn1–syn5, ``ppi_essential``
+(class-weighted), ``enron`` (the slices' disjoint union) and
+``enron_multigraph`` (the slices as one stack) node classification;
+``--bmname`` graph classification on a TU-format dataset
+(``benchmark_task``), its 10-fold cross-validation
+(``benchmark_task_val``, which no flag reaches, as in ``tpugraph``) and
+``--pkl`` graph classification on pickled networkx graphs, read without
+networkx (:func:`tpugraph_torch.data.readers.load_graph_pickle`).  The
+multi-device flags raise by name
 (:func:`tpugraph_torch.cli.config.check_ported`).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import os
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpugraph_torch.cli.config import Config, check_ported, cli_device
-from tpugraph_torch.core.graph import Graph, graph_from_edge_list
+from tpugraph_torch.core.graph import Graph, graph_from_edge_list, graph_from_edges
 from tpugraph_torch.data import GENERATORS, ConstFeatureGen, preprocess_input_graph
-from tpugraph_torch.data.pipeline import prepare_data
-from tpugraph_torch.data.readers import read_graphfile
+from tpugraph_torch.data.pipeline import GraphBatcher, prepare_data, to_numpy_array
+from tpugraph_torch.data.readers import (ENRON_LABELS, disjoint_union_all,
+                                         load_enron_slices, load_graph_pickle,
+                                         read_biosnap, read_graphfile)
 from tpugraph_torch.data.shapes import SimpleGraph
 from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode, SoftPoolingGcnEncoder
 from tpugraph_torch.train.checkpoint import (gen_prefix, load_checkpoint,
                                              save_checkpoint)
 from tpugraph_torch.train.loop import (TrainConfig, train_graph_classifier,
                                        train_node_classifier)
+from tpugraph_torch.train.multigraph import train_node_classifier_multigraph
 
 
 def padded_features(G: SimpleGraph, g: Graph) -> np.ndarray:
@@ -80,20 +90,31 @@ def build_node_model(cfg: Config, input_dim: int, num_classes: int,
     )
 
 
-def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
-    """Padded graph, training on ``--platform``'s device, and the
-    checkpoint with the dense cg bundle, the optimizer state and ``meta``
+def _edges_in_order(G: SimpleGraph):
+    index = {u: i for i, u in enumerate(G.nodes())}
+    return [(index[u], index[v]) for u, v in G.edges()]
+
+
+def node_task_model(cfg: Config, G: SimpleGraph, labels, device):
+    """The node task's model on ``device``, its graph in ``G.nodes()``
+    order and its padded features, as :func:`run_node_task` builds them."""
+    g = graph_from_edge_list(G.number_of_nodes(), _edges_in_order(G))
+    feat = padded_features(G, g)
+    return build_node_model(cfg, feat.shape[1], int(max(labels)) + 1, device), g, feat
+
+
+def run_node_task(cfg: Config, G: SimpleGraph, labels,
+                  class_weight: Optional[np.ndarray] = None, log_fn=None) -> Dict:
+    """Padded graph, training on ``--platform``'s device (the loss weighed
+    by ``class_weight`` when given), and the checkpoint with the dense cg
+    bundle, the optimizer state and ``meta``
     (``tpugraph/cli/tasks.py:64-176``, single device).  ``--resume``
     starts from the checkpoint's ``params.pt`` (or ``tpugraph``'s
     ``params.msgpack``) and ``opt_state.pt`` when it has one, trains
     ``--epochs`` more and overwrites it."""
     device = cli_device(cfg)
     num_classes = int(max(labels)) + 1
-    index = {u: i for i, u in enumerate(G.nodes())}
-    g = graph_from_edge_list(G.number_of_nodes(),
-                             [(index[u], index[v]) for u, v in G.edges()])
-    feat = padded_features(G, g)
-    model = build_node_model(cfg, feat.shape[1], num_classes, device)
+    model, g, feat = node_task_model(cfg, G, labels, device)
     prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
                         cfg.bias, cfg.name_suffix)
     init_params = init_opt = None
@@ -103,7 +124,8 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
     out = train_node_classifier(model, g, feat, labels, train_config(cfg),
                                 seed=cfg.seed, log_fn=log_fn, device=device,
                                 init_params=init_params,
-                                init_opt_state=init_opt)
+                                init_opt_state=init_opt,
+                                class_weight=class_weight)
     data = preprocess_input_graph(G, labels)
     n_real = data["adj"].shape[1]
     cg = {
@@ -139,16 +161,87 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels, log_fn=None) -> Dict:
     return out
 
 
-def syn_task(cfg: Config, log_fn=None) -> Dict:
-    """syn1–syn5 node classification (``tpugraph/cli/tasks.py:179``):
-    constant features, but syn2's own Gaussian community features."""
-    gen = GENERATORS[cfg.dataset]
-    if cfg.dataset == "syn2":
-        G, labels, _ = gen(seed=cfg.seed)
-    else:
-        const_feat = ConstFeatureGen(np.ones(cfg.input_dim, dtype=np.float32))
-        G, labels, _ = gen(feature_generator=const_feat, seed=cfg.seed)
-    return run_node_task(cfg, G, labels, log_fn=log_fn)
+def node_task_data(cfg: Config) -> Tuple[SimpleGraph, np.ndarray, Optional[np.ndarray]]:
+    """The graph, labels and loss class weight of ``cfg``'s single-graph
+    node task: syn1–syn5 with constant features, but syn2's own Gaussian
+    community features (``tpugraph/cli/tasks.py:179``); Enron's roles over
+    the disjoint union of the 10 pickled slices (``:190``); ppi_essential,
+    read from ``<datadir>/ppi_essential``, with the class weight ``[1, 5]``
+    (``:202``)."""
+    if cfg.dataset in GENERATORS:
+        gen = GENERATORS[cfg.dataset]
+        if cfg.dataset == "syn2":
+            G, labels, _ = gen(seed=cfg.seed)
+        else:
+            const_feat = ConstFeatureGen(np.ones(cfg.input_dim, dtype=np.float32))
+            G, labels, _ = gen(feature_generator=const_feat, seed=cfg.seed)
+        return G, np.asarray(labels), None
+    if cfg.dataset == "enron":
+        G = disjoint_union_all(load_enron_slices(cfg.datadir, input_dim=cfg.input_dim))
+        return G, np.array([ENRON_LABELS[G.attrs.get(u, {}).get("role", "None")]
+                            for u in G.nodes()]), None
+    if cfg.dataset == "ppi_essential":
+        G = read_biosnap(os.path.join(cfg.datadir, "ppi_essential"),
+                         "hi-union-ppi.tsv", "G-HumanEssential.tsv",
+                         feat_file="G-MtfPathways_gene-motifs.csv")
+        return (G, np.array([G.attrs[u]["label"] for u in G.nodes()]),
+                np.array([1.0, 5.0], np.float32))
+    raise ValueError(f"unknown dataset {cfg.dataset!r}")
+
+
+def node_task(cfg: Config, log_fn=None) -> Dict:
+    """:func:`run_node_task` on :func:`node_task_data`."""
+    G, labels, class_weight = node_task_data(cfg)
+    return run_node_task(cfg, G, labels, class_weight=class_weight, log_fn=log_fn)
+
+
+def enron_multigraph_task(cfg: Config, log_fn=None) -> Dict:
+    """Enron as the 10 slices trained together by one model
+    (``tpugraph/cli/tasks.py:321``): every slice padded to the largest
+    node id (added nodes have no features, as in ``tpugraph``, whose
+    feature read then fails) and to one edge budget, and the checkpoint
+    with the stacked cg bundle."""
+    device = cli_device(cfg)
+    G_list = load_enron_slices(cfg.datadir, input_dim=cfg.input_dim)
+    max_id = max(max(G.nodes()) for G in G_list) + 1
+    e_pad = max(((2 * G.number_of_edges() + 7) // 8) * 8 for G in G_list)
+    labels, graphs, feats = [], [], []
+    for G in G_list:
+        G.add_nodes_from(range(max_id))
+        labels.append([ENRON_LABELS[G.attrs.get(u, {}).get("role", "None")]
+                       for u in G.nodes()])
+        s, r = [], []
+        for u, v in _edges_in_order(G):
+            s.append(u)
+            r.append(v)
+            if u != v:
+                s.append(v)
+                r.append(u)
+        g = graph_from_edges(np.asarray(s, np.int32), np.asarray(r, np.int32),
+                             G.number_of_nodes(), num_edges_padded=e_pad)
+        graphs.append(g)
+        feats.append(padded_features(G, g))
+    model = build_node_model(cfg, feats[0].shape[1], max(ENRON_LABELS.values()) + 1,
+                             device)
+    out = train_node_classifier_multigraph(model, graphs, np.stack(feats),
+                                           np.asarray(labels), train_config(cfg),
+                                           seed=cfg.seed, log_fn=log_fn,
+                                           device=device)
+    n_real = int(graphs[0].n_node)
+    cg = {
+        "adj": np.stack([to_numpy_array(G).astype(np.float32) for G in G_list]),
+        "feat": np.stack(feats)[:, :n_real],
+        "label": np.asarray(labels),
+        "pred": out["ypred"][:, :n_real],
+        "train_idx": out["train_idx"],
+    }
+    prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
+                        cfg.bias, cfg.name_suffix)
+    out["ckpt_path"] = save_checkpoint(cfg.ckptdir, prefix, out["params"], cg_dict=cg,
+                                       meta={"model_type": cfg.method,
+                                             "task": "node_multigraph"})
+    out["cg"] = cg
+    return out
 
 
 def build_graph_model(cfg: Config, train_b, num_classes: int, device=None):
@@ -246,12 +339,98 @@ def benchmark_task(cfg: Config, log_fn=None, feat: str = "node-label") -> Dict:
     return out
 
 
+def _const_features(cfg: Config, graphs) -> None:
+    const = ConstFeatureGen(np.ones(cfg.input_dim, dtype=np.float32))
+    for G in graphs:
+        const.gen_node_features(G)
+
+
+def pkl_task(cfg: Config, log_fn=None) -> Dict:
+    """Graph classification from a pickled ``(graphs, labels[,
+    test_graphs, test_labels])`` bundle of networkx graphs
+    (``tpugraph/cli/tasks.py:375``): constant features where a graph has
+    none, unnormalized batches padded to the largest graph, no
+    checkpoint."""
+    device = cli_device(cfg)
+    data = load_graph_pickle(os.path.join(cfg.datadir, cfg.pkl_fname))
+    graphs, labels = data[0], data[1]
+    test_graphs = data[2] if len(data) > 2 else []
+    test_labels = data[3] if len(data) > 3 else []
+    for i, G in enumerate(graphs):
+        G.graph["label"] = labels[i]
+    for i, G in enumerate(test_graphs):
+        G.graph["label"] = test_labels[i]
+    _const_features(cfg, [G for G in list(graphs) + list(test_graphs)
+                          if G.nodes()[0] not in G.feat])
+    max_nodes = max(G.number_of_nodes() for G in list(graphs) + list(test_graphs))
+    train_b = GraphBatcher(graphs, normalize=False, max_num_nodes=max_nodes,
+                           features=cfg.feature_type)
+    test_b = (GraphBatcher(test_graphs, normalize=False, max_num_nodes=max_nodes,
+                           features=cfg.feature_type) if test_graphs else None)
+    num_classes = int(max(G.graph["label"] for G in graphs)) + 1
+    model = GcnEncoderGraph(
+        input_dim=train_b.feat_dim, hidden_dim=cfg.hidden_dim,
+        embedding_dim=cfg.output_dim, label_dim=num_classes,
+        num_layers=cfg.num_gc_layers, bn=cfg.bn, dropout=cfg.dropout,
+        use_bias=cfg.bias, generator=torch.Generator().manual_seed(cfg.seed),
+        device=device)
+    return train_graph_classifier(model, train_b, train_config(cfg),
+                                  test_batcher=test_b, seed=cfg.seed,
+                                  log_fn=log_fn, device=device)
+
+
+def benchmark_task_val(cfg: Config, log_fn=None, feat: str = "node-label",
+                       n_splits: int = 10) -> Dict:
+    """``n_splits``-fold cross-validated graph classification
+    (``tpugraph/cli/tasks.py:424``): the folds of one seeded permutation,
+    fold ``i`` validating a model trained on the rest with seed ``seed +
+    i``; returns the mean validation accuracy at each evaluation
+    (``val_acc_mean``), its best value and where it is."""
+    device = cli_device(cfg)
+    graphs = read_graphfile(cfg.datadir, cfg.bmname, max_nodes=cfg.max_nodes)
+    if feat == "node-label" and graphs[0].nodes()[0] in graphs[0].node_label:
+        for G in graphs:
+            G.feat = {u: np.asarray(lab, dtype=np.float32)
+                      for u, lab in G.node_label.items()}
+    else:
+        _const_features(cfg, graphs)
+    num_classes = max(G.graph["label"] for G in graphs) + 1
+    order = np.random.default_rng(cfg.seed).permutation(len(graphs))
+    folds = np.array_split(order, n_splits)
+    max_nodes = cfg.max_nodes or max(G.number_of_nodes() for G in graphs)
+    all_vals = []
+    for i in range(n_splits):
+        train_idx = np.concatenate([folds[j] for j in range(n_splits) if j != i])
+        train_b = GraphBatcher([graphs[k] for k in train_idx], normalize=False,
+                               max_num_nodes=max_nodes)
+        val_b = GraphBatcher([graphs[k] for k in folds[i]], normalize=False,
+                             max_num_nodes=max_nodes)
+        model = GcnEncoderGraph(
+            input_dim=train_b.feat_dim, hidden_dim=cfg.hidden_dim,
+            embedding_dim=cfg.output_dim, label_dim=num_classes,
+            num_layers=cfg.num_gc_layers, bn=cfg.bn, dropout=cfg.dropout,
+            use_bias=cfg.bias,
+            generator=torch.Generator().manual_seed(cfg.seed + i), device=device)
+        out = train_graph_classifier(model, train_b, train_config(cfg),
+                                     val_batcher=val_b, seed=cfg.seed + i,
+                                     log_fn=log_fn, device=device)
+        all_vals.append(out["history"]["val_acc"])
+    lens = min(len(v) for v in all_vals)
+    mean_vals = np.mean([v[:lens] for v in all_vals], axis=0)
+    return {"val_acc_mean": mean_vals.tolist(),
+            "best_val_acc": float(np.max(mean_vals)),
+            "best_epoch_idx": int(np.argmax(mean_vals))}
+
+
 def run_task(cfg: Config, log_fn=None) -> Dict:
     """The task ``cfg`` names (``tpugraph/cli/tasks.py:482``): ``--bmname``
-    graph classification or syn1–syn5; unported flags raise by name."""
+    graph classification, ``--pkl``, syn1–syn5, enron, enron_multigraph or
+    ppi_essential; the multi-device flags raise by name."""
     check_ported(cfg)
     if cfg.bmname is not None:
         return benchmark_task(cfg, log_fn=log_fn)
-    if cfg.dataset in GENERATORS:
-        return syn_task(cfg, log_fn=log_fn)
-    raise ValueError(f"unknown dataset {cfg.dataset!r}")
+    if cfg.pkl_fname is not None:
+        return pkl_task(cfg, log_fn=log_fn)
+    if cfg.dataset == "enron_multigraph":
+        return enron_multigraph_task(cfg, log_fn=log_fn)
+    return node_task(cfg, log_fn=log_fn)

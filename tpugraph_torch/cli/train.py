@@ -13,28 +13,46 @@ Usage:
 node trainer's optimizer chain; graph classification keeps Adam at 0.001,
 as ``tpugraph``'s does.  ``--resume`` continues a node checkpoint for
 ``--epochs`` more, the schedule from its saved update count.
-Prints the metrics every 25 epochs and a JSON summary at the end.  No
-TensorBoard events or accuracy-curve PNG are written yet (ROADMAP
-section 1 item 10), and the summary has no key for them.
+  python -m tpugraph_torch.cli.train --pkl=graphs.pkl --datadir D
+  python -m tpugraph_torch.cli.train --dataset=ppi_essential|enron|enron_multigraph --datadir D
+
+Prints the metrics every 25 epochs and a JSON summary at the end.  As
+``tpugraph``'s does, it writes the metrics as TensorBoard scalars
+(``loss/avg_loss``, ``acc/<name>``) to
+``<logdir>/<prefix>/events.out.tfevents.*`` and the training accuracy
+curve to ``<logdir>/results/<prefix>.png`` (the summary's
+``train_curve``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict
 
-from tpugraph_torch.cli.config import parse_train_args
+from tpugraph_torch.cli.config import check_ported, cli_device, parse_train_args
 from tpugraph_torch.cli.tasks import run_task
+from tpugraph_torch.train.checkpoint import gen_prefix
+from tpugraph_torch.utils.tb_writer import SummaryWriter
+from tpugraph_torch.viz.graphs import plot_accuracy_curve
 
 
 def main(argv=None) -> Dict:
     """Run the trainer on ``argv`` (``sys.argv`` when ``None``); returns the
     summary it prints."""
     cfg = parse_train_args(argv)
+    check_ported(cfg)
+    cli_device(cfg)  # an unusable --platform raises before anything is written
+    prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
+                        cfg.bias, cfg.name_suffix)
+    writer = SummaryWriter(os.path.join(cfg.logdir, prefix))
 
     def log_fn(epoch, scalars):
         msg = "; ".join(f"{k}: {v:.4f}" for k, v in scalars.items())
         print(f"epoch {epoch}: {msg}", flush=True)
+        for k, v in scalars.items():
+            writer.add_scalar("loss/avg_loss" if k == "loss" else f"acc/{k}", v,
+                              step=epoch)
 
     out = run_task(cfg, log_fn=log_fn)
     summary = {
@@ -49,6 +67,12 @@ def main(argv=None) -> Dict:
     if "result_train" in out:
         print("train conf_mat:\n", out["result_train"]["conf_mat"])
         print("test conf_mat:\n", out["result_test"]["conf_mat"])
+    hist = out.get("history") or {}
+    if hist.get("train_acc"):
+        summary["train_curve"] = plot_accuracy_curve(
+            hist["train_acc"], hist.get("test_acc") or hist.get("val_acc"),
+            name=prefix, outdir=os.path.join(cfg.logdir, "results"))
+    writer.close()
     print(json.dumps(summary, indent=2, default=float))
     return summary
 

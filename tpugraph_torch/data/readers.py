@@ -11,17 +11,33 @@ in ``_A.txt`` (a node with no edge is dropped, as by
 ``nx.Graph.add_edges_from``), ``u -> v`` and ``v -> u`` are one edge (the
 later line's label wins), graphs over ``max_nodes`` are skipped, and ids
 are relabelled 0.. in node order (``nx.relabel_nodes``, edges re-added in
-``edges()`` order).  ``read_biosnap`` and ``load_enron_slices`` are not
-ported yet (ROADMAP section 1 item 9).
+``edges()`` order).
+
+``read_biosnap`` keeps the largest component in networkx's own node
+order: the component is the set ``nx.connected_components`` builds, and
+``G.subgraph(c).copy()`` lists it in that set's order when it holds under
+half of the graph's nodes, else in the graph's order (networkx's
+``FilterAtlas``); Python builds the same sets in the same order, so the
+port reproduces the order rather than sorting.  Pickles (``--pkl``, the
+Enron slices) hold ``nx.Graph`` objects and the card has no networkx:
+:func:`load_graph_pickle` reads them through an unpickler that maps
+networkx's ``Graph`` onto :class:`LabeledGraph` (its node, adjacency and
+attribute dicts taken as they are, so the order is networkx's) and its
+view classes onto nothing, allows numpy's array and scalar
+reconstructors, and refuses every other class outside the builtins.
 """
 
 from __future__ import annotations
 
+import csv
+import io
 import os
+import pickle
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tpugraph_torch.data.featgen import ConstFeatureGen
 from tpugraph_torch.data.shapes import SimpleGraph
 
 
@@ -130,3 +146,243 @@ def read_graphfile(
             out.graph["feat_dim"] = int(node_feats[0].shape[0])
         graphs.append(out)
     return graphs
+
+
+# ------------------------------------------------------------- pickles
+
+
+class _NxGraphState:
+    """What an ``nx.Graph`` unpickles into: its ``__dict__``."""
+
+    def __setstate__(self, state):
+        self.state = state
+
+
+class _NxView:
+    """A pickled networkx view (``G.nodes``, ``G.edges``, ...): dropped."""
+
+    def __setstate__(self, state):
+        pass
+
+
+_NUMPY_ALLOWED = {
+    ("numpy.core.multiarray", "_reconstruct"), ("numpy._core.multiarray", "_reconstruct"),
+    ("numpy.core.multiarray", "scalar"), ("numpy._core.multiarray", "scalar"),
+    ("numpy", "ndarray"), ("numpy", "dtype"),
+}
+
+
+class _GraphUnpickler(pickle.Unpickler):
+    """Maps ``networkx.classes.graph.Graph`` onto :class:`_NxGraphState`
+    and networkx's view classes onto :class:`_NxView`; allows numpy's
+    array and scalar reconstructors; refuses any other class outside the
+    builtins."""
+
+    def find_class(self, module, name):
+        if (module, name) == ("networkx.classes.graph", "Graph"):
+            return _NxGraphState
+        if module in ("networkx.classes.reportviews", "networkx.classes.coreviews"):
+            return _NxView
+        if (module, name) in _NUMPY_ALLOWED:
+            return super().find_class(module, name)
+        if module == "builtins" and name in ("set", "frozenset", "list", "dict",
+                                             "tuple", "int", "float", "str",
+                                             "bytes", "bool", "complex"):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"refusing to unpickle {module}.{name}")
+
+
+def _to_graph(obj):
+    """Unpickled networkx graphs, anywhere inside lists and tuples, as
+    :class:`LabeledGraph`: nodes and neighbours in networkx's dict
+    order, a node's ``feat`` attribute in ``feat``, its other attributes
+    in ``attrs``, an edge's ``weight`` as its weight, ``G.graph`` as
+    ``graph``."""
+    if isinstance(obj, _NxGraphState):
+        st = obj.state
+        g = LabeledGraph()
+        g.graph = dict(st.get("graph", {}))
+        for u, data in st["_node"].items():
+            g.add_node(u)
+            data = dict(data)
+            if "feat" in data:
+                g.feat[u] = np.asarray(data.pop("feat"))
+            g.attrs[u] = data
+        for u, nbrs in st["_adj"].items():
+            for v, d in nbrs.items():
+                g._adj[u][v] = d.get("weight")
+        return g
+    if isinstance(obj, list):
+        return [_to_graph(o) for o in obj]
+    if isinstance(obj, tuple):
+        return tuple(_to_graph(o) for o in obj)
+    return obj
+
+
+def load_graph_pickle(path: str):
+    """``pickle.load`` of ``path`` without networkx: every ``nx.Graph`` in
+    it comes back as a :class:`LabeledGraph` (``pickle.UnpicklingError``
+    for a class the reader does not allow)."""
+    with open(path, "rb") as f:
+        return _to_graph(_GraphUnpickler(io.BytesIO(f.read())).load())
+
+
+# --------------------------------------------------------- BioSnap PPI
+
+
+def _largest_component_nx_order(G: SimpleGraph) -> List[int]:
+    """The nodes of ``G.subgraph(max(nx.connected_components(G),
+    key=len)).copy()`` in networkx's order: each component is the set its
+    BFS builds (``_plain_bfs``), the first largest wins, the view copies
+    it through ``set(nbunch_iter(c))`` and lists that set when it holds
+    under half of ``G``'s nodes, else ``G``'s nodes that are in it."""
+    seen: set = set()
+    n = G.number_of_nodes()
+    best = None
+    for v in G.nodes():
+        if v in seen:
+            continue
+        comp = {v}
+        nextlevel = [v]
+        while nextlevel:
+            thislevel, nextlevel = nextlevel, []
+            for u in thislevel:
+                for w in G._adj[u]:
+                    if w not in comp:
+                        comp.add(w)
+                        nextlevel.append(w)
+                if len(comp) == n - len(seen):
+                    break
+            if len(comp) == n - len(seen):
+                break
+        seen.update(comp)
+        if best is None or len(comp) > len(best):
+            best = comp
+    shown = set(u for u in best if u in G._adj)
+    if 2 * len(shown) < n:
+        return [u for u in shown if u in G._adj]
+    return [u for u in G.nodes() if u in shown]
+
+
+def _subgraph_copy(G: SimpleGraph, nodes: List[int]) -> SimpleGraph:
+    """``G.subgraph(nodes).copy()`` with the node order given: nodes added
+    in that order, then each node's kept neighbours in ``G``'s order."""
+    keep = set(nodes)
+    h = SimpleGraph()
+    h.add_nodes_from(nodes)
+    for u in nodes:
+        for v in G._adj[u]:
+            if v in keep:
+                h.add_edge(u, v, G._adj[u][v])
+    return h
+
+
+def read_biosnap(datadir: str, edgelist_file: str, label_file: str,
+                 feat_file: Optional[str] = None, concat: bool = True
+                 ) -> SimpleGraph:
+    """BioSnap PPI graph with gene-essentiality labels
+    (``tpugraph/data/readers.py:111``): the edge list (TSV or CSV, ``#``
+    lines and unparsable rows skipped), its largest component in
+    networkx's order, ``attrs[u]["label"] = 1`` iff the label file's second
+    column is ``Essential`` (unlabelled nodes dropped), then features:
+    ``ones(10)``, or from the CSV ``[log(v + 0.1)..., 1.0,
+    degree-onehot(10)]`` (``concat``) or the log-features alone, nodes
+    without a row dropped; ids relabelled 0.. in node order."""
+    G = SimpleGraph()
+    delimiter = "\t" if "tsv" in edgelist_file else ","
+    with open(os.path.join(datadir, edgelist_file)) as f:
+        for row in csv.reader(f, delimiter=delimiter):
+            if not row or row[0].lstrip().startswith("#"):
+                continue
+            try:
+                G.add_edge(int(row[0]), int(row[1]))
+            except ValueError:
+                continue
+    G = _subgraph_copy(G, _largest_component_nx_order(G))
+    G.attrs = {u: {} for u in G.nodes()}
+    with open(os.path.join(datadir, label_file)) as f:
+        for row in csv.reader(f, delimiter="\t"):
+            if len(row) < 2 or row[0].lstrip().startswith("#"):
+                continue
+            try:
+                gene = int(row[0])
+            except ValueError:
+                continue
+            if gene in G.attrs:
+                G.attrs[gene]["label"] = int(row[1].strip() == "Essential")
+    G.remove_nodes_from([u for u in G.nodes() if "label" not in G.attrs[u]])
+    if feat_file is None:
+        for u in G.nodes():
+            G.feat[u] = np.ones(10, dtype=np.float32)
+    else:
+        degree = dict(G.degree())
+        with open(os.path.join(datadir, feat_file)) as f:
+            reader = csv.reader(f)
+            next(reader)  # header row
+            for row in reader:
+                try:
+                    gene = int(row[0])
+                except ValueError:
+                    continue
+                if gene not in degree:
+                    continue
+                logfeat = np.log(np.array([float(x) if x else 0.0 for x in row[1:]],
+                                          dtype=np.float32) + 0.1)
+                if concat:
+                    onehot = np.zeros(10, dtype=np.float32)
+                    onehot[max(min(degree[gene], 10) - 1, 0)] = 1.0
+                    G.feat[gene] = np.concatenate([logfeat, [1.0], onehot]
+                                                  ).astype(np.float32)
+                else:
+                    G.feat[gene] = logfeat
+        G.remove_nodes_from([u for u in G.nodes() if u not in G.feat])
+    mapping = {u: i for i, u in enumerate(G.nodes())}
+    out = G.relabeled(mapping)
+    out.attrs = {mapping[u]: a for u, a in G.attrs.items()}
+    return out
+
+
+# --------------------------------------------------------------- Enron
+
+ENRON_LABELS = {
+    "None": 5,
+    "Employee": 0,
+    "Vice President": 1,
+    "Manager": 2,
+    "Trader": 3,
+    "CEO+Managing Director+Director+President": 4,
+}
+
+
+def load_enron_slices(datadir: str, num_slices: int = 10,
+                      input_dim: int = 10) -> List[LabeledGraph]:
+    """The pickled Enron time slices
+    ``<datadir>/gnn-explainer-enron/enron_slice_<i>.pkl``, each with
+    constant ``ones(input_dim)`` features (``tpugraph/data/readers.py:201``);
+    a node's ``role`` is in ``attrs``."""
+    gen = ConstFeatureGen(np.ones(input_dim, dtype=np.float32))
+    out = []
+    for i in range(num_slices):
+        net = load_graph_pickle(os.path.join(datadir, "gnn-explainer-enron",
+                                             f"enron_slice_{i}.pkl"))
+        gen.gen_node_features(net)
+        out.append(net)
+    return out
+
+
+def disjoint_union_all(graphs: List[SimpleGraph]) -> SimpleGraph:
+    """``nx.disjoint_union_all``: each graph relabelled to consecutive
+    integers in node order (``convert_node_labels_to_integers``, edges in
+    ``edges()`` order), then nodes and edges of each added in turn; node
+    features and attributes carried."""
+    out = SimpleGraph()
+    first = 0
+    for G in graphs:
+        mapping = {u: first + i for i, u in enumerate(G.nodes())}
+        h = G.relabeled(mapping)
+        out.add_nodes_from(h.nodes())
+        out.add_edges_from(h.edges())
+        out.feat.update(h.feat)
+        out.attrs.update({mapping[u]: dict(a) for u, a in G.attrs.items()})
+        first += G.number_of_nodes()
+    return out

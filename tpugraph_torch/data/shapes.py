@@ -71,6 +71,18 @@ class SimpleGraph:
         if u != v:
             del self._adj[v][u]
 
+    def remove_nodes_from(self, nodes) -> None:
+        """``nx.Graph.remove_nodes_from``: each node, its edges and its
+        features and attributes go; absent nodes are skipped."""
+        for u in nodes:
+            if u not in self._adj:
+                continue
+            for v in list(self._adj[u]):
+                del self._adj[v][u]
+            del self._adj[u]
+            self.feat.pop(u, None)
+            self.attrs.pop(u, None)
+
     def has_edge(self, u: int, v: int) -> bool:
         return u in self._adj and v in self._adj[u]
 

@@ -25,8 +25,9 @@ a trained model and its cg bundle, on two paths.
 
 Results keep the reference's dense ``masked_adj`` contract
 (ascending-neighbor sub-adjacency) and its ``.npy`` file names.
-Single-device only: the ``mesh`` query sharding is not ported, and no
-PR-curve PNG or graph render is drawn (ROADMAP section 1 item 10).
+The stats run draws its precision-recall curve and the alignment its
+two subgraphs under ``logdir`` (:mod:`tpugraph_torch.viz.graphs`).
+Single-device only: the ``mesh`` query sharding is not ported.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from tpugraph_torch.ops.bcsr import (
     bcsr_sym_partner,
     bcsr_transpose_plan,
 )
-from tpugraph_torch.viz.graphs import denoise_graph
+from tpugraph_torch.viz.graphs import denoise_graph, log_graph, plot_pr_curve
 
 
 class Explainer:
@@ -294,8 +295,9 @@ class Explainer:
         hold one class) and the ``real``/``pred`` arrays, and writes
         ``pr/auc_<dataset>_<model>.txt`` under ``logdir``.  ``model`` is
         ``exp`` (the batched COO explain) or a baseline, ``grad`` or
-        ``att``, of every query in one mapped call.  The PR-curve PNG is
-        not drawn (ROADMAP section 1 item 10)."""
+        ``att``, of every query in one mapped call.  With both label
+        classes present it also draws the precision-recall curve to
+        ``pr/pr_<dataset>_<model>.png``."""
         if model == "exp":
             results = self.explain_nodes_batch(node_indices, graph_idx,
                                                mesh=mesh)
@@ -321,6 +323,9 @@ class Explainer:
             with open(os.path.join(self.logdir, "pr",
                                    f"auc_{self.dataset}_{model}.txt"), "w") as f:
                 f.write(f"dataset: {self.dataset}, model: {model}, auc: {auc}\n")
+            if real_all is not None:
+                plot_pr_curve(real_all, pred_all, f"pr_{self.dataset}_{model}",
+                              outdir=os.path.join(self.logdir, "pr"))
         return {"masked_adjs": masked_adjs, "results": results, "auc": auc,
                 "real": real_all, "pred": pred_all}
 
@@ -333,10 +338,10 @@ class Explainer:
         denoised at threshold 0.1 to its largest component, and
         :func:`align_explanations` runs ``align_steps`` steps on the
         device.  Sets ``last_alignment`` (``P``, ``aligned_adj``,
-        ``aligned_feat``) and writes ``aligned_adj.npy`` under ``logdir``;
-        returns without aligning when a query is not in its largest
-        component.  No subgraph render is drawn (ROADMAP section 1 item
-        10)."""
+        ``aligned_feat``) and, under ``logdir``, draws the two denoised
+        subgraphs (``align_ref_node_<i>_0.pdf``, ``align_cur_node_<j>_0.pdf``)
+        and writes ``aligned_adj.npy``; returns without aligning when a
+        query is not in its largest component."""
         results = self.explain_nodes_batch(node_indices, graph_idx,
                                            init_state=init_state)
         masked_adjs = [r["masked_adj"] for r in results]
@@ -365,6 +370,12 @@ class Explainer:
         self.last_alignment = {"P": P, "aligned_adj": aligned_adj,
                                "aligned_feat": aligned_feat}
         if self.logdir is not None:
+            for tag, res in (("align_ref", results[0]), ("align_cur", results[1])):
+                G = denoise_graph(res["masked_adj"], res["node_idx_new"],
+                                  threshold=0.1)
+                if G.number_of_nodes():
+                    log_graph(G, f"{tag}_node_{res['node_idx']}",
+                              outdir=self.logdir)
             os.makedirs(self.logdir, exist_ok=True)
             np.save(os.path.join(self.logdir, "aligned_adj.npy"), aligned_adj)
         return masked_adjs

@@ -11,7 +11,6 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
-from scipy.stats import rankdata
 
 _HOUSE_EDGES = [(0, 1), (1, 2), (2, 3), (0, 3), (0, 4), (1, 4)]
 _CYCLE6_EDGES = [(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (0, 5)]
@@ -60,6 +59,20 @@ def make_pred_real(adj: np.ndarray, start: int, dataset: str = "syn1"
             real[a][b] = 10.0
     real = (real[sel] == 10.0).astype(np.float64)
     return pred, real
+
+
+def rankdata(a: np.ndarray) -> np.ndarray:
+    """``scipy.stats.rankdata(a)``: ranks from 1, ties sharing the mean of
+    the ranks they span."""
+    a = np.asarray(a).ravel()
+    order = np.argsort(a, kind="mergesort")
+    s = a[order]
+    first = np.concatenate([[True], s[1:] != s[:-1]])
+    dense = np.cumsum(first) - 1
+    bounds = np.concatenate([np.nonzero(first)[0], [a.size]])
+    ranks = np.empty(a.size, dtype=np.float64)
+    ranks[order] = 0.5 * (bounds[dense] + bounds[dense + 1] + 1)
+    return ranks
 
 
 def roc_auc(y_true: np.ndarray, y_score: np.ndarray) -> float:

@@ -8,7 +8,9 @@ is an eager Python loop, one optimizer step per epoch, with the same node
 split RNG and the same per-epoch metrics (loss and accuracies of the
 training-mode forward, before the update).  ``log_fn`` sees the metrics
 every 25 epochs and after the last, the JAX loop's ``scan_chunk``
-cadence.
+cadence.  While a ``torch.profiler`` records, each node epoch and each
+graph minibatch step is a named region of its trace (``train_epoch``,
+``train_step``); with no profiler the annotation does nothing.
 
 ``use_bcsr=False`` (the default, as in JAX) aggregates over the padded
 COO edge list, a gather plus ``index_add_`` (``SparseAdj``,
@@ -61,6 +63,7 @@ from tpugraph_torch.ops.packets import pack_edges, pack_edges_transpose
 from tpugraph_torch.ops.resident_kernels import stack_bcsr
 from tpugraph_torch.train.metrics import eval_graph_preds, eval_node
 from tpugraph_torch.train.optim import OptimizerConfig, build_optimizer
+from tpugraph_torch.utils.profiling import trace_annotation
 
 
 _RESIDENT_K_PACK = 64  # stacks padded to this multiple (tpugraph/train/loop.py:429)
@@ -307,6 +310,7 @@ def train_node_classifier(
     init_params: Optional[Dict[str, torch.Tensor]] = None,
     device: DeviceLike = None,
     init_opt_state: Optional[Dict[str, Any]] = None,
+    class_weight: Optional[np.ndarray] = None,
 ) -> Dict[str, Any]:
     """Full-batch node classification on one padded graph
     (``tpugraph/train/loop.py:279``).
@@ -323,7 +327,9 @@ def train_node_classifier(
     history, train/test results, the seconds of the epoch loop
     (``"elapsed"``) and of packing and uploading the adjacency
     (``"pack_s"``), the packed adjacency (``"adj"``) and the optimizer's
-    ``state_dict`` (``"opt_state"``).  A model with
+    ``state_dict`` (``"opt_state"``).  ``class_weight [C]`` weighs each
+    node's cross-entropy by its label's weight (ppi's ``[1, 5]``).  A
+    model with
     ``dropout`` draws its masks from a generator on ``device`` seeded with
     ``seed + 1``.
     """
@@ -350,6 +356,8 @@ def train_node_classifier(
     y = torch.from_numpy(labels_pad).to(device)
     train_mask_d = torch.from_numpy(train_mask).to(device)
     test_mask_d = torch.from_numpy(test_mask).to(device)
+    cw = (None if class_weight is None else
+          torch.as_tensor(np.asarray(class_weight, dtype=np.float32), device=device))
 
     model.to(device)
     if init_params is not None:
@@ -369,16 +377,18 @@ def train_node_classifier(
                                            "test_acc": []}
     begin = time.time()
     for epoch in range(1, cfg.num_epochs + 1):
-        logits, _ = model(x, sp, dropout_gen=drop_gen)
-        loss = node_cross_entropy(logits, y, node_mask=train_mask_d)
-        opt.zero_grad()
-        loss.backward()
-        opt.step()
-        with torch.no_grad():
-            correct = (torch.argmax(logits, dim=-1) == y).float()
-            hist["loss"].append(loss.detach())
-            hist["train_acc"].append(acc(correct, train_mask_d))
-            hist["test_acc"].append(acc(correct, test_mask_d))
+        with trace_annotation("train_epoch"):
+            logits, _ = model(x, sp, dropout_gen=drop_gen)
+            loss = node_cross_entropy(logits, y, class_weight=cw,
+                                      node_mask=train_mask_d)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            with torch.no_grad():
+                correct = (torch.argmax(logits, dim=-1) == y).float()
+                hist["loss"].append(loss.detach())
+                hist["train_acc"].append(acc(correct, train_mask_d))
+                hist["test_acc"].append(acc(correct, test_mask_d))
         if log_fn is not None and (epoch % LOG_EVERY == 0
                                    or epoch == cfg.num_epochs):
             log_fn(epoch, {k: v[-1].item() for k, v in hist.items()})
@@ -497,16 +507,17 @@ def train_graph_classifier(
         last = epoch == cfg.num_epochs - 1
         for bi, batch in enumerate(train_batcher.batches(cfg.batch_size,
                                                          shuffle=True, rng=rng)):
-            adj, x, mask, assign = tensors(batch)
-            logits, aux = forward(adj, x, mask, assign, drop_gen)
-            loss = softmax_cross_entropy(
-                logits, torch.from_numpy(batch.label).to(device))
-            if linkpred and isinstance(aux, (list, tuple)) and len(aux) > 0:
-                loss = loss + link_prediction_loss(aux[0], adj, mask)
-            opt.zero_grad()
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach())
+            with trace_annotation("train_step"):
+                adj, x, mask, assign = tensors(batch)
+                logits, aux = forward(adj, x, mask, assign, drop_gen)
+                loss = softmax_cross_entropy(
+                    logits, torch.from_numpy(batch.label).to(device))
+                if linkpred and isinstance(aux, (list, tuple)) and len(aux) > 0:
+                    loss = loss + link_prediction_loss(aux[0], adj, mask)
+                opt.zero_grad()
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
             if last:
                 # the cg bundle: the first 20 batches and the logits of the
                 # first 5 (tpugraph/train/loop.py:819-824)

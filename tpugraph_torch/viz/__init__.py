@@ -1,5 +1,6 @@
-"""Visualization helpers (port of ``tpugraph/viz``): so far only the mask
-thresholding that the alignment experiment reads; rendering is not
-ported yet (ROADMAP section 1 item 10)."""
+"""Port of ``tpugraph/viz``: mask thresholding, networkx's layouts, the
+figure records of every ``tpugraph`` render and the PNG/PDF writers that
+draw them."""
 
-from tpugraph_torch.viz.graphs import denoise_graph  # noqa: F401
+from tpugraph_torch.viz.graphs import (denoise_graph, log_graph,  # noqa: F401
+                                       save_matrix_image)
