@@ -138,13 +138,33 @@ nvcc per source, sm_90a, all started together), then:
    and ``--bcsr`` (auto: B4), ``enron`` and ``enron_multigraph``, each
    timed and its first 20 epochs held within 1e-4 of the CPU's
    (deterministic mode; the ``--bcsr`` row to the CPU's resident twin);
-12. profile — ``torch.profiler`` traces (``utils/profiling.py``) of 30
+12. parallel — the multi-device paths at the card's one rank: the g++
+   graph engine (its C++ and numpy halo plans of syn1 equal); the 4-shard
+   halo plans (locality partition, block 128) of syn1 (the CLI's graph,
+   D = 10 and 20) and of the power-law graph (D = 128), every shard's
+   rectangular ``[local | halo]`` tiles (dead tiles included), their
+   transpose, the attention backward's transposed scores and the overlap
+   split's local and halo tiles through B1, and the tiles through B2,
+   each held to its plain version, with each shard's dead tiles,
+   ``halo_size`` and ``partition_cut_stats`` printed;
+   ``train_node_classifier_halo(n_dev=1)`` over a 1-rank NCCL group on
+   syn1 at its published widths, 1000 epochs, on COO (deterministic),
+   tiles (B1), attention on tiles (B1 + B2) and the overlap split, each
+   row's first 20 epochs within 1e-4 of the CPU's run of the same
+   function over a 1-rank gloo group and its test acc within one test
+   node of the CPU's evaluation of the card's weights; the power-law
+   graph 100 epochs on the tile halo path beside the lowloc ``tiles``
+   row; SYNBENCH 20 epochs through ``train_graph_classifier`` on a
+   1-rank mesh within 1e-5 of the single-device run; and ``cli.train
+   --halo 2`` raising the launcher's device-count error before anything
+   runs;
+13. profile — ``torch.profiler`` traces (``utils/profiling.py``) of 30
    syn1 epochs on COO and on ``--bcsr`` (auto: B4) and of one SYNBENCH
    epoch: for the last 10 epochs or steps, the device-busy share (the
    union of their kernels' intervals over the wall window, and over the
    unprofiled wall), the launches and the microseconds of wall a launch,
    printed as ``profile``;
-13. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
+14. launch_probes — D3's probes (``bench_palcall_diag.py``): chains of 200
    dependent launches of ``probe_tiny`` (grid 1 and 2) and
    ``probe_resident`` (n = 4,096, 16,384, 65,536), a fit of the time a
    launch against the bytes it writes, and the host cost of one wrapper
@@ -497,7 +517,7 @@ def _dtype_extra(m, x, out_dtype):
     return nbytes, peak, labels
 
 
-def measure_spmm(shape, m, x, out_dtype=None):
+def measure_spmm(shape, m, x, out_dtype=None, iters=21, extra=None):
     """B1 against its plain version on one BCSR."""
     from tpugraph_torch.ops import bcsr_kernels as bk
 
@@ -509,7 +529,25 @@ def measure_spmm(shape, m, x, out_dtype=None):
         "spmm_bcsr", shape, d, lambda: bk.spmm_bcsr(m, x, out_dtype),
         lambda: bk.spmm_bcsr_plain(m, x, out_dtype), lambda: library_spmm(m, x),
         nbytes, 2.0 * nnz * d, peak, max_row_tiles * b,
-        extra={"tiles": t, "nnz": nnz, **labels, **_branches(m, d)})
+        extra={"tiles": t, "nnz": nnz, **labels, **_branches(m, d), **(extra or {})},
+        iters=iters)
+
+
+def measure_sddmm(shape, m, dy, x, iters=21, extra=None):
+    """B2 against its plain version on one BCSR (f32 dy and x)."""
+    from tpugraph_torch.ops import bcsr_kernels as bk
+
+    t, b, d = m.num_tiles, m.block, x.shape[1]
+    nnz = int((m.tiles != 0).sum())
+    return measure_case(
+        "sddmm_bcsr", shape, d, lambda: bk.sddmm_bcsr(m, dy, x),
+        lambda: bk.sddmm_bcsr_plain(m, dy, x), lambda: library_sddmm(m, dy, x),
+        (m.tiles.element_size() + 4) * t * b * b
+        + 4 * (m.num_nodes + m.num_row_nodes) * d + 4 * (2 * t + m.num_row_blocks + 1),
+        2.0 * nnz * d, F32_FLOPS_PER_S, d,
+        extra={"tiles": t, "nnz": nnz, "support": str(m.tiles.dtype).split(".")[1],
+               **(extra or {})},
+        scale=lambda: bk.sddmm_bcsr_plain(m, dy.abs(), x.abs()), iters=iters)
 
 
 def _branches(m, d):
@@ -526,27 +564,11 @@ def measure_kernels(shape_name, m, d, gen):
     """B1 and B2 against their plain versions on one BCSR."""
     import torch
 
-    from tpugraph_torch.ops import bcsr_kernels as bk
-
     dev = m.tiles.device
     x = torch.randn((m.num_nodes, d), generator=gen, device=dev)
     dy = torch.randn((m.num_row_nodes, d), generator=gen, device=dev)
-    nnz = int((m.tiles != 0).sum())
-    t, b = m.num_tiles, m.block
-    return {
-        "spmm_bcsr": measure_spmm(shape_name, m, x),
-        "sddmm_bcsr": measure_case(
-            "sddmm_bcsr", shape_name, d, lambda: bk.sddmm_bcsr(m, dy, x),
-            lambda: bk.sddmm_bcsr_plain(m, dy, x),
-            lambda: library_sddmm(m, dy, x),
-            (m.tiles.element_size() + 4) * t * b * b
-            + 4 * (m.num_nodes + m.num_row_nodes) * d
-            + 4 * (2 * t + m.num_row_blocks + 1),
-            2.0 * nnz * d, F32_FLOPS_PER_S, d,
-            extra={"tiles": t, "nnz": nnz,
-                   "support": str(m.tiles.dtype).split(".")[1]},
-            scale=lambda: bk.sddmm_bcsr_plain(m, dy.abs(), x.abs())),
-    }
+    return {"spmm_bcsr": measure_spmm(shape_name, m, x),
+            "sddmm_bcsr": measure_sddmm(shape_name, m, dy, x)}
 
 
 def random_tiles(n_tiles, density, tile_dtype, gen, n_rb=512, per_rb=4, int8_max=3,
@@ -1156,6 +1178,7 @@ def phase_lowloc(report, gen):
           flush=True)
     print(f"  full-size phase {time.perf_counter() - t0:.1f} s", flush=True)
     report["lowloc"] = {"launches": launches, "shapes": shapes,
+                        "tiles_epochs_per_s": LOWLOC_EPOCHS / runs["tiles"]["elapsed"],
                         "variants": variants + [smalln], "graph": g,
                         "packets_ablation": ablation,
                         "resident_ablation": ablation_res}
@@ -2603,6 +2626,313 @@ def phase_profile(gen):
     return {"launches": launches, "figures": out}
 
 
+PAR_SHARDS = 4            # the 4-shard halo plans built on the host
+PAR_BLOCK = 128           # their tile size (the halo path's default)
+PAR_TRAJ_EPOCHS = 20      # world-size-1 halo rows held to the CPU over these epochs
+PAR_TRAJ_TOL = 1e-4       # |card - CPU| of those losses (set before the first run)
+PAR_DP_EPOCHS = 20        # SYNBENCH through train_graph_classifier on a 1-rank mesh
+PAR_DP_TOL = 1e-5         # |1-rank mesh - single device| of its per-epoch loss (card)
+PAR_ROWS = (  # name, cli.train flags, use_bcsr, overlap
+    ("coo", [], False, "off"),
+    ("bcsr", [], True, "off"),
+    ("att_bcsr", ["--method", "att"], True, "off"),
+    ("overlap", [], True, "on"),
+)
+
+
+def halo_plan_of(g, n_dev):
+    """The halo plan ``train_node_classifier_halo`` builds for ``g`` on
+    ``n_dev`` shards (the locality partition, then the plan), and the
+    partition's ``(cut_edges, recv_rows)``."""
+    import numpy as np
+
+    from tpugraph_torch import native
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.parallel import spmd
+
+    s, r, w = g.senders.numpy(), g.receivers.numpy(), g.edge_weight.numpy()
+    live = w != 0
+    n = g.num_nodes_padded
+    perm, inv = spmd.locality_partition(s[live], r[live], n, n_dev, weights=w[live])
+    g2 = graph_from_edges(inv[s[live]].astype(np.int32), inv[r[live]].astype(np.int32),
+                          len(perm), edge_weight=w[live])
+    plan = spmd.build_halo_plan(g2, n_dev)
+    assign = (inv[:n] // plan.shard_size).astype(np.int32)
+    return plan, native.partition_cut_stats(s[live], r[live], w[live], n, n_dev, assign)
+
+
+def measure_halo_shards(name, plan, ds, gen):
+    """B1 and B2 on every shard of ``plan``'s BCSR forms, each held entry by
+    entry to its plain twin: B1 on the rectangular ``[local | halo]`` tiles
+    (dead tiles included) and on their transpose, B2 on the tiles and B1 on
+    the transposed scores laid out by the padded transpose plan (the
+    attention path's backward), and B1 on the overlap plan's local and halo
+    tiles.  Shard 0 is timed at 21 calls, the others at 3.  Returns the
+    records by kernel."""
+    import torch
+
+    from tpugraph_torch.ops.bcsr import transposed_bcsr
+    from tpugraph_torch.parallel import spmd
+
+    recs = {"spmm_bcsr": [], "sddmm_bcsr": []}
+    n_dev, h = PAR_SHARDS, plan.halo_size
+    bp = spmd.build_halo_bcsr(plan, n_dev, block=PAR_BLOCK, att=True)
+    for d in range(n_dev):
+        dead = int((~bp.m[d].tiles.reshape(bp.m[d].num_tiles, -1).any(1)).sum())
+        dead_t = int((~bp.m_t[d].tiles.reshape(bp.m_t[d].num_tiles, -1).any(1)).sum())
+        print(f"  {name} shard {d}: {bp.m[d].num_tiles} tiles ({dead} dead) over "
+              f"[{plan.shard_size} | {n_dev} x {h}] columns, transpose "
+              f"{bp.m_t[d].num_tiles} ({dead_t} dead), transpose plan "
+              f"{bp.tp[d].num_tiles} entries, halo_size {h}", flush=True)
+        m, mt, tp = bp.m[d].to("cuda"), bp.m_t[d].to("cuda"), bp.tp[d].to("cuda")
+        iters = 21 if d == 0 else 3
+        ex = {"shard": d, "dead_tiles": dead}
+        for dd in ds:
+            x = torch.randn((m.num_nodes, dd), generator=gen, device="cuda")
+            dy = torch.randn((m.num_row_nodes, dd), generator=gen, device="cuda")
+            recs["spmm_bcsr"].append(measure_spmm(f"{name}-s{d}", m, x, iters=iters,
+                                                  extra=ex))
+            recs["spmm_bcsr"].append(measure_spmm(f"{name}-s{d}-T", mt, dy, iters=iters,
+                                                  extra=ex))
+            recs["sddmm_bcsr"].append(measure_sddmm(f"{name}-s{d}", m, dy, x,
+                                                    iters=iters, extra=ex))
+            scores_t = transposed_bcsr(torch.sigmoid(m.tiles) * (m.tiles != 0), tp)
+            recs["spmm_bcsr"].append(measure_spmm(f"{name}-s{d}-tp", scores_t, dy,
+                                                  iters=iters, extra=ex))
+            del x, dy, scores_t
+        del m, mt, tp
+        torch.cuda.empty_cache()
+    del bp
+    op = spmd.build_halo_bcsr_overlap(plan, n_dev, block=PAR_BLOCK)
+    for d in range(n_dev):
+        iters = 21 if d == 0 else 3
+        for part in ("m_loc", "m_halo"):
+            m = getattr(op, part)[d].to("cuda")
+            x = torch.randn((m.num_nodes, ds[-1]), generator=gen, device="cuda")
+            recs["spmm_bcsr"].append(measure_spmm(f"{name}-s{d}-{part[2:]}", m, x,
+                                                  iters=iters, extra={"shard": d}))
+            del m, x
+    del op
+    torch.cuda.empty_cache()
+    return recs
+
+
+def graph_task_inputs(argv):
+    """The batchers, class count and card model ``benchmark_task`` builds
+    for ``argv`` (node-label features, the seeded split)."""
+    import numpy as np
+
+    from tpugraph_torch.cli.config import parse_train_args
+    from tpugraph_torch.cli.tasks import build_graph_model, train_config
+    from tpugraph_torch.data.pipeline import prepare_data
+    from tpugraph_torch.data.readers import read_graphfile
+
+    cfg = parse_train_args(argv)
+    graphs = read_graphfile(cfg.datadir, cfg.bmname, max_nodes=cfg.max_nodes)
+    for G in graphs:
+        G.feat = {u: np.asarray(lab, dtype=np.float32) for u, lab in G.node_label.items()}
+    num_classes = max(G.graph["label"] for G in graphs) + 1
+    split = prepare_data(graphs, train_ratio=cfg.train_ratio, test_ratio=cfg.test_ratio,
+                         features=cfg.feature_type, max_nodes=cfg.max_nodes,
+                         rng=np.random.default_rng(cfg.seed))
+    return (split, train_config(cfg), cfg.seed,
+            lambda: build_graph_model(cfg, split[0], num_classes, "cuda"))
+
+
+def phase_parallel(gen, lowloc_tiles_eps):
+    """The multi-device paths at the card's one rank (ROADMAP item 11, the
+    training half), with the graph engine: the C++ and numpy halo plans of
+    syn1 equal; B1/B2 on every shard of the 4-shard halo plans of syn1 (the
+    CLI's graph, D = 10 and 20) and of the power-law graph (D = 128), held
+    entry by entry; ``train_node_classifier_halo(n_dev=1)`` over a real
+    1-rank NCCL group on syn1 at its published widths, 1000 epochs, in the
+    four plan forms (COO deterministic, tiles, attention on tiles, the
+    overlap split), each row's first epochs held to the CPU's run of the
+    same function over a 1-rank gloo group and its test accuracy to the
+    CPU's evaluation of the card's weights within one test node; the
+    power-law graph 100 epochs on the tile halo path beside the
+    single-device tiles row; SYNBENCH through ``train_graph_classifier``
+    with a 1-rank mesh held to the single-device run; and ``cli.train
+    --halo 2`` raising the launcher's device-count error before anything
+    runs."""
+    import dataclasses
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from tpugraph_torch import native, ops
+    from tpugraph_torch.cli import train as cli_train
+    from tpugraph_torch.cli.config import parse_train_args
+    from tpugraph_torch.cli.tasks import node_task_data, node_task_model, train_config
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.nn.layers import SparseAdj
+    from tpugraph_torch.parallel import spmd
+    from tpugraph_torch.parallel.launch import single_rank
+    from tpugraph_torch.parallel.mesh import make_mesh
+    from tpugraph_torch.train import TrainConfig, train_graph_classifier
+    from tpugraph_torch.train.loop import train_node_classifier_halo
+
+    launches, shapes = {}, {"spmm_bcsr": [], "sddmm_bcsr": []}
+    t0 = time.perf_counter()
+    # the engine, and its two paths on syn1's plan
+    check(native.native_available(), "the C++ graph engine did not build")
+    cfg1 = parse_train_args(["--dataset", "syn1"])
+    G, labels, _ = node_task_data(cfg1)
+    _, g1, _ = node_task_model(cfg1, G, labels, "cpu")
+    plan_c = spmd.build_halo_plan(g1, PAR_SHARDS)
+    real_lib = native._get_lib
+    native._get_lib = lambda: None
+    try:
+        plan_n = spmd.build_halo_plan(g1, PAR_SHARDS)
+    finally:
+        native._get_lib = real_lib
+    same = all(np.array_equal(getattr(plan_c, f), getattr(plan_n, f))
+               for f in ("send_idx", "sender_slot", "receivers_local", "weights"))
+    print(f"  graph engine: native_available {native.native_available()}; syn1 "
+          f"halo plan C++ == numpy: {same}", flush=True)
+    check(same and plan_c.halo_size == plan_n.halo_size,
+          "the C++ and numpy halo plans of syn1 differ")
+
+    # B1/B2 on the 4-shard plans of syn1 and of the power-law graph
+    for name, g, ds in (("syn1-halo", g1, (10, 20)),
+                        ("powerlaw-halo", None, (LOWLOC_D,))):
+        if g is None:
+            g = powerlaw_task(LOWLOC_NODES, 8)[0]
+        t1 = time.perf_counter()
+        plan, (cut, recv) = halo_plan_of(g, PAR_SHARDS)
+        print(f"  {name}: {PAR_SHARDS} shards of {plan.shard_size} nodes, halo_size "
+              f"{plan.halo_size}, partition_cut_stats cut {cut} edges, halo rows "
+              f"received {recv.tolist()} (plan {time.perf_counter() - t1:.2f} s)",
+              flush=True)
+        recs = measure_halo_shards(name, plan, ds, gen)
+        for k in shapes:
+            shapes[k] += recs[k]
+        del plan
+    print(f"  shard kernels {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # world size 1: syn1 in four plan forms, card (NCCL) against the CPU (gloo)
+    cpu_losses = {}
+    with single_rank("gloo"):
+        for name, flags, bcsr, overlap in PAR_ROWS:
+            cfg = parse_train_args(["--dataset", "syn1"] + flags)
+            model, g, feat = node_task_model(cfg, G, labels, "cpu")
+            tc = dataclasses.replace(train_config(cfg), use_bcsr=bcsr,
+                                     num_epochs=PAR_TRAJ_EPOCHS)
+            out = train_node_classifier_halo(model, g, feat, labels, tc, 1,
+                                             overlap=overlap, seed=cfg.seed)
+            cpu_losses[name] = out["history"]["loss"]
+    results = {}
+    with single_rank("nccl"):
+        check(make_mesh().backend == "nccl", "the 1-rank group is not NCCL")
+        for name, flags, bcsr, overlap in PAR_ROWS:
+            cfg = parse_train_args(["--dataset", "syn1"] + flags)
+            model, g, feat = node_task_model(cfg, G, labels, "cuda")
+            tc = dataclasses.replace(train_config(cfg), use_bcsr=bcsr)
+            ops.reset_launch_counts()
+            with (deterministic_mode() if name == "coo" else contextlib.nullcontext()):
+                out = train_node_classifier_halo(model, g, feat, labels, tc, 1,
+                                                 overlap=overlap, seed=cfg.seed)
+            launches[f"parallel_halo_{name}"] = ops.launch_counts()
+            err = max_diff(out["history"]["loss"][:PAR_TRAJ_EPOCHS], cpu_losses[name])
+            # the CPU's evaluation of the card's weights (the single-device
+            # forward over the original graph and node ids)
+            ev, _, _ = node_task_model(cfg, G, labels, "cpu")
+            ev.load_state_dict({k: v.cpu() for k, v in out["params"].items()})
+            ev.eval()
+            with torch.no_grad():
+                logits, _ = ev(torch.from_numpy(feat), SparseAdj(
+                    g.senders.long(), g.receivers.long(), g.edge_weight))
+            test = out["test_idx"]
+            cpu_acc = float(np.mean(logits.argmax(-1).numpy()[test] == labels[test]))
+            acc = out["result_test"]["acc"]
+            used = {k: v for k, v in launches[f"parallel_halo_{name}"].items() if v}
+            print(f"  halo n_dev=1 {name}: {EPOCHS / out['elapsed']:.1f} epochs/s over "
+                  f"{EPOCHS} epochs{' (deterministic)' if name == 'coo' else ''}; "
+                  f"test acc {acc:.4f} (CPU eval of the card's weights {cpu_acc:.4f}, "
+                  f"{len(test)} test nodes); first {PAR_TRAJ_EPOCHS} epochs card vs "
+                  f"CPU max |diff| {err:.3g} (tol {PAR_TRAJ_TOL}); halo_size "
+                  f"{out['halo_size']}; launches {used} [{CARD}]", flush=True)
+            check(err <= PAR_TRAJ_TOL, f"halo {name}: card and CPU differ by {err}")
+            check(abs(acc - cpu_acc) <= 1.0 / len(test) + 1e-9,
+                  f"halo {name}: test acc {acc} vs the CPU's {cpu_acc}")
+            check(bool(np.all(np.isfinite(out["ypred"]))), f"halo {name}: non-finite")
+            if bcsr:
+                check(used.get("spmm_bcsr", 0) > 0, f"halo {name} did not launch B1")
+            if name == "att_bcsr":
+                check(used.get("sddmm_bcsr", 0) > 0, f"halo {name} did not launch B2")
+            results[name] = {"epochs_per_s": EPOCHS / out["elapsed"], "acc": acc,
+                             "traj_err": err}
+
+        # the power-law graph on the tile halo path, 100 epochs
+        g, feat, plabels = powerlaw_task(LOWLOC_NODES, LOWLOC_D)
+        model = GcnEncoderNode(LOWLOC_D, LOWLOC_D, LOWLOC_D, 4, 3,
+                               generator=torch.Generator().manual_seed(0))
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = train_node_classifier_halo(
+            model, g, feat, plabels, TrainConfig(num_epochs=LOWLOC_EPOCHS, use_bcsr=True,
+                                                 bcsr_block=LOWLOC_BLOCK),
+            1, overlap="off")
+        launches["parallel_powerlaw_halo"] = ops.launch_counts()
+        hist = out["history"]["loss"]
+        eps = LOWLOC_EPOCHS / out["elapsed"]
+        print(f"  halo n_dev=1 power-law ({LOWLOC_NODES} nodes, block {LOWLOC_BLOCK}, "
+              f"f32 tiles): {eps:.2f} epochs/s against the single-device tiles row's "
+              f"{lowloc_tiles_eps:.2f}; loss {hist[0]:.4f} -> {hist[-1]:.4f}; "
+              f"{time.perf_counter() - t1:.1f} s with the plan [{CARD}]", flush=True)
+        check(bool(np.all(np.isfinite(hist))) and hist[-1] < hist[0],
+              "power-law halo training did not learn")
+        check(launches["parallel_powerlaw_halo"]["spmm_bcsr"] > 0,
+              "power-law halo training did not launch B1")
+        results["powerlaw"] = {"epochs_per_s": eps, "tiles_epochs_per_s": lowloc_tiles_eps}
+        del out, model
+        torch.cuda.empty_cache()
+
+        # SYNBENCH on a 1-rank mesh against the single-device run
+        with tempfile.TemporaryDirectory() as tmp:
+            write_tu_synthetic(tmp, "SYNBENCH")
+            split, tc, seed, make = graph_task_inputs(
+                ["--bmname", "SYNBENCH", "--datadir", tmp, "--max-nodes", "100",
+                 "--epochs", str(PAR_DP_EPOCHS)])
+            init = make().state_dict()
+            runs = {}
+            for tag, mesh in (("single", None), ("mesh1", make_mesh())):
+                with deterministic_mode(), contextlib.redirect_stdout(io.StringIO()):
+                    runs[tag] = train_graph_classifier(
+                        make(), split[0], tc, val_batcher=split[1], test_batcher=split[2],
+                        seed=seed, init_params=init, mesh=mesh)
+            err = max_diff(runs["mesh1"]["history"]["loss"], runs["single"]["history"]["loss"])
+            gps = PAR_DP_EPOCHS * len(split[0]) / runs["mesh1"]["elapsed"]
+            print(f"  SYNBENCH on a 1-rank mesh, {PAR_DP_EPOCHS} epochs: loss max |diff| "
+                  f"against one device {err:.3g} (tol {PAR_DP_TOL}); test acc "
+                  f"{runs['mesh1']['test_result']['acc']:.4f}; {gps:.1f} graphs/s "
+                  f"[{CARD}]", flush=True)
+            check(err <= PAR_DP_TOL, f"1-rank mesh and one device differ by {err}")
+            results["dp_mesh1"] = {"loss_err": err, "graphs_per_s": gps}
+
+    # --halo 2 with fewer cards than ranks: the launcher's error, nothing run
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        have = torch.cuda.device_count()
+        try:
+            cli_train.main(["--dataset", "syn1", "--halo", "2", "--ckptdir", ck,
+                            "--logdir", log])
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        print(f"  cli.train --halo 2 on {have} card(s): "
+              f"{raised.splitlines()[0] if raised else 'no error'}", flush=True)
+        check("2 ranks on NCCL need 2 CUDA devices" in raised
+              and f"this host has {have}" in raised,
+              "--halo 2 did not raise the launcher's device-count error")
+        check(not os.path.exists(ck) and not os.path.exists(log)
+              and not multiprocessing.active_children(),
+              "--halo 2 ran something before it raised")
+    print(f"  parallel phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"launches": launches, "shapes": shapes, "results": results}
+
+
 def pair_csr(pair):
     """A's and A_t's halves of a pair as f32 CSR matrices of their widened
     tile entries: the independent oracle of B5."""
@@ -2783,6 +3113,11 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     build_s = build_kernels()
     print(f"kernel build: {build_s:.2f} s")
+    from tpugraph_torch import native
+
+    t0 = time.perf_counter()
+    print(f"graph engine (g++): native_available {native.native_available()} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
 
     # ---- syn1 data, shared by the phases
     G, labels, _ = gen_syn1(seed=0)
@@ -2956,14 +3291,18 @@ def main() -> int:
     tasks_ph = phase_tasks()
     print(f"  tasks phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # ---- phase 12: a torch.profiler trace of the host dispatch
+    # ---- phase 12: the multi-device paths at the card's one rank
+    print("phase parallel", flush=True)
+    par = phase_parallel(gen, low["tiles_epochs_per_s"])
+
+    # ---- phase 13: a torch.profiler trace of the host dispatch
     print("phase profile", flush=True)
     t0 = time.perf_counter()
     prof_ph = phase_profile(gen)
     print(f"  profile phase {time.perf_counter() - t0:.1f} s", flush=True)
     print("renders " + json.dumps(RENDERS), flush=True)
 
-    # ---- phase 13: launch probes
+    # ---- phase 14: launch probes
     print("phase launch_probes", flush=True)
     probes = phase_probes(gen)
 
@@ -2973,7 +3312,7 @@ def main() -> int:
              **{f"explain_banded_{k}": c for k, c in banded["launches"].items()},
              **coo["launches"], **syn["launches"], **graph["launches"],
              **opt["launches"], **base_ph["launches"], **tasks_ph["launches"],
-             **prof_ph["launches"],
+             **prof_ph["launches"], **par["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
              **diff["launches"], "launch_probes": probes["launches"]}
     meta = {
@@ -2982,12 +3321,13 @@ def main() -> int:
                       [sh["spmm_bcsr"] for sh in shapes] + [low["shapes"]["tiles"],
                        banded["shapes"]["spmm_bcsr"]] + dtypes["spmm_bcsr"]
                       + b1_mixed["spmm_bcsr"] + syn["shapes"]["spmm_bcsr"]
-                      + graph["shapes"]["spmm_bcsr"]),
+                      + graph["shapes"]["spmm_bcsr"] + par["shapes"]["spmm_bcsr"]),
         "sddmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                        "tpugraph/ops/pallas_spmm.py:175", shapes[1]["sddmm_bcsr"],
                        [sh["sddmm_bcsr"] for sh in shapes]
                        + [banded["shapes"]["sddmm_bcsr"]] + b2_mixed
-                       + syn["shapes"]["sddmm_bcsr"] + graph["shapes"]["sddmm_bcsr"]),
+                       + syn["shapes"]["sddmm_bcsr"] + graph["shapes"]["sddmm_bcsr"]
+                       + par["shapes"]["sddmm_bcsr"]),
         "spmm_bcsr_packed": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                              "tpugraph/ops/pallas_spmm.py:312",
                              low["shapes"]["k_pack4"],

@@ -1,8 +1,9 @@
 """The port's CLI end to end on the CPU, as subprocesses of
 ``python -m tpugraph_torch.cli.{train,explain} --platform cpu`` and in
 process; its events, figures and summaries against ``tpugraph``'s CLI on
-the same checkpoint; the item 9 tasks on their fixtures; and the
-multi-device flags raising by name."""
+the same checkpoint; the item 9 tasks on their fixtures; ``--halo N`` and
+``--dp N`` on gloo ranks against tpugraph's same calls; and ``--mesh``
+raising by name."""
 
 import json
 import os
@@ -161,21 +162,65 @@ def test_missing_checkpoint_message(tmp_path):
                           "--ckptdir", str(tmp_path)])
 
 
-UNPORTED_TRAIN = [
-    (["--halo", "4"], "--halo", "item 11"),
-    (["--dp", "2"], "--dp", "item 11"),
-]
 UNPORTED_EXPLAIN = [
     (["--mesh", "4"], "--mesh", "item 11"),
 ]
+MULTI_DEVICE_TRAIN = {
+    "halo4": ["--dataset", "syn1", "--halo", "4"],
+    "halo2_bcsr_att": ["--dataset", "syn1", "--halo", "2", "--halo-overlap", "on",
+                       "--bcsr", "--bcsr-block", "64", "--method", "att"],
+    "dp2": ["--bmname", "TOY", "--dp", "2", "--batch-size", "8"],
+}
 
 
-@pytest.mark.parametrize("args,flag,item", UNPORTED_TRAIN)
-def test_unported_train_flag_raises(tmp_path, args, flag, item):
-    with pytest.raises(NotImplementedError) as err:
-        cli_train.main(["--platform", "cpu", "--ckptdir", str(tmp_path)] + args)
-    assert flag in str(err.value) and f"ROADMAP section 1 {item}" in str(err.value)
-    assert not os.listdir(tmp_path)  # raised before anything ran
+@pytest.fixture(scope="module")
+def toy_dir(tmp_path_factory):
+    from test_tasks import write_tu_dataset
+
+    root = str(tmp_path_factory.mktemp("toy"))
+    write_tu_dataset(root, "TOY")
+    return root
+
+
+def _ckpt_files(root):
+    """A checkpoint directory's files, tpugraph's flax files by the port's
+    names (``params.msgpack`` -> ``params.pt``)."""
+    return sorted(f.replace(".msgpack", ".pt") for f in os.listdir(root))
+
+
+@pytest.mark.parametrize("name", list(MULTI_DEVICE_TRAIN))
+def test_multi_device_train_flag_runs(tmp_path, toy_dir, capsys, name):
+    """``--halo N`` and ``--dp N`` with ``--platform cpu`` train on N gloo
+    ranks (5 epochs) and give tpugraph's same call's summary keys,
+    checkpoint files and event tags (tpugraph on its virtual CPU
+    devices)."""
+    from tpugraph.cli import train as jax_cli_train
+
+    argv = MULTI_DEVICE_TRAIN[name] + ["--epochs", "5", "--datadir", toy_dir,
+                                       "--platform", "cpu"]
+    dirs = lambda tag: ["--ckptdir", str(tmp_path / tag / "ck"),
+                        "--logdir", str(tmp_path / tag / "log")]
+    port = cli_train.main(argv + dirs("port"))
+    want = _jax_summary(jax_cli_train.main, argv + dirs("jax"), capsys)
+    assert set(port) == set(want)
+    assert port["ckpt_path"] == str(tmp_path / "port" / "ck" / os.path.basename(
+        want["ckpt_path"]))
+    assert _ckpt_files(port["ckpt_path"]) == _ckpt_files(want["ckpt_path"])
+    check_png(port["train_curve"])
+    sub = os.path.basename(want["ckpt_path"])
+    tags = [sorted(read_scalars(os.path.join(tmp_path, t, "log", sub, f)))
+            for t in ("port", "jax")
+            for f in os.listdir(os.path.join(tmp_path, t, "log", sub))]
+    assert tags[0] == tags[1]
+
+
+def test_resume_with_halo_raises_before_training(tmp_path):
+    """``--resume --halo 2`` raises before it reads anything (tpugraph raises
+    only once a checkpoint has loaded)."""
+    with pytest.raises(NotImplementedError, match="--resume is not supported with --halo"):
+        cli_train.main(["--platform", "cpu", "--ckptdir", str(tmp_path / "none"),
+                        "--logdir", str(tmp_path / "log"), "--resume", "--halo", "2"])
+    assert not os.listdir(tmp_path)
 
 
 PORTED_TRAIN = [

@@ -1098,3 +1098,67 @@ def test_align_on_card_matches_cpu(cuda_device):
                                        num_steps=steps, lr=lr, device=dev)[0]
                     for dev in (cuda_device, "cpu"))
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _halo_shards(n_dev=4, block=64):
+    """The 4-shard BCSR halo plan (with transpose plans) of a random
+    graph: rectangular ``[local | halo]`` tiles padded with dead tiles to
+    the largest shard's count."""
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.parallel import spmd
+
+    rng = np.random.default_rng(9)
+    n = 1024
+    s = rng.integers(0, n, 6000)
+    r = (s + rng.integers(-200, 200, 6000)) % n
+    g = graph_from_edges(np.concatenate([s, r]), np.concatenate([r, s]), n)
+    plan = spmd.build_halo_plan(g, n_dev)
+    return spmd.build_halo_bcsr(plan, n_dev, block=block, att=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [10, 20, 128])
+def test_halo_shards_match_plain(cuda_device, d):
+    """B1 on each shard's rectangular tiles and on its transpose, with the
+    dead tiles that pad it, and B2 over its padded transpose plan (the
+    transposed tiles in row-block order), each against its plain twin."""
+    plan = _halo_shards()
+    dead = [int((~m.tiles.reshape(m.num_tiles, -1).any(1)).sum()) for m in plan.m]
+    assert max(dead) > 0
+    for d_, (m_h, mt_h, tp_h) in enumerate(zip(plan.m, plan.m_t, plan.tp)):
+        m, mt, tp = m_h.to(cuda_device), mt_h.to(cuda_device), tp_h.to(cuda_device)
+        x = _x(m.num_nodes, d, d_, cuda_device)
+        dy = _x(m.num_row_nodes, d, d_ + 10, cuda_device)
+        for mat, inp in ((m, x), (mt, dy)):
+            y = bcsr_kernels.spmm_bcsr(mat, inp)
+            ref = bcsr_kernels.spmm_bcsr_plain(mat, inp)
+            assert float((y - ref).abs().max()) <= _f32_tol(ref, 4 * mat.block)
+        g = bcsr_kernels.sddmm_bcsr(m, dy, x)
+        ref = bcsr_kernels.sddmm_bcsr_plain(m, dy, x)
+        assert float((g - ref).abs().max()) <= _f32_tol(ref, d)
+        m_T = bcsr.transposed_bcsr(g, tp)
+        yt = bcsr_kernels.spmm_bcsr(m_T, dy)
+        ref = bcsr_kernels.spmm_bcsr_plain(m_T, dy)
+        assert float((yt - ref).abs().max()) <= _f32_tol(ref, 4 * m.block)
+
+
+@pytest.mark.cuda
+def test_halo_exchange_one_nccl_rank(cuda_device):
+    """halo_exchange over a 1-rank NCCL group is the plain gather
+    ``x[send_idx]``, forward and (the reverse exchange) backward, flat and
+    issued asynchronously."""
+    from tpugraph_torch.nn.layers import halo_exchange, start_halo_exchange
+    from tpugraph_torch.parallel.launch import single_rank
+    from tpugraph_torch.parallel.mesh import make_mesh
+
+    x = _x(200, 20, 1, cuda_device).requires_grad_()
+    send = torch.randint(0, 200, (1, 48), device=cuda_device)
+    with single_rank("nccl"):
+        mesh = make_mesh()
+        got = halo_exchange(x, send, mesh)
+        got_async = start_halo_exchange(x, send, mesh).wait()
+        (got * got).sum().backward()
+    ref = x.detach()[send]
+    assert torch.equal(got.detach(), ref) and torch.equal(got_async.detach(), ref)
+    want = torch.zeros_like(x).index_add_(0, send[0], 2 * ref[0])
+    assert float((x.grad - want).abs().max()) <= 1e-6

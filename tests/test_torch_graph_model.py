@@ -324,9 +324,14 @@ def test_train_graph_classifier_trajectory(toy, method):
 
 
 def test_graph_training_mesh_raises(toy):
+    """Data parallelism is ported (tests/test_torch_parallel_dp.py); a mesh
+    whose size does not divide the batch raises tpugraph's ValueError
+    before anything trains."""
+    from tpugraph_torch.parallel.mesh import Mesh
+
     model = GcnEncoderGraph(input_dim=toy["split"][0].feat_dim, hidden_dim=4,
                             embedding_dim=4, label_dim=2, num_layers=3,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="must divide by the 3-device mesh"):
         train_graph_classifier(model, toy["split"][0], TrainConfig(num_epochs=1),
-                               mesh=object(), device="cpu")
+                               mesh=Mesh(("data",), (3,)), device="cpu")

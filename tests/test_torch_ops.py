@@ -544,3 +544,94 @@ def test_cluster_size_rule():
     assert bcsr_kernels.cluster_size(4, 3.0, 1024, 132) == 1      # banded
     assert bcsr_kernels.cluster_size(20, 17.0, 1024, 132) == 1    # scaled
     assert bcsr_kernels.cluster_size(6, 4.0, 12, 132) == 8        # syn1: few slabs
+
+
+JDT = {None: None, torch.int8: jnp.int8, torch.bfloat16: jnp.bfloat16}
+
+
+def _rect_edges(seed, n_rows, n_cols, e=1500):
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n_cols, e).astype(np.int32)
+    r = rng.integers(0, n_rows // 2, e).astype(np.int32)  # empty row blocks
+    w = (rng.standard_normal(e) * 40).astype(np.float32)
+    w[::9] = 0.0
+    return s, r, w
+
+
+@pytest.mark.parametrize("tile_dtype", [None, torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n_cols", [384, 900], ids=["square", "rect"])
+def test_pad_tiles_and_to_dense_byte_identical(tile_dtype, n_cols):
+    """bcsr_from_coo(pad_tiles_to=), bcsr_pad_tiles on a packed BCSR and
+    bcsr_to_dense give tpugraph's arrays byte for byte (tolerance 0), on a
+    square and a rectangular matrix with empty row blocks, for f32, int8
+    and bf16 tiles; dead tiles sit in the last row block at column 0."""
+    n = 384
+    s, r, w = _rect_edges(3, n, n_cols)
+    kw = {} if n_cols == n else {"num_col_nodes": n_cols}
+    m_t = bcsr.bcsr_from_coo(s, r, w, n, block=64, tile_dtype=tile_dtype, **kw)
+    t = m_t.num_tiles
+    for pad in (t, t + 5):
+        m_j = jax_bcsr.bcsr_from_coo(s, r, w, n, 64, pad, tile_dtype=JDT[tile_dtype],
+                                     device=False, **kw)
+        got = bcsr.bcsr_from_coo(s, r, w, n, block=64, tile_dtype=tile_dtype,
+                                 pad_tiles_to=pad, **kw)
+        padded_j = jax_bcsr.bcsr_pad_tiles(
+            jax_bcsr.bcsr_from_coo(s, r, w, n, 64, tile_dtype=JDT[tile_dtype],
+                                   device=False, **kw), pad + 3)
+        padded = bcsr.bcsr_pad_tiles(m_t, pad + 3)
+        for f in ("tiles", "col_blk", "row_ptr", "row_of"):
+            assert _as_bytes(getattr(m_j, f)) == _as_bytes(getattr(got, f)), f
+            assert _as_bytes(getattr(padded_j, f)) == _as_bytes(getattr(padded, f)), f
+        assert padded.longest_list == int(np.diff(padded.row_ptr).max())
+        np.testing.assert_array_equal(bcsr.bcsr_to_dense(padded),
+                                      jax_bcsr.bcsr_to_dense(padded_j))
+    assert bcsr.bcsr_pad_tiles(m_t, t) is m_t
+    with pytest.raises(ValueError, match="tile budget too small"):
+        bcsr.bcsr_pad_tiles(m_t, t - 1)
+    with pytest.raises(ValueError, match="tile budget too small"):
+        bcsr.bcsr_from_coo(s, r, w, n, block=64, pad_tiles_to=1, **kw)
+
+
+@pytest.mark.parametrize("engine", ["native", "numpy"])
+def test_rcm_reorder_matches(engine, monkeypatch):
+    """rcm_reorder's (perm, inv) equal tpugraph's on a shuffled banded
+    graph, with both packages on the C++ engine and both on numpy."""
+    from tpugraph import native as jax_native
+    from tpugraph_torch import native
+
+    if engine == "numpy":
+        monkeypatch.setattr(jax_native, "_get_lib", lambda: None)
+        monkeypatch.setattr(native, "_get_lib", lambda: None)
+    rng = np.random.default_rng(5)
+    n = 300
+    src = np.arange(n)
+    dst = (src + rng.integers(1, 9, n)) % n
+    shuf = rng.permutation(n).astype(np.int32)
+    s = shuf[np.concatenate([src, dst])]
+    r = shuf[np.concatenate([dst, src])]
+    for got, want in zip(bcsr.rcm_reorder(s, r, n), jax_bcsr.rcm_reorder(s, r, n)):
+        assert _as_bytes(got) == _as_bytes(want)
+
+
+def test_transposed_bcsr_groups_uncovered_row_blocks():
+    """A rectangular matrix whose middle column blocks hold no tile gets a
+    transpose plan (tpugraph's arrays) whose injected entries follow the
+    real ones; transposed_bcsr lays them out by row block, so the B1
+    plain version of A^T equals the dense transpose (the port's kernels
+    read each row block's list from row_ptr)."""
+    rng = np.random.default_rng(2)
+    s = np.concatenate([rng.integers(0, 16, 40), rng.integers(48, 64, 40)])
+    r = rng.integers(0, 16, 80)
+    w = rng.standard_normal(80).astype(np.float32)
+    m = bcsr.bcsr_from_coo(s, r, w, 16, block=8, num_col_nodes=64)
+    tp = bcsr.bcsr_transpose_plan(m)
+    tp_j = jax_bcsr.bcsr_transpose_plan(jax_bcsr.bcsr_from_coo(
+        s, r, w, 16, 8, num_col_nodes=64))
+    for f in ("col_blk", "row_ptr", "row_of", "perm", "keep"):
+        assert _as_bytes(getattr(tp, f)) == _as_bytes(getattr(tp_j, f)), f
+    assert tp.order is not None
+    mt = bcsr.transposed_bcsr(torch.from_numpy(m.tiles), tp.to("cpu"))
+    g = torch.from_numpy(rng.standard_normal((16, 3)).astype(np.float32))
+    dense = torch.from_numpy(bcsr.bcsr_to_dense(m))
+    torch.testing.assert_close(bcsr_kernels.spmm_bcsr(mt, g), dense.T @ g,
+                               rtol=0, atol=TOL)

@@ -65,7 +65,8 @@ def test_unported_options_raise():
 
 
 def test_package_imports_neither_jax_nor_tpugraph():
-    """Import every module of the package in a fresh interpreter and check
+    """Import every module of the package, ``tpugraph_torch.parallel`` and
+    ``tpugraph_torch.native`` among them, in a fresh interpreter and check
     that neither jax nor tpugraph got loaded, nor a package the card
     machine lacks (optax, networkx, sklearn, matplotlib, tensorboardX,
     msgpack), nor scipy, which only the Kamada-Kawai layout imports, when
@@ -79,6 +80,9 @@ def test_package_imports_neither_jax_nor_tpugraph():
         "    'optax', 'networkx', 'sklearn', 'matplotlib', 'tensorboardX', 'msgpack',\n"
         "    'scipy'))\n"
         "assert len(mods) >= 20, mods\n"
+        "assert {'tpugraph_torch.parallel.' + m for m in ('mesh', 'launch', "
+        "'collectives', 'spmd')} <= set(mods), mods\n"
+        "assert 'tpugraph_torch.native' in mods, mods\n"
         "assert not bad, bad\n"
         "from tpugraph_torch.viz.layout import kamada_kawai_layout\n"
         "from tpugraph_torch.data.shapes import SimpleGraph\n"

@@ -3,9 +3,11 @@ reference's defaults, and the argparse layers of the trainer and the
 explainer.
 
 The flags are ``tpugraph``'s.  ``--platform`` picks the device: unset
-means the CUDA card, ``cpu`` the CPU.  A flag whose module the port does
-not have yet raises ``NotImplementedError`` naming the flag and its
-ROADMAP item (:func:`check_ported`), and never runs something else.
+means the CUDA card, ``cpu`` the CPU.  ``--halo N`` and ``--dp N`` run
+on ``N`` ranks (:func:`rank_count`; NCCL with a card a rank, or gloo with
+``--platform cpu``).  A flag whose module the port does not have yet
+raises ``NotImplementedError`` naming the flag and its ROADMAP item
+(:func:`check_ported`), and never runs something else.
 There is no compile cache: PyTorch runs eagerly.
 """
 
@@ -229,17 +231,35 @@ def _to_config(ns: argparse.Namespace) -> Config:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for the first flag of ``cfg`` whose
-    module is not ported, naming the flag and its ROADMAP section 1 item."""
-    unported = [
-        (cfg.halo_devices > 1, "--halo", "item 11"),
-        (cfg.mesh_devices > 1, "--mesh", "item 11"),
-        (cfg.dp_devices > 1, "--dp", "item 11"),
-    ]
-    for hit, flag, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP section 1 {item})")
+    """Raise ``NotImplementedError`` before anything runs for a flag whose
+    module is not ported (``--mesh``, naming its ROADMAP section 1 item),
+    and for ``--resume`` with ``--halo N > 1``, which ``tpugraph`` rejects
+    only once a checkpoint has loaded (``tpugraph/cli/tasks.py:109``)."""
+    if cfg.mesh_devices > 1:
+        raise NotImplementedError(
+            "--mesh is not ported yet (ROADMAP section 1 item 11)")
+    if cfg.resume and cfg.halo_devices > 1:
+        raise NotImplementedError(
+            "--resume is not supported with --halo; restart or use the "
+            "single-device path")
+
+
+def rank_count(cfg: Config) -> int:
+    """The ranks ``cfg``'s task trains on: ``--dp`` for ``--bmname`` graph
+    classification, ``--halo`` for the single-graph node tasks (where
+    ``tpugraph`` reads each), else 1."""
+    if cfg.bmname is not None:
+        return cfg.dp_devices
+    if cfg.pkl_fname is not None or cfg.dataset == "enron_multigraph":
+        return 1
+    return cfg.halo_devices
+
+
+def rank_backend(cfg: Config) -> str:
+    """``gloo`` for CPU ranks (``--platform cpu``), else ``nccl``: a rank a
+    card, never fewer cards than ranks
+    (:func:`tpugraph_torch.parallel.launch.run_ranks`)."""
+    return "gloo" if cli_device(cfg).type == "cpu" else "nccl"
 
 
 def cli_device(cfg: Config) -> torch.device:

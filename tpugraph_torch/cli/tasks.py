@@ -8,9 +8,15 @@ Every single-device task of ``tpugraph``: syn1–syn5, ``ppi_essential``
 (``benchmark_task``), its 10-fold cross-validation
 (``benchmark_task_val``, which no flag reaches, as in ``tpugraph``) and
 ``--pkl`` graph classification on pickled networkx graphs, read without
-networkx (:func:`tpugraph_torch.data.readers.load_graph_pickle`).  The
-multi-device flags raise by name
-(:func:`tpugraph_torch.cli.config.check_ported`).
+networkx (:func:`tpugraph_torch.data.readers.load_graph_pickle`).
+
+``--halo N`` trains a node task on ``N`` node shards
+(:func:`~tpugraph_torch.train.loop.train_node_classifier_halo`) and
+``--dp N`` splits graph classification's batches over ``N`` ranks.  Called
+outside a process group, such a task spawns its ranks
+(:func:`~tpugraph_torch.parallel.launch.run_ranks`) and returns rank 0's
+result; in a group, rank 0 alone writes the checkpoint.  ``--mesh``
+raises by name (:func:`tpugraph_torch.cli.config.check_ported`).
 """
 
 from __future__ import annotations
@@ -21,7 +27,10 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tpugraph_torch.cli.config import Config, check_ported, cli_device
+import torch.distributed as dist
+
+from tpugraph_torch.cli.config import (Config, check_ported, cli_device,
+                                       rank_backend)
 from tpugraph_torch.core.graph import Graph, graph_from_edge_list, graph_from_edges
 from tpugraph_torch.data import GENERATORS, ConstFeatureGen, preprocess_input_graph
 from tpugraph_torch.data.pipeline import GraphBatcher, prepare_data, to_numpy_array
@@ -33,8 +42,26 @@ from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode, SoftPoolingGcnEnc
 from tpugraph_torch.train.checkpoint import (gen_prefix, load_checkpoint,
                                              save_checkpoint)
 from tpugraph_torch.train.loop import (TrainConfig, train_graph_classifier,
-                                       train_node_classifier)
+                                       train_node_classifier,
+                                       train_node_classifier_halo)
 from tpugraph_torch.train.multigraph import train_node_classifier_multigraph
+
+
+def is_writer() -> bool:
+    """Whether this process writes the outputs: rank 0 of a process group,
+    or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _spawned(cfg: Config, n: int, fn, *args):
+    """``fn(*args)`` in ``n`` new ranks when ``n > 1`` and no process group
+    is active (rank 0's result); ``None`` otherwise, and the caller runs
+    in this process."""
+    if n <= 1 or dist.is_initialized():
+        return None
+    from tpugraph_torch.parallel.launch import run_ranks
+
+    return run_ranks(fn, n, rank_backend(cfg), *args)
 
 
 def padded_features(G: SimpleGraph, g: Graph) -> np.ndarray:
@@ -108,24 +135,36 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels,
     """Padded graph, training on ``--platform``'s device (the loss weighed
     by ``class_weight`` when given), and the checkpoint with the dense cg
     bundle, the optimizer state and ``meta``
-    (``tpugraph/cli/tasks.py:64-176``, single device).  ``--resume``
-    starts from the checkpoint's ``params.pt`` (or ``tpugraph``'s
-    ``params.msgpack``) and ``opt_state.pt`` when it has one, trains
-    ``--epochs`` more and overwrites it."""
+    (``tpugraph/cli/tasks.py:64-176``).  ``--resume`` starts from the
+    checkpoint's ``params.pt`` (or ``tpugraph``'s ``params.msgpack``) and
+    ``opt_state.pt`` when it has one, trains ``--epochs`` more and
+    overwrites it.  ``--halo N`` trains on ``N`` node shards, in ``N``
+    ranks it spawns when no group is active."""
+    check_ported(cfg)
+    spawned = _spawned(cfg, cfg.halo_devices, run_node_task, cfg, G, labels,
+                       class_weight)
+    if spawned is not None:
+        return spawned
     device = cli_device(cfg)
     num_classes = int(max(labels)) + 1
     model, g, feat = node_task_model(cfg, G, labels, device)
     prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
                         cfg.bias, cfg.name_suffix)
-    init_params = init_opt = None
-    if cfg.resume:
-        ck = load_checkpoint(cfg.ckptdir, prefix)
-        init_params, init_opt = ck["params"], ck["opt_state"]
-    out = train_node_classifier(model, g, feat, labels, train_config(cfg),
-                                seed=cfg.seed, log_fn=log_fn, device=device,
-                                init_params=init_params,
-                                init_opt_state=init_opt,
-                                class_weight=class_weight)
+    if cfg.halo_devices > 1:
+        out = train_node_classifier_halo(
+            model, g, feat, labels, train_config(cfg), n_dev=cfg.halo_devices,
+            overlap=cfg.halo_overlap, class_weight=class_weight,
+            seed=cfg.seed, log_fn=log_fn)
+    else:
+        init_params = init_opt = None
+        if cfg.resume:
+            ck = load_checkpoint(cfg.ckptdir, prefix)
+            init_params, init_opt = ck["params"], ck["opt_state"]
+        out = train_node_classifier(model, g, feat, labels, train_config(cfg),
+                                    seed=cfg.seed, log_fn=log_fn, device=device,
+                                    init_params=init_params,
+                                    init_opt_state=init_opt,
+                                    class_weight=class_weight)
     data = preprocess_input_graph(G, labels)
     n_real = data["adj"].shape[1]
     cg = {
@@ -135,7 +174,7 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels,
         "pred": out["ypred"][:, :n_real],
         "train_idx": out["train_idx"],
     }
-    path = save_checkpoint(
+    path = None if not is_writer() else save_checkpoint(
         cfg.ckptdir,
         prefix,
         out["params"],
@@ -290,7 +329,11 @@ def benchmark_task(cfg: Config, log_fn=None, feat: str = "node-label") -> Dict:
     features from the one-hot node labels (``feat="node-label"``, when the
     dataset has them), from ``_node_attributes`` (``"node-feat"``) or
     constant, the seeded shuffle and split, training on ``--platform``'s
-    device, and the checkpoint with the graph cg bundle and ``meta``."""
+    device (with ``--dp N`` on ``N`` ranks, spawned when no group is
+    active), and the checkpoint with the graph cg bundle and ``meta``."""
+    spawned = _spawned(cfg, cfg.dp_devices, benchmark_task, cfg, None, feat)
+    if spawned is not None:
+        return spawned
     device = cli_device(cfg)
     graphs = read_graphfile(cfg.datadir, cfg.bmname, max_nodes=cfg.max_nodes)
     if feat == "node-feat" and "feat_dim" in graphs[0].graph:
@@ -309,14 +352,19 @@ def benchmark_task(cfg: Config, log_fn=None, feat: str = "node-label") -> Dict:
         features=cfg.feature_type, max_nodes=cfg.max_nodes,
         rng=np.random.default_rng(cfg.seed))
     model = build_graph_model(cfg, train_b, num_classes, device)
+    mesh = None
+    if cfg.dp_devices > 1:
+        from tpugraph_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(cfg.dp_devices)
     out = train_graph_classifier(
         model, train_b, train_config(cfg), val_batcher=val_b,
         test_batcher=test_b,
         linkpred=(cfg.method == "soft-assign" and cfg.linkpred),
-        seed=cfg.seed, log_fn=log_fn, device=device)
+        seed=cfg.seed, log_fn=log_fn, mesh=mesh, device=device)
     prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
                         cfg.bias, cfg.name_suffix)
-    out["ckpt_path"] = save_checkpoint(
+    out["ckpt_path"] = None if not is_writer() else save_checkpoint(
         cfg.ckptdir,
         prefix,
         out["params"],
@@ -425,7 +473,7 @@ def benchmark_task_val(cfg: Config, log_fn=None, feat: str = "node-label",
 def run_task(cfg: Config, log_fn=None) -> Dict:
     """The task ``cfg`` names (``tpugraph/cli/tasks.py:482``): ``--bmname``
     graph classification, ``--pkl``, syn1–syn5, enron, enron_multigraph or
-    ppi_essential; the multi-device flags raise by name."""
+    ppi_essential; ``--mesh`` raises by name."""
     check_ported(cfg)
     if cfg.bmname is not None:
         return benchmark_task(cfg, log_fn=log_fn)

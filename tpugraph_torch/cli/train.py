@@ -13,6 +13,15 @@ Usage:
 node trainer's optimizer chain; graph classification keeps Adam at 0.001,
 as ``tpugraph``'s does.  ``--resume`` continues a node checkpoint for
 ``--epochs`` more, the schedule from its saved update count.
+  python -m tpugraph_torch.cli.train --dataset=syn1 --halo 4 [--halo-overlap on] \
+      [--bcsr] [--method att] [--platform cpu]
+  python -m tpugraph_torch.cli.train --bmname=SYNBENCH --datadir D --dp 2 [--platform cpu]
+
+``--halo N`` (node tasks) and ``--dp N`` (``--bmname``) run the trainer
+in ``N`` spawned ranks: NCCL with one CUDA card a rank (fewer cards than
+ranks raises before anything runs), or gloo CPU processes with
+``--platform cpu``.  Rank 0 prints, writes the events, the curve and the
+checkpoint, and its summary is returned.
   python -m tpugraph_torch.cli.train --pkl=graphs.pkl --datadir D
   python -m tpugraph_torch.cli.train --dataset=ppi_essential|enron|enron_multigraph --datadir D
 
@@ -28,10 +37,14 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 from typing import Dict
 
-from tpugraph_torch.cli.config import check_ported, cli_device, parse_train_args
-from tpugraph_torch.cli.tasks import run_task
+import torch.distributed as dist
+
+from tpugraph_torch.cli.config import (check_ported, cli_device, parse_train_args,
+                                       rank_backend, rank_count)
+from tpugraph_torch.cli.tasks import is_writer, run_task
 from tpugraph_torch.train.checkpoint import gen_prefix
 from tpugraph_torch.utils.tb_writer import SummaryWriter
 from tpugraph_torch.viz.graphs import plot_accuracy_curve
@@ -39,10 +52,20 @@ from tpugraph_torch.viz.graphs import plot_accuracy_curve
 
 def main(argv=None) -> Dict:
     """Run the trainer on ``argv`` (``sys.argv`` when ``None``); returns the
-    summary it prints."""
+    summary it prints (rank 0's, on several ranks; the other ranks return
+    an empty dict)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     cfg = parse_train_args(argv)
     check_ported(cfg)
     cli_device(cfg)  # an unusable --platform raises before anything is written
+    n = rank_count(cfg)
+    if n > 1 and not dist.is_initialized():
+        from tpugraph_torch.parallel.launch import run_ranks
+
+        return run_ranks(main, n, rank_backend(cfg), argv)
+    if not is_writer():
+        run_task(cfg)
+        return {}
     prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
                         cfg.bias, cfg.name_suffix)
     writer = SummaryWriter(os.path.join(cfg.logdir, prefix))

@@ -8,6 +8,7 @@ from tpugraph_torch.core.graph import (  # noqa: F401
     graph_from_edge_list,
     graph_from_edges,
     graph_to_dense,
+    pad_graph,
 )
 from tpugraph_torch.core.khop import (  # noqa: F401
     extract_dense_subgraph,

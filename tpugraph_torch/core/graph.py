@@ -183,6 +183,29 @@ def graph_to_dense(g: Graph, num_nodes: Optional[int] = None) -> torch.Tensor:
                             g.edge_weight, accumulate=True)
 
 
+def pad_graph(g: Graph, num_nodes_padded: int, num_edges_padded: int) -> Graph:
+    """``g`` re-padded to larger node and edge budgets
+    (``tpugraph/core/graph.py:224``): new padding edges point at node 0
+    with weight 0, and the padding pair id moves to the new edge count."""
+    e_old = g.num_edges_padded
+    if e_old > num_edges_padded:
+        raise ValueError("cannot shrink edge padding")
+    s = np.zeros((num_edges_padded,), dtype=np.int32)
+    r = np.zeros((num_edges_padded,), dtype=np.int32)
+    w = np.zeros((num_edges_padded,), dtype=np.float32)
+    p = np.full((num_edges_padded,), num_edges_padded, dtype=np.int32)
+    s[:e_old] = g.senders.numpy()
+    r[:e_old] = g.receivers.numpy()
+    w[:e_old] = g.edge_weight.numpy()
+    old_pair = g.edge_pair.numpy()
+    p[:e_old] = np.where(old_pair == e_old, num_edges_padded, old_pair)
+    mask = np.zeros((num_nodes_padded,), dtype=np.float32)
+    mask[: int(g.n_node)] = 1.0
+    return Graph(senders=torch.from_numpy(s), receivers=torch.from_numpy(r),
+                 edge_weight=torch.from_numpy(w), node_mask=torch.from_numpy(mask),
+                 n_node=g.n_node, n_edge=g.n_edge, edge_pair=torch.from_numpy(p))
+
+
 def batch_graphs(graphs: List[Graph]) -> BatchedGraphs:
     """Same-budget padded graphs stacked on a batch axis
     (``tpugraph/core/graph.py:251``)."""

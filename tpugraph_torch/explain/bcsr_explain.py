@@ -27,7 +27,7 @@ import torch
 
 from tpugraph_torch.explain.module import ExplainConfig, _act, _binary_ent
 from tpugraph_torch.nn.layers import BCSRAdj
-from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose, transpose_tiles
+from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose, transposed_bcsr
 
 
 class BCSRMaskState(NamedTuple):
@@ -172,11 +172,7 @@ def bcsr_mask_loss(
     w_run = w_tiles.detach()
     if spmm_dtype is not None:
         w_run = w_run.to(spmm_dtype)
-    masked_t = BCSR(
-        tiles=transpose_tiles(w_run, tp), col_blk=tp.col_blk,
-        row_ptr=tp.row_ptr, row_of=tp.row_of, num_nodes=tp.num_nodes,
-        block=tp.block, longest_list=tp.longest_list,
-    )
+    masked_t = transposed_bcsr(w_run, tp)
     ypred, _ = model(xx, BCSRAdj(masked, masked_t, tp, spmm_dtype=spmm_dtype))
     probs = torch.softmax(ypred if graph_mode else ypred[node_idx], dim=-1)
     total, terms = bcsr_explain_loss(

@@ -48,20 +48,29 @@ def margin_loss(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(torch.sum(margins, dim=-1) / num_classes)
 
 
-def link_prediction_loss(assign_tensor: torch.Tensor, adj: torch.Tensor,
-                         node_mask: Optional[torch.Tensor] = None,
-                         eps: float = 1e-7) -> torch.Tensor:
-    """DiffPool's auxiliary loss (``tpugraph/nn/losses.py:58``): binary
-    cross-entropy between ``min(S S^T, 1)`` and the adjacency, averaged over
-    the real-node pairs of ``node_mask`` (every entry without one)."""
+def link_prediction_terms(assign_tensor: torch.Tensor, adj: torch.Tensor,
+                          node_mask: Optional[torch.Tensor] = None,
+                          eps: float = 1e-7):
+    """The sum and the count of :func:`link_prediction_loss`: the binary
+    cross-entropy between ``min(S S^T, 1)`` and the adjacency summed over
+    the real-node pairs of ``node_mask`` (every entry without one), and the
+    number of those pairs (data parallelism sums the count over the
+    ranks)."""
     pred_adj = torch.clamp(
         torch.matmul(assign_tensor, assign_tensor.transpose(-1, -2)), max=1.0)
     bce = (-adj * torch.log(pred_adj + eps)
            - (1 - adj) * torch.log(1 - pred_adj + eps))
     if node_mask is not None:
         pair_mask = node_mask[..., :, None] * node_mask[..., None, :]
-        bce = bce * pair_mask
-        num = torch.sum(pair_mask)
-    else:
-        num = torch.tensor(float(bce.numel()), device=bce.device)
-    return torch.sum(bce) / torch.clamp(num, min=1.0)
+        return torch.sum(bce * pair_mask), torch.sum(pair_mask)
+    return torch.sum(bce), torch.tensor(float(bce.numel()), device=bce.device)
+
+
+def link_prediction_loss(assign_tensor: torch.Tensor, adj: torch.Tensor,
+                         node_mask: Optional[torch.Tensor] = None,
+                         eps: float = 1e-7) -> torch.Tensor:
+    """DiffPool's auxiliary loss (``tpugraph/nn/losses.py:58``): binary
+    cross-entropy between ``min(S S^T, 1)`` and the adjacency, averaged over
+    the real-node pairs of ``node_mask`` (every entry without one)."""
+    total, num = link_prediction_terms(assign_tensor, adj, node_mask, eps)
+    return total / torch.clamp(num, min=1.0)

@@ -6,13 +6,17 @@ from tpugraph_torch.ops.bcsr import (  # noqa: F401
     BCSRTranspose,
     bcsr_from_coo,
     bcsr_pad_rows,
+    bcsr_pad_tiles,
     bcsr_sym_partner,
+    bcsr_to_dense,
     bcsr_transpose_host,
     bcsr_transpose_plan,
     choose_k_pack,
     choose_k_pack_counts,
     coo_tile_counts,
+    rcm_reorder,
     transpose_tiles,
+    transposed_bcsr,
 )
 from tpugraph_torch.ops.bcsr_kernels import (  # noqa: F401
     bcsr_matvec,

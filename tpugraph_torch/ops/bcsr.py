@@ -20,7 +20,7 @@ bfloat16), and the arrays move to a device with :meth:`BCSR.to`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -124,6 +124,7 @@ def bcsr_from_coo(
     num_col_nodes: Optional[int] = None,
     tile_dtype: Optional[torch.dtype] = None,
     pad_rows_to: Optional[int] = None,
+    pad_tiles_to: Optional[int] = None,
 ) -> BCSR:
     """Host-side COO -> BCSR (``tpugraph/ops/bcsr.py:79`` with
     ``device=False``): entry (row=receiver, col=sender) = weight, duplicate
@@ -137,7 +138,10 @@ def bcsr_from_coo(
     ``torch.int8``) casts the summed values; bfloat16 tiles are a torch
     tensor, the other arrays numpy.  ``pad_rows_to`` pads every row
     block's tile count to that multiple with dead tiles (zero values,
-    column block 0), the layout of the packed kernel B3.
+    column block 0), the layout of the packed kernel B3.  ``pad_tiles_to``
+    first appends dead tiles to the last row block up to that many tiles
+    (as :func:`bcsr_pad_tiles`), raising ``ValueError`` when the matrix has
+    more.
 
     Only the touched entries are summed (in float32, in edge order) and
     cast; the tile array is allocated once, at its final dtype and
@@ -159,7 +163,9 @@ def bcsr_from_coo(
     s, r, w, keys = s[order], r[order], w[order], keys[order]
     uniq, tile_of_edge = np.unique(keys, return_inverse=True)
     t = len(uniq)
-    t_pad = max(t, 1)
+    t_pad = pad_tiles_to or max(t, 1)
+    if t_pad < t:
+        raise ValueError(f"tile budget too small: {t} > {t_pad}")
     col_blk = np.zeros((t_pad,), dtype=np.int32)
     row_of = np.full((t_pad,), n_rb - 1, dtype=np.int32)
     col_blk[:t] = uniq % n_cb
@@ -208,6 +214,74 @@ def bcsr_transpose_host(
     :func:`bcsr_from_coo`."""
     return bcsr_from_coo(receivers, senders, weights, num_nodes, block,
                          tile_dtype=tile_dtype, pad_rows_to=pad_rows_to)
+
+
+def bcsr_pad_tiles(m: BCSR, t_pad: int) -> BCSR:
+    """``m`` with dead tiles appended (zero values, column block 0, the
+    last row block, ``row_ptr[-1]`` grown by their count) so that it holds
+    ``t_pad`` tiles (``tpugraph/ops/bcsr.py:302``): the halo plans pad
+    every shard to the largest shard's count.  Host arrays; a tensor of
+    tiles (bfloat16) stays a tensor."""
+    t = m.num_tiles
+    if t_pad < t:
+        raise ValueError(f"tile budget too small: {t} > {t_pad}")
+    if t_pad == t:
+        return m
+    extra = t_pad - t
+    n_rb = m.num_row_blocks
+    dead = _zero_tiles((extra, m.block, m.block), _dtype_of(m.tiles))
+    if isinstance(m.tiles, torch.Tensor):
+        tiles = torch.cat([m.tiles, dead.to(m.tiles.device)])
+    else:
+        tiles = np.concatenate([m.tiles, dead])
+    row_ptr = _host(m.row_ptr).copy()
+    row_ptr[n_rb] += extra
+    return BCSR(
+        tiles=tiles,
+        col_blk=np.concatenate([_host(m.col_blk), np.zeros(extra, np.int32)]),
+        row_ptr=row_ptr,
+        row_of=np.concatenate([_host(m.row_of),
+                               np.full(extra, n_rb - 1, np.int32)]),
+        num_nodes=m.num_nodes, block=m.block, longest_list=_longest(row_ptr))
+
+
+def _dtype_of(tiles: Array) -> torch.dtype:
+    if isinstance(tiles, torch.Tensor):
+        return tiles.dtype
+    return torch.int8 if tiles.dtype == np.int8 else torch.float32
+
+
+def bcsr_to_dense(m: BCSR) -> np.ndarray:
+    """The dense float32 ``[rows, cols]`` matrix of ``m``, tiles summed
+    where two cover one block (``tpugraph/ops/bcsr.py:540``; a test
+    oracle)."""
+    b = m.block
+    out = np.zeros((m.num_row_nodes, m.num_nodes), dtype=np.float32)
+    tiles = (m.tiles.float().cpu().numpy() if isinstance(m.tiles, torch.Tensor)
+             else np.asarray(m.tiles, dtype=np.float32))
+    col, row = _host(m.col_blk), _host(m.row_of)
+    for ti in range(m.num_tiles):
+        ri, ci = int(row[ti]) * b, int(col[ti]) * b
+        out[ri: ri + b, ci: ci + b] += tiles[ti]
+    return out
+
+
+def rcm_reorder(senders: np.ndarray, receivers: np.ndarray,
+                num_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Reverse Cuthill-McKee relabelling (``tpugraph/ops/bcsr.py:234``):
+    ``(perm, inv)`` with ``perm[new_id] = old_id``, from the receivers'
+    CSR of the senders through the native engine (or its numpy twin).
+    Relabel edges as ``inv[senders]``, ``inv[receivers]`` and payloads as
+    ``feat[perm]`` before packing, so the tiles cluster on the diagonal."""
+    from tpugraph_torch import native
+
+    indptr, indices, _ = native.coo_to_csr(
+        np.asarray(receivers, dtype=np.int32),
+        np.asarray(senders, dtype=np.int32), num_nodes)
+    perm = native.rcm_order(indptr, indices)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm), dtype=perm.dtype)
+    return perm, inv
 
 
 def coo_tile_counts(
@@ -291,7 +365,14 @@ def bcsr_pad_rows(m: BCSR, k_pack: int) -> BCSR:
 class BCSRTranspose:
     """Structure-only transpose plan (``tpugraph/ops/bcsr.py:428``):
     ``tiles_T[i] = tiles[perm[i]]^T * keep[i]``; ``keep`` is 0 on tiles
-    injected to cover row blocks of the transpose no real tile covers."""
+    injected to cover row blocks of the transpose no real tile covers.
+
+    The arrays are ``tpugraph``'s, whose injected entries follow the real
+    ones, so a row block's entries are contiguous but the row blocks need
+    not be in order (its kernel walks the tiles by ``row_of``).  The port's
+    kernels read each row block's list from ``row_ptr``, so ``order``
+    (the entries in row-block order, ``None`` where they already are)
+    lays them out for them: :func:`transposed_bcsr`."""
 
     col_blk: Array  # int32[T']
     row_ptr: Array  # int32[R'+1]
@@ -301,6 +382,7 @@ class BCSRTranspose:
     num_nodes: int
     block: int
     longest_list: Optional[int] = None  # as BCSR.longest_list
+    order: Optional[Array] = None       # int64[T'], see above
 
     @property
     def num_tiles(self) -> int:
@@ -311,15 +393,38 @@ class BCSRTranspose:
             self, col_blk=_to(self.col_blk, device),
             row_ptr=_to(self.row_ptr, device), row_of=_to(self.row_of, device),
             perm=_to(self.perm, device), keep=_to(self.keep, device),
+            order=None if self.order is None else _to(self.order, device),
         )
 
 
+def entry_order(row_of: np.ndarray) -> Optional[np.ndarray]:
+    """The stable order that groups a plan's entries by row block in
+    ascending order, or ``None`` where they are already so."""
+    row_of = np.asarray(row_of)
+    if row_of.size < 2 or bool(np.all(np.diff(row_of) >= 0)):
+        return None
+    return np.argsort(row_of, kind="stable").astype(np.int64)
+
+
 def transpose_tiles(tiles: torch.Tensor, tp: BCSRTranspose) -> torch.Tensor:
-    """Tiles of ``A^T`` from the primal tiles: a gather and a per-tile
-    transpose (``tpugraph/ops/bcsr.py:464``); contiguous, as the kernels
-    require."""
+    """Tiles of ``A^T`` from the primal tiles, in the plan's entry order: a
+    gather and a per-tile transpose (``tpugraph/ops/bcsr.py:464``);
+    contiguous, as the kernels require."""
     out = tiles[tp.perm.long()].transpose(1, 2) * tp.keep[:, None, None]
     return out.contiguous()
+
+
+def transposed_bcsr(tiles: torch.Tensor, tp: BCSRTranspose) -> BCSR:
+    """The BCSR of ``A^T`` whose tiles are :func:`transpose_tiles` of
+    ``tiles``, its entries in row-block order (``tp.order``), the layout
+    the kernels walk."""
+    perm, keep, col, row = tp.perm, tp.keep, tp.col_blk, tp.row_of
+    if tp.order is not None:
+        perm, keep, col, row = (a[tp.order] for a in (perm, keep, col, row))
+    out = tiles[perm.long()].transpose(1, 2) * keep[:, None, None]
+    return BCSR(tiles=out.contiguous(), col_blk=col, row_ptr=tp.row_ptr,
+                row_of=row, num_nodes=tp.num_nodes, block=tp.block,
+                longest_list=tp.longest_list)
 
 
 def bcsr_transpose_plan(m: BCSR) -> BCSRTranspose:
@@ -359,6 +464,7 @@ def bcsr_transpose_plan(m: BCSR) -> BCSRTranspose:
         num_nodes=m.num_row_nodes,
         block=m.block,
         longest_list=_longest(row_ptr),
+        order=entry_order(t_row),
     )
 
 

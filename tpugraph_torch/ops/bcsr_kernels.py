@@ -37,7 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
-from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose, transpose_tiles
+from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose, transposed_bcsr
 
 _TILE_MULTIPLE = 64  # the kernels' CTA slice of a tile (64 tile rows)
 _STRIP_ROWS = 8      # tile rows of a warp's strip in B1/B3
@@ -472,17 +472,13 @@ class BCSRMatvecDWPair(torch.autograd.Function):
         return dtiles, dx, None, None, None
 
 
-def _transposed(tiles: torch.Tensor, tp: BCSRTranspose) -> BCSR:
-    """The BCSR of ``A^T`` whose tiles are ``transpose_tiles(tiles, tp)``."""
-    return BCSR(tiles=transpose_tiles(tiles, tp), col_blk=tp.col_blk,
-                row_ptr=tp.row_ptr, row_of=tp.row_of, num_nodes=tp.num_nodes,
-                block=tp.block, longest_list=tp.longest_list)
+_transposed = transposed_bcsr  # the BCSR of A^T the backward passes run
 
 
 class BCSRMatvecDW(torch.autograd.Function):
     """``A @ x`` differentiable in the tile values and ``x``, with ``A^T``'s
     tiles built in the backward from the transpose plan ``tp``: forward
-    B1(``m``), backward ``dx`` = B1 on ``transpose_tiles(m.tiles, tp)``
+    B1(``m``), backward ``dx`` = B1 on ``transposed_bcsr(m.tiles, tp)``
     and ``dtiles`` = B2(``m``, g, x) (``tpugraph/ops/pallas_spmm.py:457``).
     The GAT layer's aggregation over score-scaled tiles, which change
     every step."""
@@ -510,7 +506,7 @@ class SDDMMDW(torch.autograd.Function):
     """Per-tile ``(a_row b_col^T) * [tiles != 0]``, differentiable in ``a``
     and ``b`` (``tpugraph/ops/pallas_spmm.py:546``): forward B2, backward
     with ``gs = g * [tiles != 0]`` as tile values, ``da`` = B1 on ``gs``
-    and ``db`` = B1 on ``transpose_tiles(gs, tp)``.  The tiles give only
+    and ``db`` = B1 on ``transposed_bcsr(gs, tp)``.  The tiles give only
     their support, so no gradient reaches them."""
 
     @staticmethod

@@ -38,6 +38,12 @@ with resident off, as the JAX package's is off the TPU.
 With ``dropout``, the masks come from a ``torch.Generator`` on the
 device seeded with ``seed + 1`` (JAX: ``PRNGKey(seed + 1)``, whose stream
 torch cannot replay); evaluation runs without dropout.
+
+Across the ranks of a process group (:mod:`tpugraph_torch.parallel`):
+:func:`train_node_classifier_halo` trains on node shards with the halo
+exchange (``--halo N``), and :func:`train_graph_classifier` with a
+``mesh`` splits each batch over the ranks (``--dp N``).  Each runs in
+every rank and returns the same result in each.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import numpy as np
 import torch
 
 from tpugraph_torch._device import DeviceLike, default_device
-from tpugraph_torch.core.graph import Graph
+from tpugraph_torch.core.graph import Graph, graph_from_edges
 from tpugraph_torch.nn.layers import (Adjacency, BCSRAdj, PacketAdj,
                                       SparseAdj, StackedAdj)
 from tpugraph_torch.nn.losses import (link_prediction_loss, node_cross_entropy,
@@ -419,6 +425,157 @@ def train_node_classifier(
     }
 
 
+def train_node_classifier_halo(
+    model: torch.nn.Module,
+    g: Graph,
+    feat: np.ndarray,
+    labels: np.ndarray,
+    cfg: TrainConfig,
+    n_dev: int,
+    axis="data",
+    overlap: str = "auto",
+    partition: str = "locality",
+    class_weight: Optional[np.ndarray] = None,
+    seed: int = 0,
+    log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    mesh=None,
+) -> Dict[str, Any]:
+    """Full-batch node classification on ``n_dev`` node shards with the
+    halo exchange, run in every rank of a process group
+    (``tpugraph/train/loop.py:539``; ``--halo N``).
+
+    The node split comes from ``np.random.default_rng(seed)`` as on one
+    device; ``partition="locality"`` relabels the nodes by
+    :func:`~tpugraph_torch.parallel.spmd.locality_partition` first
+    (``"none"`` keeps their order); the plan is
+    :func:`~tpugraph_torch.parallel.spmd.build_halo`'s, on tiles with
+    ``cfg.use_bcsr`` (B1, and B2 for an attention model), split where
+    ``overlap`` says (:func:`~tpugraph_torch.parallel.spmd.resolve_halo_overlap`).
+    Each rank keeps its shard of the features, labels and masks and trains
+    ``model`` (already initialized, the same on every rank) with the
+    halo step, whose gradient is ``n_dev`` times the single-device one, as
+    ``tpugraph``'s.  ``mesh`` defaults to the group's (1-D on ``axis``, or
+    2-D ``(2, n_dev / 2)`` for a pair of axis names).  The loss is
+    recorded every epoch and the accuracies (and ``log_fn``) every
+    ``cfg.eval_every`` epochs and after the last.  Dropout raises, as in
+    ``tpugraph`` (the step draws no masks).  Returns
+    :func:`train_node_classifier`'s dict, ``ypred`` over the original
+    node ids, plus ``n_dev`` and ``halo_size``."""
+    from tpugraph_torch.parallel import collectives
+    from tpugraph_torch.parallel.mesh import group_mesh
+    from tpugraph_torch.parallel.spmd import (build_halo, locality_partition,
+                                              make_halo_forward,
+                                              make_halo_train_step)
+
+    if getattr(model, "dropout", 0.0) > 0.001:
+        raise NotImplementedError(
+            "halo training is deterministic (no dropout rng); set dropout=0 "
+            "or use the single-device path")
+    mesh = mesh or group_mesh(axis)
+    if mesh.size != n_dev:
+        raise ValueError(f"n_dev={n_dev}, but the mesh has {mesh.size} ranks")
+    device, rank = mesh.device, mesh.rank
+    rng = np.random.default_rng(seed)
+    n_real = g.n_node
+    old_n = g.num_nodes_padded
+    train_idx, test_idx = split_nodes(n_real, cfg.train_ratio, rng)
+
+    s, r, w = g.senders.numpy(), g.receivers.numpy(), g.edge_weight.numpy()
+    live = w != 0
+    if partition == "locality":
+        perm, inv = locality_partition(s[live], r[live], old_n, n_dev,
+                                       weights=w[live])
+    elif partition == "none":
+        perm = inv = np.arange(((old_n + n_dev - 1) // n_dev) * n_dev)
+    else:
+        raise ValueError(f"partition must be 'locality'/'none': {partition}")
+    n_pad = len(perm)
+    g2 = graph_from_edges(inv[s[live]].astype(np.int32),
+                          inv[r[live]].astype(np.int32), n_pad,
+                          edge_weight=w[live])
+    plan = build_halo(g2, mesh, bcsr=cfg.use_bcsr, block=cfg.bcsr_block,
+                      overlap=overlap, att=bool(getattr(model, "att", False)))
+    ns = plan.shard_size
+    n_total = ns * n_dev
+    if partition == "locality" and n_total != n_pad:
+        # the shards must be the partition's: a padding rule that grew the
+        # graph past ns * n_dev would shift every node off its shard
+        raise AssertionError(f"halo plan covers {n_total} nodes, the "
+                             f"locality partition {n_pad}")
+
+    def shard(payload: np.ndarray, dtype) -> torch.Tensor:
+        """This rank's rows of ``payload`` relabelled and padded to
+        ``n_total`` (``tpugraph/train/loop.py:620-626``)."""
+        src = np.zeros((n_pad,) + payload.shape[1:], payload.dtype)
+        src[: payload.shape[0]] = payload
+        full = np.zeros((n_total,) + payload.shape[1:], payload.dtype)
+        full[:n_pad] = src[perm]
+        return torch.from_numpy(full[rank * ns:(rank + 1) * ns]).to(device, dtype)
+
+    labels_pad = np.zeros((old_n,), np.int64)
+    labels_pad[:n_real] = np.asarray(labels)
+    tr_mask = np.zeros((old_n,), np.float32)
+    tr_mask[train_idx] = 1.0
+    te_mask = np.zeros((old_n,), np.float32)
+    te_mask[test_idx] = 1.0
+    x = shard(np.asarray(feat, np.float32), torch.float32)
+    y = shard(labels_pad, torch.int64)
+    tr_m = shard(tr_mask, torch.float32)
+    te_m = shard(te_mask, torch.float32)
+    cw = (None if class_weight is None else
+          torch.as_tensor(np.asarray(class_weight, np.float32), device=device))
+
+    model.to(device)
+    model.train()
+    opt = build_optimizer(model.parameters(), _opt_config(cfg))
+    step = make_halo_train_step(model, opt, mesh, plan, cw, device)
+    fwd = make_halo_forward(model, mesh, plan, device)
+
+    def accs() -> Tuple[float, float]:
+        correct = (torch.argmax(fwd(x), dim=-1) == y).float()
+        sums = torch.stack([torch.sum(correct * tr_m), torch.sum(tr_m),
+                            torch.sum(correct * te_m), torch.sum(te_m)])
+        c_tr, n_tr, c_te, n_te = collectives.all_reduce_(sums, mesh.group).tolist()
+        return c_tr / max(n_tr, 1.0), c_te / max(n_te, 1.0)
+
+    losses: List[torch.Tensor] = []
+    history: Dict[str, List[float]] = {"loss": [], "train_acc": [], "test_acc": []}
+    begin = time.time()
+    for ep in range(cfg.num_epochs):
+        with trace_annotation("train_epoch"):
+            losses.append(step(x, y, tr_m))
+        if (ep + 1) % cfg.eval_every == 0 or ep + 1 == cfg.num_epochs:
+            tr_a, te_a = accs()
+            history["train_acc"].append(tr_a)
+            history["test_acc"].append(te_a)
+            if log_fn is not None:
+                log_fn(ep + 1, {"loss": float(losses[-1]), "train_acc": tr_a,
+                                "test_acc": te_a})
+    history["loss"] = torch.stack(losses).tolist() if losses else []
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.time() - begin
+
+    # every rank's logits, back in the original node ids
+    logits = collectives.all_gather_rows(fwd(x), mesh.group).cpu().numpy()
+    ypred = logits[inv[:old_n]][None]  # [1, N_pad_old, C]
+    result_train, result_test = eval_node(
+        ypred[:, :n_real], np.asarray(labels)[None], train_idx, test_idx)
+    return {
+        "params": model.state_dict(),
+        "opt_state": opt.state_dict(),
+        "ypred": ypred,
+        "train_idx": train_idx,
+        "test_idx": test_idx,
+        "history": history,
+        "result_train": result_train,
+        "result_test": result_test,
+        "elapsed": elapsed,
+        "n_dev": n_dev,
+        "halo_size": plan.halo_size,
+    }
+
+
 def train_graph_classifier(
     model: torch.nn.Module,
     train_batcher,
@@ -452,10 +609,20 @@ def train_graph_classifier(
     history (``loss`` every epoch; the accuracies at each evaluation),
     ``best_val``, ``test_result``, the cg bundle of the last epoch (its
     first 20 batches and the logits of its first 5) and the seconds of
-    the epoch loop.  ``mesh`` (data parallelism) is not ported yet."""
+    the epoch loop.
+
+    With ``mesh`` (a :class:`~tpugraph_torch.parallel.mesh.Mesh`; every
+    rank runs this function), each batch is split over the ranks by
+    :func:`~tpugraph_torch.parallel.spmd.make_dp_graph_train_step`, whose
+    update is the single-device one (``tpugraph/train/loop.py:756-770``);
+    ``device`` defaults to the mesh's, and ``cfg.batch_size`` must divide
+    by the mesh size."""
     if mesh is not None:
-        raise NotImplementedError("data-parallel graph training is not "
-                                  "ported yet (ROADMAP section 1 item 11)")
+        if cfg.batch_size % mesh.size != 0:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} must divide by the "
+                f"{mesh.size}-device mesh for data parallelism")
+        device = mesh.device if device is None else device
     device = default_device(device)
     rng = np.random.default_rng(seed)
     uses_assign = linkpred or getattr(model, "assign_hidden_dim", None) is not None
@@ -495,6 +662,29 @@ def train_graph_classifier(
         return eval_graph_preds(torch.cat(preds).cpu().numpy(),
                                 np.concatenate(labs))
 
+    if mesh is not None:
+        from tpugraph_torch.parallel.spmd import make_dp_graph_train_step
+
+        dp_step = make_dp_graph_train_step(
+            model, opt, mesh, linkpred=linkpred, uses_assign=uses_assign,
+            has_dropout=drop_gen is not None)
+
+        def train_step(batch):
+            return dp_step(drop_gen, *tensors(batch),
+                           torch.from_numpy(batch.label).to(device))
+    else:
+        def train_step(batch):
+            adj, x, mask, assign = tensors(batch)
+            logits, aux = forward(adj, x, mask, assign, drop_gen)
+            loss = softmax_cross_entropy(
+                logits, torch.from_numpy(batch.label).to(device))
+            if linkpred and isinstance(aux, (list, tuple)) and len(aux) > 0:
+                loss = loss + link_prediction_loss(aux[0], adj, mask)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            return loss, logits
+
     history: Dict[str, List[float]] = {"loss": [], "train_acc": [],
                                        "val_acc": [], "test_acc": []}
     best_val = {"epoch": 0, "acc": 0.0, "loss": 0.0}
@@ -508,15 +698,7 @@ def train_graph_classifier(
         for bi, batch in enumerate(train_batcher.batches(cfg.batch_size,
                                                          shuffle=True, rng=rng)):
             with trace_annotation("train_step"):
-                adj, x, mask, assign = tensors(batch)
-                logits, aux = forward(adj, x, mask, assign, drop_gen)
-                loss = softmax_cross_entropy(
-                    logits, torch.from_numpy(batch.label).to(device))
-                if linkpred and isinstance(aux, (list, tuple)) and len(aux) > 0:
-                    loss = loss + link_prediction_loss(aux[0], adj, mask)
-                opt.zero_grad()
-                loss.backward()
-                opt.step()
+                loss, logits = train_step(batch)
                 losses.append(loss.detach())
             if last:
                 # the cg bundle: the first 20 batches and the logits of the
