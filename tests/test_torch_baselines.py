@@ -29,7 +29,7 @@ from tpugraph_torch.core import extract_dense_subgraph
 from tpugraph_torch.data import ConstFeatureGen, gen_syn1
 from tpugraph_torch.data.pipeline import to_numpy_array
 from tpugraph_torch.explain import Explainer, ExplainConfig, baselines
-from tpugraph_torch.explain.align import align_explanations
+from tpugraph_torch.explain.align import Alignment, align_explanations
 from tpugraph_torch.explain.representer import representer_scores
 from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode, params_from_jax
 from tpugraph_torch.viz import denoise_graph
@@ -283,6 +283,63 @@ def test_align_explanations_default_rate_first_steps(const_feat):
     for g, w, name in zip(got, want, ("P", "aligned_adj", "aligned_feat")):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=name)
 
+
+
+@pytest.mark.parametrize("lr", [1e-3, 0.01])
+def test_alignment_state_moves_exactly(lr):
+    """A 300-step run cut into segments, each continued by a fresh
+    Alignment from the last one's state, is align_explanations' run bit
+    for bit."""
+    ref_feat, ref_adj, cur_feat, cur_adj = _denoised_pair(2)
+    args = (ref_feat, ref_adj, 2, cur_feat, cur_adj, 5)
+    run = Alignment(*args, lr=lr, device="cpu")
+    for _ in range(3):
+        state = run.state()
+        run = Alignment(*args, lr=lr, device="cpu")
+        run.load(state)
+        run.step(100)
+    for g, w in zip(run.result(), align_explanations(*args, num_steps=300, lr=lr,
+                                                     device="cpu")):
+        np.testing.assert_array_equal(g, w)
+
+
+class _Float64Gradient(Alignment):
+    """The same Adam step with the loss and its gradient in float64: a
+    rounding other than float32's, as another device's."""
+
+    def step(self, num_steps):
+        for _ in range(num_steps):
+            P = self.P.detach().double().requires_grad_(True)
+            loss = (torch.linalg.norm(P @ self.cf.double() - self.rf.double())
+                    + torch.linalg.norm(P @ self.ca.double() @ P.T
+                                        - self.ra.double()))
+            self.opt.zero_grad()
+            self.P.grad = torch.autograd.grad(loss, P)[0].float()
+            self.opt.step()
+
+
+@pytest.mark.parametrize("const_feat", [False, True])
+def test_alignment_segments_are_conditioned(const_feat):
+    """At the default lr the 1000-step P is chaotic, but 10 steps from any
+    of its states are conditioned: another rounding of the gradient lands
+    within 1e-4 of float32's from every 100th step (the bound the card's
+    run is held to against the CPU's)."""
+    ref_feat, ref_adj, cur_feat, cur_adj = _denoised_pair(1)
+    if const_feat:
+        ref_feat, cur_feat = np.ones_like(ref_feat), np.ones_like(cur_feat)
+    args = (ref_feat, ref_adj, 2, cur_feat, cur_adj, 5)
+    run, worst = Alignment(*args, device="cpu"), 0.0
+    for _ in range(10):
+        state = run.state()
+        run.step(10)
+        other = _Float64Gradient(*args, device="cpu")
+        other.load(state)
+        other.step(10)
+        worst = max(worst, np.abs(other.result()[0] - run.result()[0]).max())
+        run.step(90)
+    print(f"10-step segments: max |float64 gradient - float32| {worst:.3g} "
+          f"(limit 1e-4)")
+    assert worst <= 1e-4
 
 def _mask(seed, n=40):
     """A symmetric mask with weights on both sides of 0.1 and several

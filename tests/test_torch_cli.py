@@ -162,9 +162,6 @@ def test_missing_checkpoint_message(tmp_path):
                           "--ckptdir", str(tmp_path)])
 
 
-UNPORTED_EXPLAIN = [
-    (["--mesh", "4"], "--mesh", "item 11"),
-]
 MULTI_DEVICE_TRAIN = {
     "halo4": ["--dataset", "syn1", "--halo", "4"],
     "halo2_bcsr_att": ["--dataset", "syn1", "--halo", "2", "--halo-overlap", "on",
@@ -307,14 +304,6 @@ def test_ported_graph_flag_runs(toy_graph_dirs, args):
         assert len(s["graph_indices"]) > 1
 
 
-@pytest.mark.parametrize("args,flag,item", UNPORTED_EXPLAIN)
-def test_unported_explain_flag_raises(tmp_path, args, flag, item):
-    with pytest.raises(NotImplementedError) as err:
-        cli_explain.main(["--platform", "cpu", "--ckptdir", str(tmp_path)]
-                         + args)
-    assert flag in str(err.value) and f"ROADMAP section 1 {item}" in str(err.value)
-
-
 def test_explain_flags_reach_explain_config():
     cfg = parse_explain_args(["--epochs", "7", "--lr", "0.5", "--mask-bias",
                               "--marginalize", "--seed-ensemble", "3",
@@ -398,6 +387,41 @@ def test_ported_explain_flag_runs(syn1_ckpts, args):
     assert s["num_nodes_explained"] == 60 and 0.0 <= s["auc"] <= 1.0
     with open(os.path.join(logdir, "pr", f"auc_syn1_{model}.txt")) as f:
         assert f.read() == f"dataset: syn1, model: {model}, auc: {s['auc']}\n"
+
+
+MESH_EXPLAIN = {"node": ["--explain-node", "305"],
+                "node_bcsr": ["--explain-node", "305", "--bcsr"],
+                "stats": []}
+
+
+@pytest.mark.parametrize("name", list(MESH_EXPLAIN))
+def test_mesh_explain_matches_one_device(syn1_ckpts, name):
+    """``--mesh 2`` on gloo ranks (10 mask epochs): the summary gains
+    ``mesh_devices``, rank 0 writes the files of the ``--mesh 1`` run and
+    no other (one events file), and every ``.npy`` is the single-device
+    one within 1e-6 (tests/test_cli.py:112)."""
+    root, dirs = syn1_ckpts
+    files, summaries = {}, {}
+    for n in (1, 2):
+        s = cli_explain.main(dirs + MESH_EXPLAIN[name] + [
+            "--epochs", "10", "--mesh", str(n), "--explainer-suffix", f"{name}{n}"])
+        logdir = os.path.join(root, "log", f"syn1_base_h20_o20_explain_{name}{n}")
+        files[n] = {f: os.path.join(logdir, f) for f in sorted(os.listdir(logdir))}
+        summaries[n] = s
+    assert summaries[2].pop("mesh_devices") == 2 and "mesh_devices" not in summaries[1]
+    assert [f for f in files[2] if not f.startswith("events.out")] == [
+        f for f in files[1] if not f.startswith("events.out")]
+    assert len(files[2]) == len(files[1])
+    npys = [f for f in files[1] if f.endswith(".npy")]
+    assert len(npys) == (60 if name == "stats" else 1)
+    for f in npys:
+        a, b = np.load(files[1][f]), np.load(files[2][f])
+        assert a.ndim == 2 and a.shape[0] == a.shape[1] > 1
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-6, err_msg=f)
+    if name == "stats":
+        assert summaries[2]["auc"] == pytest.approx(summaries[1]["auc"], abs=1e-12)
+    else:
+        assert summaries[2]["mask_shape"] == summaries[1]["mask_shape"]
 
 
 # The item 9 tasks through cli.train on the fixtures of

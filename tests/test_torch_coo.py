@@ -24,13 +24,15 @@ from tpugraph.ops import message as jax_message
 from tpugraph.train import loop as jax_loop
 from tpugraph_torch.cli.tasks import padded_features
 from tpugraph_torch.core import khop
-from tpugraph_torch.core.graph import graph_from_edge_list
+from tpugraph_torch.core.graph import graph_from_edge_list, graph_from_networkx
 from tpugraph_torch.data import ConstFeatureGen, gen_syn1, preprocess_input_graph
 from tpugraph_torch.explain import Explainer, ExplainConfig
 from tpugraph_torch.explain import module
 from tpugraph_torch.nn import GcnEncoderNode, SparseAdj, params_from_jax
 from tpugraph_torch.nn.losses import node_cross_entropy
 from tpugraph_torch.ops import dense, message
+from tpugraph_torch.parallel.launch import single_rank
+from tpugraph_torch.parallel.mesh import make_mesh
 from tpugraph_torch.train import TrainConfig, train_node_classifier
 
 torch.set_num_threads(1)
@@ -145,6 +147,21 @@ def syn1():
     return dict(G_j=G_j, G_t=G_t, labels=np.asarray(labels), g_j=g_j,
                 g_t=g_t, feat=feat, model_j=model_j, params=params,
                 model=model, pred_vec=pred_vec)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_graph_from_networkx_matches(syn1, normalize):
+    """On tpugraph's networkx syn1 and on the port's networkx-free copy of
+    it: tpugraph's arrays, with normalization and node/edge budgets."""
+    kw = dict(normalize=normalize, num_nodes_padded=712, num_edges_padded=4200)
+    want = jax_graph_from_networkx(syn1["G_j"], **kw)
+    for G in (syn1["G_j"], syn1["G_t"]):
+        got = graph_from_networkx(G, **kw)
+        for f in ("senders", "receivers", "edge_weight", "node_mask", "edge_pair"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)), err_msg=f)
+        assert (got.n_node, got.n_edge) == (int(want.n_node), int(want.n_edge))
+        assert got.num_nodes_padded == 712 and got.num_edges_padded == 4200
 
 
 def test_cli_graph_and_features_match(syn1):
@@ -512,7 +529,7 @@ def test_explain_one_node_saves_npy_and_unported_raise(syn1, explainer_inputs,
     np.testing.assert_array_equal(
         np.load(tmp_path / f"masked_adj_node_idx_{NODE}graph_idx_0.npy"), ma)
     # the grad/att baselines (ported in tests/test_torch_baselines.py) save
-    # their dense mask under the same name; mesh sharding stays unported
+    # their dense mask under the same name
     for model in ("grad", "att"):
         mb = ex.explain(NODE, model=model)
         assert mb.shape == ma.shape and np.all(np.isfinite(mb))
@@ -520,5 +537,7 @@ def test_explain_one_node_saves_npy_and_unported_raise(syn1, explainer_inputs,
             np.load(tmp_path / f"masked_adj_node_idx_{NODE}graph_idx_0.npy"), mb)
         stats = ex.explain_nodes_gnn_stats([NODE], model=model)
         np.testing.assert_array_equal(stats["masked_adjs"][0], mb)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ex.explain_nodes_batch([NODE], mesh=object())
+    # a 1-rank mesh (tests/test_torch_parallel_explain.py shards over more)
+    with single_rank("gloo"):
+        sharded = ex.explain_nodes_batch([NODE], mesh=make_mesh())
+    np.testing.assert_array_equal(sharded[0]["masked_adj"], ma)

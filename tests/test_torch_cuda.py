@@ -1100,6 +1100,35 @@ def test_align_on_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
+
+@pytest.mark.cuda
+def test_align_segments_on_card_match_cpu(cuda_device):
+    """A 1000-step alignment at the default lr on the card, held a segment
+    at a time: from its state at every 100th step the CPU takes 10 steps
+    and lands within 1e-4 of the card's P; the segmented run is
+    align_explanations' on the card."""
+    from tpugraph_torch.explain.align import Alignment, align_explanations
+
+    rng = np.random.default_rng(0)
+    ins = []
+    for n in (7, 9):
+        up = np.triu(rng.uniform(0.1, 1.0, (n, n)) * (rng.random((n, n)) < 0.5), 1)
+        ins += [rng.standard_normal((n, 4)).astype(np.float32),
+                (up + up.T).astype(np.float32)]
+    args = (ins[0], ins[1], 2, ins[2], ins[3], 5)
+    card = Alignment(*args, device=cuda_device)
+    for _ in range(10):
+        state = card.state()
+        card.step(10)
+        cpu = Alignment(*args, device="cpu")
+        cpu.load(state)
+        cpu.step(10)
+        np.testing.assert_allclose(card.result()[0], cpu.result()[0],
+                                   rtol=0, atol=1e-4)
+        card.step(90)
+    np.testing.assert_array_equal(
+        card.result()[0], align_explanations(*args, device=cuda_device)[0])
+
 def _halo_shards(n_dev=4, block=64):
     """The 4-shard BCSR halo plan (with transpose plans) of a random
     graph: rectangular ``[local | halo]`` tiles padded with dead tiles to
@@ -1162,3 +1191,87 @@ def test_halo_exchange_one_nccl_rank(cuda_device):
     assert torch.equal(got.detach(), ref) and torch.equal(got_async.detach(), ref)
     want = torch.zeros_like(x).index_add_(0, send[0], 2 * ref[0])
     assert float((x.grad - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_sharded_bcsr_explain_one_nccl_rank(cuda_device):
+    """explain_nodes_bcsr(mesh=) over a 1-rank NCCL group launches B1 and
+    B2 and gives the sequential card run's masks (the same kernels on the
+    same inputs) and the CPU's within 1e-4, 10 mask epochs on syn1."""
+    from tpugraph_torch import ops
+    from tpugraph_torch.data import preprocess_input_graph
+    from tpugraph_torch.explain import ExplainConfig, Explainer
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.parallel.launch import single_rank
+    from tpugraph_torch.parallel.mesh import make_mesh
+
+    G, _, feat, labels = _syn1()
+    data = preprocess_input_graph(G, labels)
+    n = data["adj"].shape[1]
+    dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
+                num_layers=3)
+    init = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0),
+                          device="cpu").state_dict()
+    pred = np.eye(4, dtype=np.float32)[np.asarray(labels)[:n]][None]
+    nodes = [400, 460, 520]
+
+    def explainer(dev):
+        return Explainer(GcnEncoderNode(**dims, device=dev), init, data["adj"],
+                         data["feat"], data["labels"], pred,
+                         cfg=ExplainConfig(num_epochs=10), device=dev)
+
+    ex = explainer(cuda_device)
+    seq = ex.explain_nodes_bcsr(nodes)
+    ops.reset_launch_counts()
+    with single_rank("nccl"):
+        sharded = ex.explain_nodes_bcsr(nodes, mesh=make_mesh())
+    counts = ops.launch_counts()
+    assert counts["spmm_bcsr"] > 0 and counts["sddmm_bcsr"] > 0
+    cpu = explainer("cpu").explain_nodes_bcsr(nodes)
+    for a, b, c in zip(sharded, seq, cpu):
+        np.testing.assert_allclose(a["masked_adj"], b["masked_adj"], atol=1e-6, rtol=0)
+        np.testing.assert_allclose(a["masked_adj"], c["masked_adj"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_all_gather_cols_and_tp_step_one_nccl_rank(cuda_device):
+    """all_gather_cols over a 1-rank NCCL group is a copy forward and
+    backward, and 5 tensor-parallel Adam steps there give the losses of
+    one device within 1e-5."""
+    from tpugraph_torch.nn import GcnEncoderNode, SparseAdj
+    from tpugraph_torch.nn.losses import node_cross_entropy
+    from tpugraph_torch.parallel.collectives import all_gather_cols
+    from tpugraph_torch.parallel.launch import single_rank
+    from tpugraph_torch.parallel.tp import tp_fit
+    from tpugraph_torch.train.optim import OptimizerConfig, build_optimizer
+
+    x = _x(64, 24, 3, cuda_device).requires_grad_()
+    _, g, feat, labels = _syn1()
+    dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
+                num_layers=3)
+    model = GcnEncoderNode(**dims, generator=torch.Generator().manual_seed(0),
+                           device=cuda_device)
+    y = np.zeros(g.num_nodes_padded, np.int64)
+    y[: len(labels)] = labels
+    mask = g.node_mask.numpy()
+    xf = np.zeros((g.num_nodes_padded, 10), np.float32)
+    xf[: len(feat)] = feat
+    cfg = OptimizerConfig(opt="adam", lr=1e-2)
+    with single_rank("nccl"):
+        got = all_gather_cols(x, None)
+        (got * got).sum().backward()
+        tp = tp_fit(None, model, g, xf, y, mask, 5, cfg)
+    assert torch.equal(got.detach(), x.detach())
+    assert float((x.grad - 2 * x.detach()).abs().max()) == 0.0
+    opt = build_optimizer(model.parameters(), cfg)
+    adj = SparseAdj(*(t.to(cuda_device) for t in (g.senders.long(), g.receivers.long(),
+                                                  g.edge_weight)))
+    xt, yt, mt = (torch.from_numpy(a).to(cuda_device) for a in (xf, y, mask))
+    want = []
+    for _ in range(5):
+        opt.zero_grad()
+        loss = node_cross_entropy(model(xt, adj)[0], yt, node_mask=mt)
+        loss.backward()
+        opt.step()
+        want.append(float(loss.detach()))
+    np.testing.assert_allclose(tp["losses"], want, rtol=1e-5, atol=1e-6)

@@ -155,6 +155,37 @@ def test_bcsr_matvec_k_pack_grad_matches_jax():
     np.testing.assert_allclose(dx.numpy(), ref_dx, rtol=TOL, atol=TOL)
 
 
+def test_make_bcsr_matvec_matches_jax():
+    """make_bcsr_matvec's closure: tpugraph's in interpret mode, forward and
+    the gradient of sum(y^2) (tests/test_pallas.py:81's case)."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    n = 120
+    a = (rng.random((n, n)) < 0.02).astype(np.float32)
+    a = np.triu(a, 1)
+    a = a + a.T
+    s, r = np.nonzero(a)
+    w = rng.random(len(s)).astype(np.float32)
+    dense = np.zeros((n, n), np.float32)
+    dense[r, s] = w
+    w = ((dense + dense.T) / 2)[r, s]
+    args = (s.astype(np.int32), r.astype(np.int32), w, n)
+    mv_j = jax_spmm.make_bcsr_matvec(jax_bcsr.bcsr_from_coo(*args),
+                                     jax_bcsr.bcsr_transpose_host(*args),
+                                     interpret=True)
+    mv = bcsr_kernels.make_bcsr_matvec(bcsr.bcsr_from_coo(*args).to("cpu"),
+                                       bcsr.bcsr_transpose_host(*args).to("cpu"))
+    x = rng.standard_normal((128, 128)).astype(np.float32)
+    ref_y = np.asarray(mv_j(jnp.asarray(x)))
+    ref_dx = np.asarray(jax.grad(lambda xx: jnp.sum(mv_j(xx) ** 2))(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = mv(xt)
+    (dx,) = torch.autograd.grad(torch.sum(y ** 2), xt)
+    np.testing.assert_allclose(y.detach().numpy(), ref_y, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dx.numpy(), ref_dx, rtol=TOL, atol=TOL)
+
+
 def _pad_lanes(a):
     """tpugraph's kernels take D padded to a multiple of 128."""
     return np.pad(a, ((0, 0), (0, (-a.shape[1]) % 128)))

@@ -81,7 +81,7 @@ def test_package_imports_neither_jax_nor_tpugraph():
         "    'scipy'))\n"
         "assert len(mods) >= 20, mods\n"
         "assert {'tpugraph_torch.parallel.' + m for m in ('mesh', 'launch', "
-        "'collectives', 'spmd')} <= set(mods), mods\n"
+        "'collectives', 'spmd', 'tp')} <= set(mods), mods\n"
         "assert 'tpugraph_torch.native' in mods, mods\n"
         "assert not bad, bad\n"
         "from tpugraph_torch.viz.layout import kamada_kawai_layout\n"
@@ -96,6 +96,28 @@ def test_package_imports_neither_jax_nor_tpugraph():
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 20
+
+
+# tpugraph's Pallas modules and their CUDA counterparts
+KERNEL_MODULES = {"ops/pallas_spmm.py": "ops/bcsr_kernels.py",
+                  "ops/pallas_resident.py": "ops/resident_kernels.py",
+                  "ops/pallas_packets.py": "ops/packets_kernels.py"}
+
+
+def test_every_tpugraph_module_has_a_counterpart():
+    """Each module file of tpugraph has one of the same path in the port
+    (the Pallas ones their kernel modules), and so do its two helpers
+    graph_from_networkx and make_bcsr_matvec."""
+    from tpugraph_torch.core import graph_from_networkx  # noqa: F401
+    from tpugraph_torch.ops import make_bcsr_matvec  # noqa: F401
+
+    root = Path(__file__).resolve().parents[1]
+    jax_mods = {str(p.relative_to(root / "tpugraph"))
+                for p in (root / "tpugraph").rglob("*.py")}
+    assert len(jax_mods) > 30
+    missing = [m for m in sorted(jax_mods)
+               if not (root / "tpugraph_torch" / KERNEL_MODULES.get(m, m)).is_file()]
+    assert not missing, missing
 
 
 def test_diffusion_entry_points_raise_without_cuda(no_cuda):

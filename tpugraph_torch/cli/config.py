@@ -4,10 +4,8 @@ explainer.
 
 The flags are ``tpugraph``'s.  ``--platform`` picks the device: unset
 means the CUDA card, ``cpu`` the CPU.  ``--halo N`` and ``--dp N`` run
-on ``N`` ranks (:func:`rank_count`; NCCL with a card a rank, or gloo with
-``--platform cpu``).  A flag whose module the port does not have yet
-raises ``NotImplementedError`` naming the flag and its ROADMAP item
-(:func:`check_ported`), and never runs something else.
+on ``N`` ranks, as does the explainer's ``--mesh N`` (:func:`rank_count`;
+NCCL with a card a rank, or gloo with ``--platform cpu``).
 There is no compile cache: PyTorch runs eagerly.
 """
 
@@ -231,23 +229,22 @@ def _to_config(ns: argparse.Namespace) -> Config:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` before anything runs for a flag whose
-    module is not ported (``--mesh``, naming its ROADMAP section 1 item),
-    and for ``--resume`` with ``--halo N > 1``, which ``tpugraph`` rejects
-    only once a checkpoint has loaded (``tpugraph/cli/tasks.py:109``)."""
-    if cfg.mesh_devices > 1:
-        raise NotImplementedError(
-            "--mesh is not ported yet (ROADMAP section 1 item 11)")
+    """Raise ``NotImplementedError`` before anything runs for ``--resume``
+    with ``--halo N > 1``, which ``tpugraph`` rejects only once a
+    checkpoint has loaded (``tpugraph/cli/tasks.py:109``)."""
     if cfg.resume and cfg.halo_devices > 1:
         raise NotImplementedError(
             "--resume is not supported with --halo; restart or use the "
             "single-device path")
 
 
-def rank_count(cfg: Config) -> int:
-    """The ranks ``cfg``'s task trains on: ``--dp`` for ``--bmname`` graph
+def rank_count(cfg: Config, explain: bool = False) -> int:
+    """The ranks ``cfg``'s task runs on: for the explainer (``explain``)
+    ``--mesh``; for the trainer ``--dp`` for ``--bmname`` graph
     classification, ``--halo`` for the single-graph node tasks (where
     ``tpugraph`` reads each), else 1."""
+    if explain:
+        return cfg.mesh_devices
     if cfg.bmname is not None:
         return cfg.dp_devices
     if cfg.pkl_fname is not None or cfg.dataset == "enron_multigraph":

@@ -37,21 +37,36 @@ scalars ``optimization/<term>_loss`` of the first node, its mask
 ``mask_adj_0.png`` and feature mask ``mask_feat_mask_0.png`` (with
 ``--log-mask-every``, each node's heatmaps too); the alignment's two
 subgraphs.
+
+``--mesh N`` shards the explainer's queries over ``N`` spawned ranks, as
+``tpugraph``'s does over a device mesh: the COO queries of
+``--explain-node`` and of the stats run, or with ``--bcsr`` the
+tile-space query (NCCL with one CUDA card a rank, fewer cards than ranks
+raising before anything is written, or gloo CPU processes with
+``--platform cpu``).  Every query's mask is the single-device one.  Rank
+0 writes every file and the summary, which gains ``"mesh_devices": N``;
+the other ranks return an empty dict.  The baselines, the alignment and
+graph mode take no mesh, as in ``tpugraph``, and run on rank 0 alone.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 from typing import Dict
 
 import numpy as np
+import torch.distributed as dist
 
 from tpugraph_torch.cli.config import (Config, check_ported, cli_device,
-                                       parse_explain_args)
+                                       parse_explain_args, rank_backend,
+                                       rank_count)
+from tpugraph_torch.cli.tasks import is_writer
 from tpugraph_torch.explain.explainer import Explainer
 from tpugraph_torch.explain.module import ExplainConfig
 from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode
+from tpugraph_torch.parallel.mesh import make_mesh
 from tpugraph_torch.train.checkpoint import (gen_explainer_prefix, gen_prefix,
                                              load_checkpoint)
 from tpugraph_torch.utils.tb_writer import SummaryWriter
@@ -61,7 +76,8 @@ from tpugraph_torch.viz.graphs import denoise_graph, log_graph, save_matrix_imag
 def build_explainer(cfg: Config) -> Explainer:
     """An :class:`Explainer` over the checkpoint ``cfg`` names, on
     ``--platform``'s device, logging under
-    ``<logdir>/<prefix>_explain[_suffix]`` (``tpugraph/cli/explain.py:27``)."""
+    ``<logdir>/<prefix>_explain[_suffix]`` (``tpugraph/cli/explain.py:27``);
+    a rank after the first of a group neither logs nor prints."""
     check_ported(cfg)
     device = cli_device(cfg)
     prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
@@ -97,9 +113,11 @@ def build_explainer(cfg: Config) -> Explainer:
     else:
         model = GcnEncoderNode(**common,
                                add_self=bool(meta.get("add_self", False)))
-    logdir = os.path.join(cfg.logdir,
-                          gen_explainer_prefix(prefix, cfg.explainer_suffix))
-    os.makedirs(logdir, exist_ok=True)
+    logdir = None
+    if is_writer():
+        logdir = os.path.join(cfg.logdir,
+                              gen_explainer_prefix(prefix, cfg.explainer_suffix))
+        os.makedirs(logdir, exist_ok=True)
     ecfg = ExplainConfig(
         num_epochs=cfg.explainer_epochs,
         lr=cfg.explainer_lr,
@@ -122,7 +140,7 @@ def build_explainer(cfg: Config) -> Explainer:
         cfg=ecfg,
         logdir=logdir,
         dataset=cfg.name,
-        print_training=True,
+        print_training=logdir is not None,
         seed=cfg.seed,
         device=device,
     )
@@ -141,19 +159,39 @@ def _mask_heatmaps(ex: Explainer, r: Dict, every: int, name: str) -> int:
 
 def main(argv=None) -> Dict:
     """Run the explainer on ``argv`` (``sys.argv`` when ``None``); returns
-    the summary it prints."""
+    the summary it prints (rank 0's with ``--mesh N``; the other ranks
+    return an empty dict)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     cfg = parse_explain_args(argv)
+    check_ported(cfg)
+    cli_device(cfg)  # an unusable --platform raises before anything is written
+    n = rank_count(cfg, explain=True)
+    if n > 1 and not dist.is_initialized():
+        from tpugraph_torch.parallel.launch import run_ranks
+
+        return run_ranks(main, n, rank_backend(cfg), argv)
+    mesh = make_mesh(n) if n > 1 else None
     ex = build_explainer(cfg)
+    sharded = (cfg.explainer_model == "exp" and not ex.graph_mode
+               and (cfg.explain_node is not None or cfg.multinode_class < 0))
+    if not is_writer() and not sharded:
+        return {}
     summary = {"dataset": cfg.name, "mode": "graph" if ex.graph_mode else "node"}
+    if mesh is not None:
+        summary["mesh_devices"] = n
     if cfg.explain_node is not None:
         if cfg.explainer_model != "exp":
             masked_adj = ex.explain(cfg.explain_node, model=cfg.explainer_model)
             new_idx = ex.extract_neighborhood(cfg.explain_node)[0]
         else:
             if cfg.use_bcsr:
-                r = ex.explain_node_bcsr(cfg.explain_node, block=cfg.bcsr_block)
+                rs = ex.explain_nodes_bcsr([cfg.explain_node],
+                                           block=cfg.bcsr_block, mesh=mesh)
             else:
-                r = ex.explain_nodes_batch([cfg.explain_node])[0]
+                rs = ex.explain_nodes_batch([cfg.explain_node], mesh=mesh)
+            if rs is None:
+                return {}
+            r = rs[0]
             masked_adj, new_idx = r["masked_adj"], r["node_idx_new"]
             ex._save_npy(masked_adj, cfg.explain_node)
             if cfg.log_mask_every > 0 and "masked_w" in r["history"]:
@@ -197,7 +235,9 @@ def main(argv=None) -> Dict:
     else:
         node_indices = list(range(400, 700, 5))
         res = ex.explain_nodes_gnn_stats(node_indices,
-                                         model=cfg.explainer_model)
+                                         model=cfg.explainer_model, mesh=mesh)
+        if res is None:
+            return {}
         summary["num_nodes_explained"] = len(node_indices)
         summary["auc"] = res["auc"]
         if cfg.log_mask_every > 0:

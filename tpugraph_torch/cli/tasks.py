@@ -15,8 +15,7 @@ networkx (:func:`tpugraph_torch.data.readers.load_graph_pickle`).
 ``--dp N`` splits graph classification's batches over ``N`` ranks.  Called
 outside a process group, such a task spawns its ranks
 (:func:`~tpugraph_torch.parallel.launch.run_ranks`) and returns rank 0's
-result; in a group, rank 0 alone writes the checkpoint.  ``--mesh``
-raises by name (:func:`tpugraph_torch.cli.config.check_ported`).
+result; in a group, rank 0 alone writes the checkpoint.
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ from tpugraph_torch.core.graph import (  # noqa: F401
     graph_from_dense,
     graph_from_edge_list,
     graph_from_edges,
+    graph_from_networkx,
     graph_to_dense,
     pad_graph,
 )

@@ -90,11 +90,14 @@ def graph_from_edges(
     pad_multiple: int = 8,
     *,
     num_edges_padded: Optional[int] = None,
+    num_nodes_padded: Optional[int] = None,
+    normalize: bool = False,
 ) -> Graph:
     """Padded :class:`Graph` from host-side directed edge arrays
-    (``tpugraph/core/graph.py:87`` without normalization or a node
-    budget); ``num_edges_padded`` fixes the edge budget, which must hold
-    every edge."""
+    (``tpugraph/core/graph.py:87``); ``num_nodes_padded`` and
+    ``num_edges_padded`` fix the budgets, which must hold every node and
+    edge.  ``normalize`` scales the weights to ``D^-1/2 A D^-1/2`` with
+    each node's weighted in-degree, in float64 as ``tpugraph`` does."""
     senders = np.asarray(senders, dtype=np.int32)
     receivers = np.asarray(receivers, dtype=np.int32)
     e = senders.shape[0]
@@ -102,11 +105,18 @@ def graph_from_edges(
         edge_weight = np.ones((e,), dtype=np.float32)
     else:
         edge_weight = np.asarray(edge_weight, dtype=np.float32)
+    if normalize and e > 0:
+        deg = np.zeros((num_nodes,), dtype=np.float64)
+        np.add.at(deg, receivers, edge_weight)
+        inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+        edge_weight = (edge_weight * inv_sqrt[senders]
+                       * inv_sqrt[receivers]).astype(np.float32)
 
-    n_pad = _round_up(max(num_nodes, 1), pad_multiple)
+    n_pad = num_nodes_padded or _round_up(max(num_nodes, 1), pad_multiple)
     e_pad = num_edges_padded or _round_up(max(e, 1), pad_multiple)
-    if e_pad < e:
-        raise ValueError(f"padding budget too small: edges {e}>{e_pad}")
+    if n_pad < num_nodes or e_pad < e:
+        raise ValueError(f"padding budget too small: nodes {num_nodes}>{n_pad} "
+                         f"or edges {e}>{e_pad}")
     s = np.zeros((e_pad,), dtype=np.int32)
     r = np.zeros((e_pad,), dtype=np.int32)
     w = np.zeros((e_pad,), dtype=np.float32)
@@ -155,9 +165,9 @@ def graph_from_dense(adj: np.ndarray, *,
 def graph_from_edge_list(num_nodes: int,
                          edges: Iterable[Tuple[int, int]]) -> Graph:
     """Padded :class:`Graph` from an undirected edge list over nodes
-    ``0..num_nodes-1`` — the networkx-free replacement of
-    ``graph_from_networkx`` (``tpugraph/core/graph.py:185``).  Each edge
-    is stored in both directions (a self-loop once), in list order."""
+    ``0..num_nodes-1``, stored as :func:`graph_from_networkx` stores a
+    graph's: each edge in both directions (a self-loop once), in list
+    order."""
     senders, receivers = [], []
     for u, v in edges:
         senders.append(u)
@@ -170,6 +180,30 @@ def graph_from_edge_list(num_nodes: int,
         np.asarray(receivers, dtype=np.int32),
         num_nodes,
     )
+
+
+def graph_from_networkx(G, normalize: bool = False,
+                        num_nodes_padded: Optional[int] = None,
+                        num_edges_padded: Optional[int] = None) -> Graph:
+    """Padded :class:`Graph` of an undirected graph read through
+    ``G.nodes()`` and ``G.edges()`` (a networkx graph, or any object with
+    the two; networkx is never imported), nodes in ``G.nodes()`` order
+    (``tpugraph/core/graph.py:185``).  Each edge is stored in both
+    directions (a self-loop once), in ``G.edges()`` order."""
+    index = {u: i for i, u in enumerate(G.nodes())}
+    senders, receivers = [], []
+    for u, v in G.edges():
+        ui, vi = index[u], index[v]
+        senders.append(ui)
+        receivers.append(vi)
+        if ui != vi:
+            senders.append(vi)
+            receivers.append(ui)
+    return graph_from_edges(np.asarray(senders, dtype=np.int32),
+                            np.asarray(receivers, dtype=np.int32), len(index),
+                            num_nodes_padded=num_nodes_padded,
+                            num_edges_padded=num_edges_padded,
+                            normalize=normalize)
 
 
 def graph_to_dense(g: Graph, num_nodes: Optional[int] = None) -> torch.Tensor:

@@ -27,7 +27,10 @@ Results keep the reference's dense ``masked_adj`` contract
 (ascending-neighbor sub-adjacency) and its ``.npy`` file names.
 The stats run draws its precision-recall curve and the alignment its
 two subgraphs under ``logdir`` (:mod:`tpugraph_torch.viz.graphs`).
-Single-device only: the ``mesh`` query sharding is not ported.
+``mesh`` (``explain_nodes_batch``, ``explain_nodes_bcsr``,
+``explain_nodes_gnn_stats``) shards the queries over the ranks of a
+``torch.distributed`` group, every query's result the single-device
+one, gathered on the mesh's first rank.
 """
 
 from __future__ import annotations
@@ -61,7 +64,22 @@ from tpugraph_torch.ops.bcsr import (
     bcsr_sym_partner,
     bcsr_transpose_plan,
 )
+from tpugraph_torch.parallel.collectives import gather_to_first
+from tpugraph_torch.parallel.mesh import Mesh
 from tpugraph_torch.viz.graphs import denoise_graph, log_graph, plot_pr_curve
+
+
+def _gather_queries(arrays: Dict[str, np.ndarray], mesh: Mesh
+                    ) -> Optional[Dict[str, np.ndarray]]:
+    """Each rank's float32 per-query arrays (query axis first, one shape on
+    every rank) joined in rank order on the mesh's first rank; ``None`` on
+    the others."""
+    out = {k: gather_to_first(torch.from_numpy(np.ascontiguousarray(a))
+                              .to(mesh.device), mesh.group)
+           for k, a in arrays.items()}
+    if mesh.rank != 0:
+        return None
+    return {k: t.cpu().numpy() for k, t in out.items()}
 
 
 class Explainer:
@@ -182,9 +200,9 @@ class Explainer:
         self,
         node_indices: Sequence[int],
         graph_idx: int = 0,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         init_state: Optional[Tuple[Optional[np.ndarray], ...]] = None,
-    ) -> List[Dict]:
+    ) -> Optional[List[Dict]]:
         """Every query's COO mask optimization at once
         (``tpugraph/explain/explainer.py:173``): Q copies of the graph in
         one forward a step.  Returns per query ``node_idx``,
@@ -195,10 +213,17 @@ class Explainer:
         first run's.  ``init_state`` (numpy ``(edge_logits [Q, E_pad],
         feat_logits [Q, D], bias_logits or None)``) replaces the first
         run's seeded mask init, as :func:`run_mask_optimization` takes
-        it."""
-        if mesh is not None:
-            raise NotImplementedError("mesh query sharding is not ported yet "
-                                      "(ROADMAP section 1 item 11)")
+        it.
+
+        With ``mesh`` (a 1-D :class:`~tpugraph_torch.parallel.mesh.Mesh`,
+        called on every rank of it) the queries are padded with the last
+        one to a multiple of ``mesh.size`` and rank ``r`` optimizes the
+        contiguous block ``r`` of them.  Its init is its rows of the whole
+        batch's init (drawn as one device draws it, or of ``init_state``)
+        and its ``marginalize`` noise its rows of the whole batch's, so
+        each query's result is the single-device one.  The mesh's first
+        rank gathers the edge weights, histories and feature masks and
+        returns the results; every other rank returns ``None``."""
         dev = self.device
         g = self._graph(graph_idx)
         g_dev = g.to(dev)
@@ -208,18 +233,30 @@ class Explainer:
         lab = self.label[graph_idx]
         labels_pad[: lab.shape[0]] = lab
         idx = np.asarray(node_indices, dtype=np.int64)
+        nq = len(idx)
+        rows = np.arange(nq)
+        if mesh is not None:
+            per = -(-nq // mesh.size)
+            rows = np.minimum(np.arange(mesh.rank * per, (mesh.rank + 1) * per),
+                              nq - 1)
         nbs = [khop_subgraph(g, int(i), self.n_hops) for i in idx]
-        edge_keep = torch.from_numpy(np.stack([nb.edge_mask for nb in nbs])).to(dev)
-        num_sub = [nb.num_nodes for nb in nbs]
+        edge_keep = torch.from_numpy(np.stack([nbs[q].edge_mask for q in rows])).to(dev)
+        num_sub = np.asarray([nb.num_nodes for nb in nbs])
 
         def run(seed, init=None):
-            # the mask init from a CPU generator, so the card explains from
-            # the CPU's init; the marginalize noise from one on the device
+            # the whole batch's mask init from a CPU generator (so the card
+            # explains from the CPU's init), then this call's rows; the
+            # marginalize noise from one on the device
+            if init is None:
+                init = init_masks(torch.Generator().manual_seed(seed),
+                                  g.num_edges_padded, x.shape[-1],
+                                  torch.from_numpy(num_sub), self.cfg)
+            init = tuple(None if a is None else np.asarray(a)[rows] for a in init)
             state, hist = run_mask_optimization(
-                self.model, g_dev, x, idx, labels_pad[idx], pred_vec,
-                edge_keep, num_sub, self.cfg,
-                generator=torch.Generator().manual_seed(seed), init_state=init,
-                noise_generator=torch.Generator(device=dev).manual_seed(seed))
+                self.model, g_dev, x, idx[rows], labels_pad[idx[rows]], pred_vec,
+                edge_keep, num_sub[rows], self.cfg, init_state=init,
+                noise_generator=torch.Generator(device=dev).manual_seed(seed),
+                batch_rows=None if mesh is None else (nq, rows))
             with torch.no_grad():
                 w = masked_edge_weights(g_dev, state, self.cfg, edge_keep)
             return state, w.cpu().numpy(), hist
@@ -231,10 +268,18 @@ class Explainer:
             for s in range(1, self.cfg.seed_ensemble):
                 acc += run(self.seed + 7919 * s)[1]
             w_all = (acc / self.cfg.seed_ensemble).astype(np.float32)
-        if self.print_training:
-            print(f"explained {len(idx)} nodes in {time.time() - t0:.2f}s "
-                  f"({self.cfg.num_epochs} epochs each, batched)")
         feat_mask = torch.sigmoid(state.feat_logits).cpu().numpy()
+        if mesh is not None:
+            got = _gather_queries({"w": w_all, "feat": feat_mask, **hist}, mesh)
+            if got is None:
+                return None
+            w_all, feat_mask = got.pop("w"), got.pop("feat")
+            hist = got
+        if self.print_training:
+            print(f"explained {nq} nodes in {time.time() - t0:.2f}s "
+                  f"({self.cfg.num_epochs} epochs each, batched"
+                  + (f", {mesh.size}-rank query sharding" if mesh else "")
+                  + ")")
         results = []
         for q, (node_idx, nb) in enumerate(zip(idx, nbs)):
             neighbors = np.nonzero(nb.node_mask)[0]
@@ -288,7 +333,7 @@ class Explainer:
 
     def explain_nodes_gnn_stats(self, node_indices: Sequence[int],
                                 graph_idx: int = 0, model: str = "exp",
-                                mesh=None) -> Dict:
+                                mesh: Optional[Mesh] = None) -> Optional[Dict]:
         """Explain many nodes, save each mask and score them against the
         motif ground truth (``tpugraph/explain/explainer.py:697``): returns
         ``masked_adjs``, ``results``, ``auc`` (``None`` when the labels
@@ -297,10 +342,15 @@ class Explainer:
         ``exp`` (the batched COO explain) or a baseline, ``grad`` or
         ``att``, of every query in one mapped call.  With both label
         classes present it also draws the precision-recall curve to
-        ``pr/pr_<dataset>_<model>.png``."""
+        ``pr/pr_<dataset>_<model>.png``.  ``mesh`` shards the ``exp``
+        queries (:meth:`explain_nodes_batch`; the ranks after the mesh's
+        first return ``None``); the baselines ignore it, as in
+        ``tpugraph``."""
         if model == "exp":
             results = self.explain_nodes_batch(node_indices, graph_idx,
                                                mesh=mesh)
+            if results is None:
+                return None
         else:
             masks, starts, neighbors = self._baseline_masks(
                 model, node_indices, graph_idx)
@@ -418,51 +468,86 @@ class Explainer:
         node_indices: Sequence[int],
         graph_idx: int = 0,
         block: int = 128,
-        mesh=None,
-    ) -> List[Dict]:
+        mesh: Optional[Mesh] = None,
+        init_state: Optional[Sequence[Tuple[np.ndarray, np.ndarray]]] = None,
+    ) -> Optional[List[Dict]]:
         """Tile-space GNNExplainer for each query node in turn
         (``tpugraph/explain/explainer.py:373``).  Every query starts from
-        the same mask init (seeded by ``seed``).  Returns per query
-        ``node_idx``, ``node_idx_new``, ``neighbors``, the dense
-        ``masked_adj``, the loss-term ``history`` and ``feat_mask``."""
-        if mesh is not None:
-            raise NotImplementedError("mesh query sharding is not ported yet")
+        the same mask init, drawn from a CPU generator seeded ``seed`` (so
+        the card explains from the CPU's init), or from its entry of
+        ``init_state`` (numpy ``(tile_logits, feat_logits)``, one a
+        query).  Returns per query ``node_idx``, ``node_idx_new``,
+        ``neighbors``, the dense ``masked_adj``, the loss-term ``history``
+        and ``feat_mask``.
+
+        With ``mesh`` (a 1-D :class:`~tpugraph_torch.parallel.mesh.Mesh`,
+        called on every rank of it) the queries go in rounds of
+        ``mesh.size``, rank ``r`` taking query ``r`` of each round (a short
+        last round repeats the last query, whose results are dropped), each
+        on the rank's own copy of the pack with the sequential path's seed,
+        so each result is the sequential one.  Each rank reads its masked
+        tiles out as edge weights before anything moves; the mesh's first
+        rank gathers the edge weights, histories and feature masks and
+        returns the results, every other rank returns ``None``."""
         g, m_host, m, tp, partner, x, pred_vec = self._bcsr_pack(
             graph_idx, block)
         s = g.senders.numpy()
         r = g.receivers.numpy()
         labels = self.label[graph_idx]
+        nq = len(node_indices)
+        mine = list(range(nq))
+        if mesh is not None:
+            mine = [min(k * mesh.size + mesh.rank, nq - 1)
+                    for k in range(-(-nq // mesh.size))]
 
-        results = []
         t0 = time.time()
-        for node_idx in node_indices:
-            nb = khop_subgraph(g, int(node_idx), self.n_hops)
-            keep_np, num_sub, new_index = nb.node_mask, nb.num_nodes, nb.new_index
+        nbs, out = {}, {"w": [], "feat": []}
+        for q in mine:
+            node_idx = int(node_indices[q])
+            nb = nbs[q] = khop_subgraph(g, node_idx, self.n_hops)
             keep = np.zeros((m.num_nodes,), dtype=np.float32)
-            keep[: keep_np.shape[0]] = keep_np
-            gen = torch.Generator(device=self.device).manual_seed(self.seed)
+            keep[: nb.node_mask.shape[0]] = nb.node_mask
             state, w_tiles, hist = run_bcsr_mask_optimization(
                 self.model, m, tp, partner, x,
-                node_idx=int(node_idx), gt_label=int(labels[node_idx]),
-                pred_label_vec=pred_vec, num_sub_nodes=num_sub,
-                cfg=self.cfg, generator=gen,
+                node_idx=node_idx, gt_label=int(labels[node_idx]),
+                pred_label_vec=pred_vec, num_sub_nodes=nb.num_nodes,
+                cfg=self.cfg,
+                generator=torch.Generator().manual_seed(self.seed),
                 node_keep=torch.from_numpy(keep).to(self.device),
+                init_state=None if init_state is None else init_state[q],
                 spmm_dtype=self._spmm_dtype,
             )
-            w_edges = tiles_to_edge_weights(m_host, w_tiles.cpu().numpy(), s, r)
-            neighbors = np.nonzero(keep_np)[0]
+            out["w"].append(tiles_to_edge_weights(m_host, w_tiles.cpu().numpy(), s, r))
+            out["feat"].append(torch.sigmoid(state.feat_logits).cpu().numpy())
+            for k, v in hist.items():
+                out.setdefault(k, []).append(v)
+        got = {k: np.stack(v) for k, v in out.items()}
+        if mesh is not None:
+            got = _gather_queries(got, mesh)
+            if got is None:
+                return None
+            # rank order (rank-major) back to query order (round-major)
+            got = {k: v.reshape((mesh.size, -1) + v.shape[1:]).swapaxes(0, 1)
+                   .reshape((-1,) + v.shape[1:])[:nq] for k, v in got.items()}
+        w_all, feat_mask = got.pop("w"), got.pop("feat")
+        if self.print_training:
+            print(f"bcsr-explained {nq} nodes ({m.num_tiles} tiles of "
+                  f"{block}^2"
+                  + (f", {mesh.size}-rank query sharding" if mesh else "")
+                  + f") in {time.time() - t0:.2f}s")
+        results = []
+        for q, node_idx in enumerate(node_indices):
+            nb = nbs[q] if q in nbs else khop_subgraph(g, int(node_idx),
+                                                        self.n_hops)
+            neighbors = np.nonzero(nb.node_mask)[0]
             results.append({
                 "node_idx": int(node_idx),
-                "node_idx_new": int(new_index),
+                "node_idx_new": int(nb.new_index),
                 "neighbors": neighbors,
-                "masked_adj": self._densify_mask(g, w_edges, neighbors),
-                "history": hist,
-                "feat_mask": torch.sigmoid(state.feat_logits).cpu().numpy(),
+                "masked_adj": self._densify_mask(g, w_all[q], neighbors),
+                "history": {k: v[q] for k, v in got.items()},
+                "feat_mask": feat_mask[q],
             })
-        if self.print_training:
-            print(f"bcsr-explained {len(node_indices)} nodes "
-                  f"({m.num_tiles} tiles of {block}^2) in "
-                  f"{time.time() - t0:.2f}s")
         return results
 
     def explain_graph_bcsr(self, graph_idx: int, block: int = 128,

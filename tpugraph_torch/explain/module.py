@@ -170,6 +170,7 @@ def explain_forward(
     edge_keep: Optional[torch.Tensor],
     generator: Optional[torch.Generator] = None,
     graph_mode: bool = False,
+    batch_rows: Optional[Tuple[int, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The frozen model on the masked graph of each query; returns the
     softmax at each query ``[Q, C]`` (of each graph's logits in
@@ -177,15 +178,21 @@ def explain_forward(
     (``tpugraph/explain/module.py:138``).  ``x [N_pad, D]`` is shared, or
     ``x [Q, N_pad, D]`` holds each query's own features; with
     ``cfg.marginalize`` and a ``generator`` the masked-out features are
-    replaced by noise ``z ~ N(-x, 1/2)`` drawn afresh on each call."""
+    replaced by noise ``z ~ N(-x, 1/2)`` drawn afresh on each call.
+    ``batch_rows`` ``(Q_all, rows)`` says the Q queries are rows ``rows``
+    of a batch of ``Q_all``: the noise is drawn for the whole batch and
+    those rows kept, so each query gets the noise it gets in that batch."""
     w = masked_edge_weights(g, state, cfg, edge_keep)
     q, (n, d) = w.shape[0], x.shape[-2:]
     xx = x.expand(q, n, d)
     if cfg.mask_features:
         gate = _feat_gate(state, cfg)[:, None, :]
         if cfg.marginalize and generator is not None:
-            noise = torch.randn((q, n, d), generator=generator,
+            q_all = q if batch_rows is None else batch_rows[0]
+            noise = torch.randn((q_all, n, d), generator=generator,
                                 device=x.device)
+            if batch_rows is not None:
+                noise = noise[batch_rows[1]]
             xx = x + (-x + 0.5 * noise) * (1.0 - gate)
         else:
             xx = x * gate
@@ -269,6 +276,7 @@ def run_mask_optimization(
     init_state: Optional[Tuple[Optional[np.ndarray], ...]] = None,
     noise_generator: Optional[torch.Generator] = None,
     graph_mode: bool = False,
+    batch_rows: Optional[Tuple[int, Sequence[int]]] = None,
 ) -> Tuple[MaskState, Dict[str, np.ndarray]]:
     """``cfg.num_epochs`` Adam(lr) steps on the masks of Q queries at once
     (``tpugraph/explain/module.py:242``, vmapped over the queries there).
@@ -282,7 +290,8 @@ def run_mask_optimization(
     feat_logits[, bias_logits])``, each with the query axis) when given,
     else :func:`init_masks` drawn from ``generator`` (on any device); the
     ``marginalize`` noise comes from ``noise_generator`` (default
-    ``generator``), which must be on ``x``'s device.  Returns the final
+    ``generator``), which must be on ``x``'s device, drawn for the batch
+    ``batch_rows`` names (see :func:`explain_forward`).  Returns the final
     state and the per-epoch loss terms ``[Q, T]``, with ``density`` after
     each update and, when ``cfg.log_mask_every > 0``, ``masked_w [Q, T,
     E_pad]``.  ``graph_mode`` (see the module docstring) takes the
@@ -307,11 +316,15 @@ def run_mask_optimization(
                            eps=1e-8)
     noise_gen = ((noise_generator or generator) if cfg.marginalize
                  else None)
+    if batch_rows is not None:
+        batch_rows = (int(batch_rows[0]),
+                      torch.as_tensor(np.asarray(batch_rows[1]), device=dev).long())
     hist: Dict[str, list] = {}
     for _ in range(cfg.num_epochs):
         opt.zero_grad(set_to_none=True)
         probs, w = explain_forward(model, g, x, state, cfg, node_idx,
-                                   edge_keep, noise_gen, graph_mode)
+                                   edge_keep, noise_gen, graph_mode,
+                                   batch_rows)
         total, terms = explain_loss(probs, w, g, state, cfg, gt_label,
                                     pred_label_vec, edge_keep, num_sub,
                                     graph_mode)

@@ -22,6 +22,7 @@ from tpugraph_torch.ops.bcsr_kernels import (  # noqa: F401
     bcsr_matvec,
     bcsr_matvec_dw,
     bcsr_matvec_dw_pair,
+    make_bcsr_matvec,
     sddmm_bcsr,
     sddmm_dw,
     spmm_bcsr,

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -533,6 +533,17 @@ def bcsr_matvec(m: BCSR, m_t: BCSR, x: torch.Tensor,
     """Differentiable ``A @ x`` with static weights (gradient to ``x``);
     ``k_pack > 1`` needs ``m`` and ``m_t`` padded to that multiple."""
     return BCSRMatvec.apply(x, m, m_t, k_pack or 0)
+
+
+def make_bcsr_matvec(m: BCSR, m_t: BCSR, k_pack: Optional[int] = None
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``x -> bcsr_matvec(m, m_t, x, k_pack)``, a closure over one matrix
+    and its transpose (``tpugraph/ops/pallas_spmm.py:437``)."""
+
+    def matvec(x: torch.Tensor) -> torch.Tensor:
+        return bcsr_matvec(m, m_t, x, k_pack=k_pack)
+
+    return matvec
 
 
 def bcsr_matvec_dw_pair(m: BCSR, m_t: BCSR, x: torch.Tensor,

@@ -9,10 +9,15 @@
   collectives;
 * :mod:`~tpugraph_torch.parallel.spmd` — edge-sharded and halo message
   passing, their plans and training steps, and the data-parallel graph
-  step (imported on its own: it needs ``tpugraph_torch.nn``, which needs
-  the collectives).
+  step;
+* :mod:`~tpugraph_torch.parallel.tp` — tensor parallelism: the node
+  encoder's weights split on their output dimension, and its training
+  step.
 
-Tensor parallelism (``tpugraph/parallel/tp.py``) is not ported.
+``spmd`` and ``tp`` are imported on their own: they need
+``tpugraph_torch.nn``, which needs the collectives.  The explainer's
+query sharding is ``Explainer.explain_nodes_batch(mesh=)`` and
+``explain_nodes_bcsr(mesh=)`` (:mod:`tpugraph_torch.explain.explainer`).
 """
 
 from tpugraph_torch.parallel.launch import run_ranks  # noqa: F401

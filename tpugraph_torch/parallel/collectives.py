@@ -12,11 +12,19 @@
   ``copy`` passes forward and sums the gradient;
 * :func:`all_gather_rows` — every rank's rows in rank order; the gradient
   of a rank's rows is the sum of every rank's gradient of them;
+* :func:`all_gather_cols` — every rank's column block in rank order, the
+  join of a column-sharded (tensor-parallel) product; what follows it
+  runs replicated, so every rank holds the same gradient of the joined
+  tensor and its backward keeps this rank's columns of it (a sum would
+  give ``n`` times the gradient);
 * :func:`all_to_all` — block ``q`` of the input to rank ``q``, block ``q``
   of the output from rank ``q`` (equal blocks along the first axis); its
   gradient is the reverse exchange, which is the same operation;
   :func:`start_all_to_all` issues it asynchronously and returns a handle
   whose ``wait`` gives the result.
+
+* :func:`gather_to_first` — every rank's rows, in rank order, on the
+  group's first rank (outside autograd): results collected for output.
 
 The collectives are ``torch.distributed``'s (gloo on the CPU, NCCL on the
 cards); ``group`` ``None`` is the default group.
@@ -88,6 +96,22 @@ class _AllGatherRows(torch.autograd.Function):
         return g[r * ctx.rows:(r + 1) * ctx.rows], None
 
 
+class _AllGatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = dist.get_world_size(group)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.cols = x.shape[-1]
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g[..., r * ctx.cols:(r + 1) * ctx.cols].contiguous(), None
+
+
 class _AllToAll(torch.autograd.Function):
     """``all_to_all_single`` over equal first-axis blocks; ``pending`` (a
     list) asks for an asynchronous launch and receives its work handle."""
@@ -130,6 +154,11 @@ def all_gather_rows(x: torch.Tensor,
     return _AllGatherRows.apply(x, group)
 
 
+def all_gather_cols(x: torch.Tensor,
+                    group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    return _AllGatherCols.apply(x, group)
+
+
 def all_to_all(x: torch.Tensor,
                group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     return _AllToAll.apply(x, group, None)
@@ -160,3 +189,17 @@ def all_reduce_(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None) -> t
     """In-place sum over the ranks, outside autograd; returns ``x``."""
     dist.all_reduce(x, group=group)
     return x
+
+
+def gather_to_first(x: torch.Tensor, group: Optional[dist.ProcessGroup] = None
+                    ) -> Optional[torch.Tensor]:
+    """Every rank's ``x`` (one shape on every rank) joined along the first
+    axis in rank order on the group's first rank, ``None`` on the others;
+    outside autograd."""
+    first = 0 if group is None else dist.get_global_rank(group, 0)
+    x = x.detach().contiguous()
+    mine = dist.get_rank() == first
+    parts = ([torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+             if mine else None)
+    dist.gather(x, parts, dst=first, group=group)
+    return torch.cat(parts) if mine else None

@@ -86,13 +86,18 @@ def build_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     raise ValueError(f"unknown scheduler {cfg.scheduler!r}")
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], clip: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], clip: float,
+                         sq_norm: Optional[torch.Tensor] = None) -> None:
     """optax's ``clip_by_global_norm`` in place, without a host sync:
     ``(g / d) * c`` with ``d, c = 1, 1`` under the clip (``g`` exactly)
-    and ``norm, clip`` over it."""
+    and ``norm, clip`` over it.  ``sq_norm``, when given, is the squared
+    global norm (of gradients held across ranks)."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if sq_norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        norm = torch.sqrt(sq_norm)
     keep = norm < clip
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -103,7 +108,10 @@ class ClippedOptimizer:
     """The chain of :class:`OptimizerConfig` over ``params``: ``step``
     clips, adds the decay, and applies the core optimizer at the
     schedule's rate for the current update count.  ``state_dict`` /
-    ``load_state_dict`` carry the count and the core's buffers."""
+    ``load_state_dict`` carry the count and the core's buffers.
+    ``grad_sq_norm(params, grads)``, when set, gives the squared global
+    norm the clip divides by (the tensor-parallel step sets it to sum
+    the shards' over the ranks)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  cfg: OptimizerConfig):
@@ -113,6 +121,7 @@ class ClippedOptimizer:
         self.cfg = cfg
         self.lr_at = build_schedule(cfg)
         self.count = 0
+        self.grad_sq_norm: Optional[Callable] = None
         self.adam = (torch.optim.Adam(self.params, lr=cfg.lr,
                                       weight_decay=cfg.weight_decay)
                      if cfg.opt == "adam" else None)
@@ -131,7 +140,9 @@ class ClippedOptimizer:
         grads = [p.grad for p in ps]
         bufs = {k: [v[i] for i in live] for k, v in self.buffers.items()}
         if self.cfg.clip:
-            clip_by_global_norm_(grads, self.cfg.clip)
+            clip_by_global_norm_(grads, self.cfg.clip,
+                                 None if self.grad_sq_norm is None
+                                 else self.grad_sq_norm(ps, grads))
         lr = self.lr_at(self.count)
         self.count += 1
         if self.adam is not None:  # adds the decay itself
