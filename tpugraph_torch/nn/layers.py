@@ -85,6 +85,7 @@ from tpugraph_torch.parallel.collectives import (all_to_all, copy_to_shards,
                                                  psum, reduce_from_shards,
                                                  start_all_to_all)
 from tpugraph_torch.parallel.mesh import Mesh
+from tpugraph_torch.utils.profiling import trace_annotation, trace_backward
 
 
 class SparseAdj(NamedTuple):
@@ -341,7 +342,9 @@ class GraphConv(nn.Module):
     reference layer: ``adj_att`` is the adjacency with the attention
     scores applied when ``att``, else ``adj``.  Parameters are drawn in
     ``tpugraph``'s order: ``weight``, ``self_weight``, ``att_weight``
-    (``[in, in]``), then the zero ``bias``."""
+    (``[in, in]``), then the zero ``bias``.  While a ``torch.profiler``
+    records, the adjacency product ``A @ x`` is the trace region
+    ``nn.aggregate`` and its backward ``nn.aggregate.backward``."""
 
     def __init__(self, input_dim: int, output_dim: int,
                  add_self: bool = False, normalize_embedding: bool = False,
@@ -369,6 +372,23 @@ class GraphConv(nn.Module):
                 ) -> Tuple[torch.Tensor, Adjacency]:
         if self.training and self.dropout > 0.001:
             x = apply_dropout(x, self.dropout, dropout_gen)
+        with trace_annotation("nn.aggregate"):
+            y, adj_att = trace_backward("nn.aggregate.backward", x,
+                                        lambda xs: self._aggregate(xs, adj))
+        y = torch.matmul(y, self.weight)
+        if self.add_self:
+            y = y + torch.matmul(x, self.self_weight)
+        if self.bias is not None:
+            y = y + self.bias
+        if self.normalize_embedding:
+            y = normalize_embedding(y)
+        return y, adj_att
+
+    def _aggregate(self, x: torch.Tensor, adj: Adjacency
+                   ) -> Tuple[torch.Tensor, Adjacency]:
+        """The adjacency product ``y = A @ x`` of whichever type ``adj``
+        is, and ``adj_att``: the adjacency with the attention scores
+        applied when ``att``, else ``adj``."""
         adj_att = adj
         if isinstance(adj, torch.Tensor):
             if self.att:
@@ -414,8 +434,7 @@ class GraphConv(nn.Module):
             y = reduce_from_shards(spmm(adj.senders, adj.receivers, weight, xs),
                                    adj.mesh.group)
         elif not isinstance(adj, BCSRAdj):
-            raise NotImplementedError(
-                f"{type(adj).__name__} is not ported yet")
+            raise TypeError(f"unknown adjacency {type(adj).__name__}")
         elif self.att:
             y, adj_att = self._attend_bcsr(x, adj)
         elif adj.tp is not None and adj.m_t is not None:
@@ -427,13 +446,6 @@ class GraphConv(nn.Module):
                              "(differentiable weights)")
         else:
             y = bcsr_matvec(adj.m, adj.m_t, x, k_pack=adj.k_pack)
-        y = torch.matmul(y, self.weight)
-        if self.add_self:
-            y = y + torch.matmul(x, self.self_weight)
-        if self.bias is not None:
-            y = y + self.bias
-        if self.normalize_embedding:
-            y = normalize_embedding(y)
         return y, adj_att
 
     @staticmethod

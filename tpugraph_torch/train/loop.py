@@ -10,7 +10,12 @@ training-mode forward, before the update).  ``log_fn`` sees the metrics
 every 25 epochs and after the last, the JAX loop's ``scan_chunk``
 cadence.  While a ``torch.profiler`` records, each node epoch and each
 graph minibatch step is a named region of its trace (``train_epoch``,
-``train_step``); with no profiler the annotation does nothing.
+``train_step``); with no profiler the annotation does nothing.  The node
+trainer also marks ``train.pack`` (what ``pack_s`` times, with
+``train.pack.choose``, ``train.pack.host`` and ``train.pack.upload``
+inside), ``train.inputs``, in each epoch ``train.forward``,
+``train.backward`` and ``train.optimizer``, and the closing
+``train.eval``; ``GraphConv`` marks its adjacency products.
 
 ``use_bcsr=False`` (the default, as in JAX) aggregates over the padded
 COO edge list, a gather plus ``index_add_`` (``SparseAdj``,
@@ -247,52 +252,68 @@ def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
     otherwise :func:`choose_format` picks the format (``att``: an
     attention model, which takes f32 tiles with a transpose plan)."""
     if not cfg.use_bcsr:
-        return (SparseAdj(g.senders.to(device, torch.int64),
-                          g.receivers.to(device, torch.int64),
-                          g.edge_weight.to(device)), g.num_nodes_padded)
+        with trace_annotation("train.pack.upload"):
+            return (SparseAdj(g.senders.to(device, torch.int64),
+                              g.receivers.to(device, torch.int64),
+                              g.edge_weight.to(device)), g.num_nodes_padded)
     s_np = g.senders.numpy()
     r_np = g.receivers.numpy()
     w_np = g.edge_weight.numpy()
     n_pad = g.num_nodes_padded
     block = cfg.bcsr_block
-    fmt = choose_format(s_np, r_np, w_np, n_pad, cfg,
-                        torch.device(device).type == "cuda", att)
+    with trace_annotation("train.pack.choose"):
+        fmt = choose_format(s_np, r_np, w_np, n_pad, cfg,
+                            torch.device(device).type == "cuda", att)
     if fmt == "packets":
         br, bc, kk = cfg.packet_geom
-        p = pack_edges(s_np, r_np, w_np, n_pad, block_r=br, block_c=bc, k=kk)
-        p_t = pack_edges_transpose(s_np, r_np, w_np, n_pad, block_r=br,
-                                   block_c=bc, k=kk)
-        return (PacketAdj(p.to(device), p_t.to(device),
-                          cfg.packet_compute_dtype), p.num_nodes)
+        with trace_annotation("train.pack.host"):
+            p = pack_edges(s_np, r_np, w_np, n_pad, block_r=br, block_c=bc,
+                           k=kk)
+            p_t = pack_edges_transpose(s_np, r_np, w_np, n_pad, block_r=br,
+                                       block_c=bc, k=kk)
+        with trace_annotation("train.pack.upload"):
+            return (PacketAdj(p.to(device), p_t.to(device),
+                              cfg.packet_compute_dtype), p.num_nodes)
     if fmt == "resident":
-        integral = bool(np.all(w_np == np.rint(w_np))
-                        and np.abs(w_np).max(initial=0) <= 127)
-        tdt = torch.int8 if integral else torch.bfloat16
-        if not integral:
-            print("tpugraph_torch: the resident path quantizes non-integral "
-                  "adjacency weights to bf16 tiles (use bcsr_resident='off' "
-                  "for exact f32-tile aggregation)", flush=True)
-        m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block, tile_dtype=tdt)
-        st = stack_bcsr(m, stack=1, k_pack=_RESIDENT_K_PACK).to(device)
-        del m
-        m_t = bcsr_transpose_host(s_np, r_np, w_np, n_pad, block=block,
-                                  tile_dtype=tdt)
-        st_t = stack_bcsr(m_t, stack=1, k_pack=_RESIDENT_K_PACK).to(device)
+        with trace_annotation("train.pack.host"):
+            integral = bool(np.all(w_np == np.rint(w_np))
+                            and np.abs(w_np).max(initial=0) <= 127)
+            tdt = torch.int8 if integral else torch.bfloat16
+            if not integral:
+                print("tpugraph_torch: the resident path quantizes "
+                      "non-integral adjacency weights to bf16 tiles (use "
+                      "bcsr_resident='off' for exact f32-tile aggregation)",
+                      flush=True)
+            m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block,
+                              tile_dtype=tdt)
+            st = stack_bcsr(m, stack=1, k_pack=_RESIDENT_K_PACK)
+            del m
+            m_t = bcsr_transpose_host(s_np, r_np, w_np, n_pad, block=block,
+                                      tile_dtype=tdt)
+            st_t = stack_bcsr(m_t, stack=1, k_pack=_RESIDENT_K_PACK)
+            del m_t
+        with trace_annotation("train.pack.upload"):
+            st, st_t = st.to(device), st_t.to(device)
         return StackedAdj(st, st_t), st.num_nodes
     if fmt == "tiles_att":
-        m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block)
-        tp = bcsr_transpose_plan(m)
-        return BCSRAdj(m.to(device), None, tp=tp.to(device)), m.num_nodes
-    if cfg.bcsr_k_pack < 0:
-        kp = choose_k_pack_counts(coo_tile_counts(s_np, r_np, n_pad,
-                                                  block=block, weights=w_np))
-    else:
-        kp = cfg.bcsr_k_pack
-    prt = kp if kp > 1 else None
-    m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block,
-                      pad_rows_to=prt).to(device)
-    m_t = bcsr_transpose_host(s_np, r_np, w_np, n_pad, block=block,
-                              pad_rows_to=prt).to(device)
+        with trace_annotation("train.pack.host"):
+            m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block)
+            tp = bcsr_transpose_plan(m)
+        with trace_annotation("train.pack.upload"):
+            return BCSRAdj(m.to(device), None, tp=tp.to(device)), m.num_nodes
+    with trace_annotation("train.pack.host"):
+        if cfg.bcsr_k_pack < 0:
+            kp = choose_k_pack_counts(coo_tile_counts(
+                s_np, r_np, n_pad, block=block, weights=w_np))
+        else:
+            kp = cfg.bcsr_k_pack
+        prt = kp if kp > 1 else None
+        m = bcsr_from_coo(s_np, r_np, w_np, n_pad, block=block,
+                          pad_rows_to=prt)
+        m_t = bcsr_transpose_host(s_np, r_np, w_np, n_pad, block=block,
+                                  pad_rows_to=prt)
+    with trace_annotation("train.pack.upload"):
+        m, m_t = m.to(device), m_t.to(device)
     return BCSRAdj(m, m_t, k_pack=kp if kp > 1 else 0), m.num_nodes
 
 
@@ -344,34 +365,37 @@ def train_node_classifier(
     n_real = g.n_node
     train_idx, test_idx = split_nodes(n_real, cfg.train_ratio, rng)
 
-    t_pack = time.perf_counter()
-    sp, n_new = build_adjacency(g, cfg, device,
-                                att=bool(getattr(model, "att", False)))
-    pack_s = time.perf_counter() - t_pack
+    with trace_annotation("train.pack"):
+        t_pack = time.perf_counter()
+        sp, n_new = build_adjacency(g, cfg, device,
+                                    att=bool(getattr(model, "att", False)))
+        pack_s = time.perf_counter() - t_pack
 
-    feat_pad = np.zeros((n_new, feat.shape[1]), dtype=np.float32)
-    feat_pad[: feat.shape[0]] = feat
-    labels_pad = np.zeros((n_new,), dtype=np.int64)
-    labels_pad[:n_real] = np.asarray(labels)
-    train_mask = np.zeros((n_new,), dtype=np.float32)
-    train_mask[train_idx] = 1.0
-    test_mask = np.zeros((n_new,), dtype=np.float32)
-    test_mask[test_idx] = 1.0
+    with trace_annotation("train.inputs"):
+        feat_pad = np.zeros((n_new, feat.shape[1]), dtype=np.float32)
+        feat_pad[: feat.shape[0]] = feat
+        labels_pad = np.zeros((n_new,), dtype=np.int64)
+        labels_pad[:n_real] = np.asarray(labels)
+        train_mask = np.zeros((n_new,), dtype=np.float32)
+        train_mask[train_idx] = 1.0
+        test_mask = np.zeros((n_new,), dtype=np.float32)
+        test_mask[test_idx] = 1.0
 
-    x = torch.from_numpy(feat_pad).to(device)
-    y = torch.from_numpy(labels_pad).to(device)
-    train_mask_d = torch.from_numpy(train_mask).to(device)
-    test_mask_d = torch.from_numpy(test_mask).to(device)
-    cw = (None if class_weight is None else
-          torch.as_tensor(np.asarray(class_weight, dtype=np.float32), device=device))
+        x = torch.from_numpy(feat_pad).to(device)
+        y = torch.from_numpy(labels_pad).to(device)
+        train_mask_d = torch.from_numpy(train_mask).to(device)
+        test_mask_d = torch.from_numpy(test_mask).to(device)
+        cw = (None if class_weight is None else
+              torch.as_tensor(np.asarray(class_weight, dtype=np.float32),
+                              device=device))
 
-    model.to(device)
-    if init_params is not None:
-        model.load_state_dict(init_params)
-    model.train()
-    opt = build_optimizer(model.parameters(), _opt_config(cfg))
-    if init_opt_state is not None:
-        opt.load_state_dict(init_opt_state)
+        model.to(device)
+        if init_params is not None:
+            model.load_state_dict(init_params)
+        model.train()
+        opt = build_optimizer(model.parameters(), _opt_config(cfg))
+        if init_opt_state is not None:
+            opt.load_state_dict(init_opt_state)
 
     def acc(correct, mask):
         return torch.sum(correct * mask) / torch.clamp(torch.sum(mask), min=1.0)
@@ -381,15 +405,18 @@ def train_node_classifier(
         drop_gen = torch.Generator(device=device).manual_seed(seed + 1)
     hist: Dict[str, List[torch.Tensor]] = {"loss": [], "train_acc": [],
                                            "test_acc": []}
-    begin = time.time()
+    begin = time.perf_counter()
     for epoch in range(1, cfg.num_epochs + 1):
         with trace_annotation("train_epoch"):
-            logits, _ = model(x, sp, dropout_gen=drop_gen)
-            loss = node_cross_entropy(logits, y, class_weight=cw,
-                                      node_mask=train_mask_d)
-            opt.zero_grad()
-            loss.backward()
-            opt.step()
+            with trace_annotation("train.forward"):
+                logits, _ = model(x, sp, dropout_gen=drop_gen)
+                loss = node_cross_entropy(logits, y, class_weight=cw,
+                                          node_mask=train_mask_d)
+            with trace_annotation("train.backward"):
+                opt.zero_grad()
+                loss.backward()
+            with trace_annotation("train.optimizer"):
+                opt.step()
             with torch.no_grad():
                 correct = (torch.argmax(logits, dim=-1) == y).float()
                 hist["loss"].append(loss.detach())
@@ -402,14 +429,15 @@ def train_node_classifier(
                for k, v in hist.items()}
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    elapsed = time.time() - begin
+    elapsed = time.perf_counter() - begin
 
-    model.eval()
-    with torch.no_grad():
-        logits, _ = model(x, sp)
-    ypred = logits.cpu().numpy()[None]  # [1, N_pad, C]
-    result_train, result_test = eval_node(
-        ypred[:, :n_real], np.asarray(labels)[None], train_idx, test_idx)
+    with trace_annotation("train.eval"):
+        model.eval()
+        with torch.no_grad():
+            logits, _ = model(x, sp)
+        ypred = logits.cpu().numpy()[None]  # [1, N_pad, C]
+        result_train, result_test = eval_node(
+            ypred[:, :n_real], np.asarray(labels)[None], train_idx, test_idx)
     return {
         "params": model.state_dict(),
         "ypred": ypred,

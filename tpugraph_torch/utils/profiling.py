@@ -1,6 +1,7 @@
 """Port of ``tpugraph/utils/profiling.py``: named trace regions, a traced
 block written as a Chrome trace, and a fenced timing harness, on
-``torch.profiler`` (``tpugraph`` uses ``jax.profiler``).
+``torch.profiler`` (``tpugraph`` uses ``jax.profiler``).  The port's own
+:func:`trace_backward` marks the backward of a block the same way.
 
 :func:`device_busy` reads such a trace: the union of the card's kernel
 intervals over a named region's wall window, and the launches in it.
@@ -12,7 +13,7 @@ import contextlib
 import json
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -27,6 +28,45 @@ def trace_annotation(name: str):
         return
     with torch.profiler.record_function(name):
         yield
+
+
+def trace_backward(name: str, x: torch.Tensor,
+                   fn: Callable[[torch.Tensor], Any]) -> Any:
+    """``fn(x)``, whose result (or its first item) ``y`` is computed from
+    ``x``, with the backward from ``y`` to ``x`` a named region ``name`` of
+    a ``torch.profiler`` trace: it opens as autograd starts on ``y`` and
+    closes once ``x``'s gradient is complete, on the thread autograd runs
+    it on.  While no profiler records, or where ``x`` needs no gradient,
+    it is ``fn(x)`` and no hook is registered.  Under a profiler ``fn``
+    gets a view of ``x``, whose gradient node marks the end (the gradient
+    passes it unchanged)."""
+    if not (torch.autograd._profiler_enabled() and x.requires_grad
+            and torch.is_grad_enabled()):
+        return fn(x)
+    x_in = x.view_as(x)
+    out = fn(x_in)
+    y = out[0] if isinstance(out, tuple) else out
+    if y.grad_fn is None:
+        return out
+    region = torch.profiler.record_function(name)
+    end = x_in.grad_fn
+    state = {"open": False}
+
+    def enter(grad_outputs):
+        # a backward that stops short of x (torch.autograd.grad to other
+        # inputs) would leave the region open: enter only if x's node runs
+        if torch._C._will_engine_execute_node(end):
+            region.__enter__()
+            state["open"] = True
+
+    def exit_(grad_outputs):
+        if state["open"]:
+            region.__exit__(None, None, None)
+            state["open"] = False
+
+    y.grad_fn.register_prehook(enter)
+    end.register_prehook(exit_)
+    return out
 
 
 @contextlib.contextmanager
