@@ -17,6 +17,14 @@ nvcc per source, sm_90a, all started together), then:
    and B1/B3 on ``b1-mixed`` tiles (0-90% full, int8 weights in [-127,
    127]) by default and with each branch forced, and B1's crossover sweep
    (``B1 crossover``);
+1b. coo_csr — the COO product's CSR kernel (``spmm_coo_csr``) alone at
+   the ``arxiv-train-coo`` cell's shapes (the arxiv stand-in of
+   ``gnnbench/data/chunglu.py``: 169,343 nodes, 2.33M directed edges),
+   A and A^T at D = 128 and 256, held to its plain version, the gather
+   path it replaced (``message.spmm``; per entry, 1e-5 sqrt(K) of the
+   entry's sum of |w x|), and to itself on a second launch, timed beside
+   its bound, that plain version and ``torch.sparse.mm`` on a CSR tensor,
+   then by ``CHUNK_EDGES`` (``coo_csr chunk sweep``);
 2. train — ``train_node_classifier`` on syn1 (seed 0) at its published
    widths (10 -> 20 -> 20 -> 20, 3 GraphConv layers, 4 classes), 1000
    epochs on the BCSR path (``use_bcsr=True``); first holds 20 epochs on
@@ -82,10 +90,12 @@ nvcc per source, sm_90a, all started together), then:
    ``--explain-node 305``, syn1 with ``--method att`` on COO and with
    ``--bcsr`` (tiles and a transpose plan: B2 scores and B1 in every
    step, counted under ``cli_att_bcsr``, plus a tile-space explain), and
-   syn1 with ``--bn``, each run and timed in the default mode (atomic COO
-   sums), syn1's and syn2's AUCs above 0.9.  Then each row's train and
-   stats explain run again under ``torch.use_deterministic_algorithms``
-   (COO sums in edge order, so the figures repeat), and their test acc
+   syn1 with ``--bn``, each run and timed in the default mode (COO
+   training sums by the CSR kernel, the explainer's by atomics), syn1's
+   and syn2's AUCs above 0.9.  Then each row's train and stats explain
+   run again under ``torch.use_deterministic_algorithms`` (the
+   explainer's COO sums in edge order too, so the figures repeat), and
+   their test acc
    and AUC stay within 0.02 of the port's CPU run
    (``syn_cpu_figures.json``, from ``syn_cpu_figures.py --write``).  B4
    at the shapes of syn3's (and, in phase 6, syn1's) ``--bcsr``: the
@@ -163,7 +173,8 @@ nvcc per source, sm_90a, all started together), then:
    ``--bcsr``): ``explain_nodes_batch(mesh=)`` over a 1-rank NCCL group
    on the 60 stats nodes against the single-device card run (both
    deterministic, 1e-6) with the two AUCs, and with 20 mask epochs
-   against the CPU's over a 1-rank gloo group (1e-4);
+   against the CPU's over a 1-rank gloo group (1e-4, or a query's own
+   one-ulp envelope where the checkpoint's rounding moves it further);
    ``explain_nodes_bcsr(mesh=)`` on nodes 400:700:60 (B1 forward and on
    the laid-out transpose, B2 for the mask gradient: their launches
    under ``mesh_bcsr_explain``) against the sequential card run (1e-6)
@@ -215,6 +226,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -269,6 +281,13 @@ def format_ran(counts):
     if ran == ["tiles"] and counts.get("sddmm_bcsr"):
         return "tiles_att"
     return "+".join(ran)
+
+
+def coo_only(counts):
+    """The run launched the COO product's CSR kernel and no other."""
+    return (counts.get("spmm_coo_csr", 0) > 0
+            and all(v == 0 for k, v in counts.items()
+                    if not k.startswith("spmm_coo_csr")))
 
 
 def auto_line(text):
@@ -1011,7 +1030,8 @@ def phase_lowloc(report, gen):
 
     from tpugraph_torch import ops
     from tpugraph_torch.nn import GcnEncoderNode
-    from tpugraph_torch.ops import bcsr, message, packets
+    from tpugraph_torch.ops import bcsr, packets
+    from tpugraph_torch.ops import coo_kernels as ck
     from tpugraph_torch.ops import packets_kernels as pk
     from tpugraph_torch.ops import resident_kernels as rk
     from tpugraph_torch.train import TrainConfig, train_node_classifier
@@ -1034,8 +1054,8 @@ def phase_lowloc(report, gen):
                                     cfg, init_params=init)
         diff = float(np.max(np.abs(np.subtract(cpu["history"]["loss"],
                                                gpu["history"]["loss"]))))
-        # coo: atomic sums on the card reorder every aggregation, within
-        # the same 1e-4 on the loss
+        # coo: the CSR kernel reassociates the split hub rows' sums,
+        # within the same 1e-4 on the loss
         print(f"  reduced {fmt:8s} {REDUCED_NODES} nodes: card vs CPU "
               f"{REDUCED_EPOCHS}-epoch loss max |diff| {diff:.3g} (limit 1e-4)",
               flush=True)
@@ -1113,7 +1133,8 @@ def phase_lowloc(report, gen):
               and bool(np.all(np.isfinite(out["ypred"]))),
               f"{fmt}: bad predictions")
         if fmt == "coo":
-            check(sum(launches[fmt].values()) == 0, "coo launched a kernel")
+            check(coo_only(launches[fmt]), "coo launched a kernel other than "
+                  "the CSR one")
         else:
             check(launches[fmt][FORMAT_KERNEL[fmt]] > 0,
                   f"{fmt} did not launch {FORMAT_KERNEL[fmt]}")
@@ -1155,10 +1176,10 @@ def phase_lowloc(report, gen):
                                        pk.spmm_packets(adj.p_t, x)))
             pkt_rates = {"pkt_edges_per_s": n_live / (pair_ms / 1e3),
                          "pkt_pack_s_per_edge": out["pack_s"] / n_live}
-        else:  # coo: the forward and transposed gather + index_add_ pair
+        else:  # coo: the CSR kernel on A and A^T
             pair_ms = time_ms(lambda: (
-                message.spmm(adj.senders, adj.receivers, adj.weight, x),
-                message.spmm(adj.receivers, adj.senders, adj.weight, x)))
+                ck.spmm_csr(adj.csr.a, adj.weight, x),
+                ck.spmm_csr(adj.csr.a_t, adj.weight, x)))
             coo_rates = {"coo_edges_per_s": n_live / (pair_ms / 1e3),
                          "coo_pack_s_per_edge": out["pack_s"] / n_live}
         out.pop("adj")
@@ -1481,6 +1502,89 @@ def measure_cli_stacked(shape, argv, seed):
     return recs
 
 
+ARXIV_NODES, ARXIV_EDGES = 169343, 1166243   # gnnbench/configs/gcn-arxiv.json
+CSR_CHUNKS = (64, 128, 256, 512, 2048, 1 << 30)
+
+
+def library_coo_csr(c, w, x):
+    """One PyTorch call for the COO product: ``torch.sparse.mm`` of a CSR
+    tensor of the same sorted edges (the port never calls it)."""
+    import torch
+
+    a = torch.sparse_csr_tensor(c.rowptr.long(), c.col.long(), w[c.eid.long()],
+                                size=(c.num_nodes, c.num_nodes))
+    return lambda: torch.sparse.mm(a, x)
+
+
+def phase_coo_csr(gen):
+    """The COO product's CSR kernel alone at the ``arxiv-train-coo`` cell's
+    shapes: the arxiv stand-in (``gnnbench/data/chunglu.py``, 169,343
+    nodes, 2.33M directed unit-weight edges), A and A^T at D = 128 and
+    256, each held to its plain version, the gather path it replaced
+    (``message.spmm``), and timed beside its bound, that plain version and
+    ``torch.sparse.mm``; then the kernel's time by ``CHUNK_EDGES``."""
+    import numpy as np
+    import torch
+
+    from gnnbench.data import chunglu
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.ops import message
+
+    d0 = chunglu.generate(0, ARXIV_NODES, ARXIV_EDGES, feat_dim=1, num_classes=1)
+    g = graph_from_edges(np.concatenate([d0["lo"], d0["hi"]]),
+                         np.concatenate([d0["hi"], d0["lo"]]), ARXIV_NODES)
+    s, r = g.senders.cuda().long(), g.receivers.cuda().long()
+    w = g.edge_weight.cuda()
+    n, e = g.num_nodes_padded, int(s.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    csr = ck.edge_csr(s, r, n)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for name, c in (("A", csr.a), ("A^T", csr.a_t)):
+        deg = c.rowptr[1:] - c.rowptr[:-1]
+        print(f"  coo_csr {name}: {n} rows, {e} edges, longest row {int(deg.max())}; "
+              f"work list {c.items.shape[0]} chunks of at most {ck.CHUNK_EDGES} edges, "
+              f"{c.splits.shape[0]} rows split into {c.num_parts} chunks; edge_csr "
+              f"of A and A^T {build_s * 1e3:.1f} ms on the card", flush=True)
+    records = []
+    for d in (128, 256):
+        x = torch.randn((n, d), generator=gen, device="cuda")
+        for shape, c, (snd, rcv) in (("arxiv", csr.a, (s, r)),
+                                     ("arxiv-T", csr.a_t, (r, s))):
+            k_row = int((c.rowptr[1:] - c.rowptr[:-1]).max())
+            rec = measure_case(
+                "spmm_coo_csr", shape, d, lambda: ck.spmm_csr(c, w, x),
+                lambda: message.spmm(snd, rcv, w, x), lambda: library_coo_csr(c, w, x),
+                12 * e + 8 * n * d, 2.0 * e * d, F32_FLOPS_PER_S, k_row,
+                extra={"edges": e, "split_rows": int(c.splits.shape[0])},
+                scale=lambda: message.spmm(snd, rcv, w.abs(), x.abs()))
+            got = [ck.spmm_csr(c, w, x) for _ in range(2)]
+            check(torch.equal(got[0], got[1]), f"spmm_coo_csr {shape} D={d}: two "
+                  "launches differ")
+            del got
+            records.append(rec)
+            torch.cuda.empty_cache()
+    sweep, chunk_edges = {}, ck.CHUNK_EDGES
+    for chunk in CSR_CHUNKS:
+        ck.CHUNK_EDGES = chunk
+        try:
+            cc = ck.edge_csr(s, r, n)
+        finally:
+            ck.CHUNK_EDGES = chunk_edges
+        for d in (128, 256):
+            x = torch.randn((n, d), generator=gen, device="cuda")
+            sweep[f"chunk={chunk} D={d}"] = round(
+                time_ms(lambda: ck.spmm_csr(cc.a, w, x)), 4)
+        del cc, x
+    print(f"  coo_csr chunk sweep (A, kernel ms) {json.dumps(sweep)} [{CARD}]",
+          flush=True)
+    del csr
+    torch.cuda.empty_cache()
+    return {"spmm_coo_csr": records, "chunk_sweep": sweep}
+
+
 def phase_coo(banded_tile_sps, keep):
     """The COO main path through the CLI on syn1 (the default, ``--bcsr``
     and ``--bcsr --bcsr-format packets``), then ``bench_explain.py:138-156``'s
@@ -1518,7 +1622,8 @@ def phase_coo(banded_tile_sps, keep):
                   f"{auto_line(text)}[{CARD}]", flush=True)
             check(acc >= 0.85, f"cli.train {arm}: test acc {acc} < 0.85")
             if arm == "coo":
-                check(fmt == "coo", "COO training launched a kernel")
+                check(coo_only(launches["cli_coo_train"]),
+                      "COO training launched a kernel other than the CSR one")
             elif arm == "bcsr":
                 # auto on the card: syn1 is low-locality (tile occupancy
                 # 0.0090 at block 128), so the resident format (B4)
@@ -1742,9 +1847,10 @@ SYN_TRAJ_EPOCHS, SYN_TRAJ_TOL = 20, 1e-4  # card vs CPU: the first epochs' losse
 
 def deterministic_row(argv, traj):
     """``cli.train argv`` and then its stats ``cli.explain`` under
-    ``torch.use_deterministic_algorithms``: index_add_ on the card then sums
-    each row in edge order (a sort), not by atomics, so test acc and AUC
-    repeat from run to run (with atomics syn5's AUC spread 0.45-0.54 over
+    ``torch.use_deterministic_algorithms``: the explainer's index_add_ on
+    the card then sums each row in edge order (a sort), not by atomics (COO
+    training's CSR kernel has none), so test acc and AUC repeat from run
+    to run (with atomics syn5's AUC spread 0.45-0.54 over
     four runs of one tree).  The same stats explain then runs on the CPU
     from the checkpoint the card wrote: 1000 epochs of training turn a
     difference in the last bit into other weights (syn5's differ by 0.2
@@ -2962,23 +3068,40 @@ MESH_BCSR = list(range(400, 700, 60))   # the tile-space queries (5)
 MESH_SAME_TOL = 1e-6     # |sharded - one device| of a mask entry, same card, same kernels
 MESH_CPU_EPOCHS = 20     # mask epochs of the card-vs-CPU comparisons
 MESH_CPU_TOL = 1e-4      # |card - CPU| of a mask entry after them (set before the first run)
+MESH_ENVELOPE_MAX = 5    # COO queries at most held to their rounding envelope, not the tol
 MESH_TP_STEPS = 20       # Adam steps of each TP row
 MESH_TP_TOL = 1e-5       # |TP at world size 1 - one device| of each syn1 loss
 MESH_TP_WIDE_TOL = 1e-3  # the same on the power-law graph at width 128 (atomic sums)
 
 
-def _max_mask_diff(a, b):
+def _mask_diffs(a, b):
+    """Each query's largest |difference| of a mask entry (edge or feature
+    mask) between two lists of explain results."""
     import numpy as np
 
     check(len(a) == len(b), f"{len(a)} results against {len(b)}")
-    err = 0.0
+    errs = []
     for ra, rb in zip(a, b):
         check(ra["node_idx"] == rb["node_idx"]
               and ra["masked_adj"].shape == rb["masked_adj"].shape,
               f"query {ra['node_idx']} against {rb['node_idx']}")
-        err = max(err, float(np.max(np.abs(ra["masked_adj"] - rb["masked_adj"]))),
-                  float(np.max(np.abs(ra["feat_mask"] - rb["feat_mask"]))))
-    return err
+        errs.append(max(float(np.max(np.abs(ra["masked_adj"] - rb["masked_adj"]))),
+                        float(np.max(np.abs(ra["feat_mask"] - rb["feat_mask"])))))
+    return errs
+
+
+def _max_mask_diff(a, b):
+    return max(_mask_diffs(a, b), default=0.0)
+
+
+def _nudge_model(ex, direction):
+    """Move every weight of the explainer's model one ulp up (``direction``
+    1) or down (-1)."""
+    import torch
+
+    with torch.no_grad():
+        for p in ex.model.parameters():
+            p.copy_(torch.nextafter(p, torch.full_like(p, direction * float("inf"))))
 
 
 def _tp_rows(model, g, x, y, mask, steps, sharded):
@@ -3033,7 +3156,10 @@ def phase_mesh(gen, keep):
       stats nodes, 100 mask epochs, against the single-device card run
       (both deterministic: index_add_ sums in edge order), and with
       MESH_CPU_EPOCHS epochs against the CPU's over a 1-rank gloo group;
-      the AUCs side by side;
+      the AUCs side by side; a query that the checkpoint's own rounding
+      (every weight one ulp up, then down, on the CPU) moves by more than
+      MESH_CPU_TOL is held to that envelope instead, and at most
+      MESH_ENVELOPE_MAX queries may be;
     * ``explain_nodes_bcsr(mesh=)`` on 5 nodes: B1 and B2 launched, every
       mask entry the sequential card run's, and with MESH_CPU_EPOCHS
       epochs the CPU's; B1/B2 held to their twins at this path's shapes;
@@ -3090,23 +3216,44 @@ def phase_mesh(gen, keep):
     short_card = explainer("coo", epochs=MESH_CPU_EPOCHS)
     with deterministic_mode(), single_rank("nccl"):
         card20 = short_card.explain_nodes_batch(MESH_STATS, mesh=make_mesh())
+    # the checkpoint's own rounding envelope: the CPU's run again with
+    # every weight one ulp up, then down; a query that moves more than
+    # MESH_CPU_TOL under it is held to the larger of its two moves
+    cpu_runs = []
     with single_rank("gloo"):
-        cpu20 = explainer("coo", ["--platform", "cpu"], MESH_CPU_EPOCHS
-                          ).explain_nodes_batch(MESH_STATS, mesh=make_mesh())
-    cpu_err = _max_mask_diff(card20, cpu20)
+        for direction in (0, 1, -1):
+            cpu_ex = explainer("coo", ["--platform", "cpu"], MESH_CPU_EPOCHS)
+            if direction:
+                _nudge_model(cpu_ex, direction)
+            cpu_runs.append(cpu_ex.explain_nodes_batch(MESH_STATS, mesh=make_mesh()))
+    cpu20, *nudged = cpu_runs
+    errs = _mask_diffs(card20, cpu20)
+    envelope = [max(pair) for pair in zip(*(_mask_diffs(n, cpu20) for n in nudged))]
+    limits = [max(MESH_CPU_TOL, v) for v in envelope]
+    wide = {q: (round(e, 9), round(v, 9)) for q, e, v in zip(MESH_STATS, errs, envelope)
+            if v > MESH_CPU_TOL}
+    cpu_err = max(errs)
     print(f"  explain_nodes_batch(mesh=1-rank NCCL) on {len(MESH_STATS)} nodes x 100 "
           f"epochs (deterministic): {coo_s:.3f} s; AUC {auc_mesh:.4f} against one "
           f"device's {auc_one:.4f}; max |sharded - one device| {same:.3g} (tol "
           f"{MESH_SAME_TOL}); {MESH_CPU_EPOCHS} epochs card vs CPU (gloo) max |diff| "
-          f"{cpu_err:.3g} (tol {MESH_CPU_TOL}) [{CARD}]", flush=True)
+          f"{cpu_err:.3g}, median {statistics.median(errs):.3g} (tol {MESH_CPU_TOL}, "
+          f"or a query's one-ulp envelope above it; median envelope "
+          f"{statistics.median(envelope):.3g}; queries past the tol: "
+          f"{{node: (card vs CPU, envelope)}} {wide}) [{CARD}]", flush=True)
     check(same <= MESH_SAME_TOL, f"sharded COO explain differs by {same}")
-    check(cpu_err <= MESH_CPU_TOL, f"sharded COO explain card vs CPU: {cpu_err}")
+    check(len(wide) <= MESH_ENVELOPE_MAX,
+          f"{len(wide)} COO queries move past {MESH_CPU_TOL} under one ulp: {wide}")
+    bad = {q: (e, lim) for q, e, lim in zip(MESH_STATS, errs, limits) if e > lim}
+    check(not bad, f"sharded COO explain card vs CPU (query: diff, limit): {bad}")
     check(auc_mesh > 0.9, f"sharded COO AUC {auc_mesh}")
     check(sum(launches["mesh_coo_explain"].values()) == 0,
           "the COO explain launched a kernel")
     results["coo"] = {"s": coo_s, "auc": auc_mesh, "auc_single": auc_one,
-                      "same_err": same, "cpu_err": cpu_err}
-    del ex, single, sharded, short_card, card20, cpu20
+                      "same_err": same, "cpu_err": cpu_err,
+                      "envelope_median": statistics.median(envelope),
+                      "past_tol": {str(q): v for q, v in wide.items()}}
+    del ex, single, sharded, short_card, card20, cpu20, nudged, cpu_runs, cpu_ex
 
     # ---- tile space: 5 queries in rounds of one, B1 forward and on A^T, B2
     ex = explainer("bcsr")
@@ -3444,6 +3591,12 @@ def main() -> int:
     b1_mixed = b1_branches(gen)
     b1_cross = b1_crossover(gen)
 
+    # ---- phase 1b: the COO product's CSR kernel at the arxiv cell's shapes
+    print("phase coo_csr", flush=True)
+    t0 = time.perf_counter()
+    coo_csr = phase_coo_csr(gen)
+    print(f"  coo_csr phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 2: training (first 20 epochs held against the CPU)
     print("phase train", flush=True)
     dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
@@ -3653,6 +3806,10 @@ def main() -> int:
                          low["shapes"]["packets"],
                          [low["shapes"]["packets"], low["variants"][4]]
                          + coo["shapes"]["spmm_packets"]),
+        "spmm_coo_csr": ("tpugraph_torch/csrc/coo_kernels.cu",
+                         "none: XLA's gather and segment_sum "
+                         "(tpugraph/ops/message.py:22)",
+                         coo_csr["spmm_coo_csr"][2], coo_csr["spmm_coo_csr"]),
     }
     for name, rec in probes["kernels"].items():
         meta[name] = ("tpugraph_torch/csrc/probe_kernels.cu",
@@ -3666,6 +3823,9 @@ def main() -> int:
         "sddmm_bcsr": {"crossover": {d: bk.sddmm_crossover(d) for d in crossover},
                        "crossover_measured": crossover},
         "spmm_bcsr": {"crossover_measured": b1_cross, "b1_vs_b4": dtypes["b1_vs_b4"]},
+        "spmm_coo_csr": {
+            "reduce_launches": sum(c["spmm_coo_csr_reduce"] for c in paths.values()),
+            "chunk_sweep": coo_csr["chunk_sweep"]},
         "spmm_packets": {
             "reduce_launches": sum(c["spmm_packets_reduce"] for c in paths.values()),
             "packets_ablation": low["packets_ablation"]},

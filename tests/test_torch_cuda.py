@@ -1275,3 +1275,180 @@ def test_all_gather_cols_and_tp_step_one_nccl_rank(cuda_device):
         opt.step()
         want.append(float(loss.detach()))
     np.testing.assert_allclose(tp["losses"], want, rtol=1e-5, atol=1e-6)
+
+
+# ---- the COO product over the edge list's CSR (csrc/coo_kernels.cu)
+
+_ARXIV = {}
+
+
+def _arxiv_edges():
+    """The arxiv stand-in's padded edge list at its published counts
+    (gnnbench/data/chunglu.py's recipe: Chung-Lu at gamma 2.5, 169,343
+    nodes, 1,166,243 undirected edges in both directions) with N(0, 1)
+    weights, kept for the module."""
+    if not _ARXIV:
+        from gnnbench.data import chunglu
+        from tpugraph_torch.core.graph import graph_from_edges
+
+        d = chunglu.generate(0, 169343, 1166243, feat_dim=1, num_classes=1)
+        s = np.concatenate([d["lo"], d["hi"]]).astype(np.int32)
+        r = np.concatenate([d["hi"], d["lo"]]).astype(np.int32)
+        w = np.random.default_rng(1).standard_normal(s.size).astype(np.float32)
+        g = graph_from_edges(s, r, d["num_nodes"], edge_weight=w)
+        _ARXIV.update(s=g.senders.long(), r=g.receivers.long(), w=g.edge_weight,
+                      n=g.num_nodes_padded)
+    return _ARXIV
+
+
+def _csr_tol(c, senders, receivers, w, x):
+    """Per entry of the product of CSR ``c`` (edges ``senders ->
+    receivers``), f32 sums of a row's K products in another order (split
+    rows reassociate their chunk sums; message.spmm on the card adds with
+    atomics): 1e-5 * sqrt(K) of the entry's sum of |w x|, which bounds the
+    rounding where cancellation leaves the value itself far below it."""
+    from tpugraph_torch.ops import message
+
+    k = (c.rowptr[1:] - c.rowptr[:-1]).float().clamp(min=1)[:, None]
+    return (1e-5 * k.sqrt() * message.spmm(senders, receivers, w.abs(), x.abs())
+            + 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+def test_spmm_csr_matches_plain_at_arxiv_shape(cuda_device, d):
+    """The kernel on A and on A^T of the arxiv stand-in: within f32
+    reordering of the gather path (message.spmm), the same bits on a
+    second launch, and one main and one reduce launch a call (its hub
+    rows are split)."""
+    from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.ops import message
+
+    a = _arxiv_edges()
+    s, r, w = (a[k].to(cuda_device) for k in ("s", "r", "w"))
+    csr = ck.edge_csr(s, r, a["n"])
+    x = _x(a["n"], d, d, cuda_device)
+    for c, snd, rcv in ((csr.a, s, r), (csr.a_t, r, s)):
+        assert c.splits.shape[0] > 0 and c.num_parts > 0
+        before = dict(ck.LAUNCHES)
+        y = ck.spmm_csr(c, w, x)
+        y2 = ck.spmm_csr(c, w, x)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES == {k: v + 2 for k, v in before.items()}
+        assert torch.equal(y, y2)
+        err = (y - message.spmm(snd, rcv, w, x)).abs()
+        tol = _csr_tol(c, snd, rcv, w, x)
+        assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,aligned", [(64, True), (64, False), (10, True),
+                                       (300, True)])
+def test_spmm_csr_rows_of_one_chunk_are_the_cpu_bits(cuda_device, d, aligned):
+    """On a hub graph, against message.spmm on the CPU (each row summed in
+    edge order): a row of one chunk has its bits exactly, a split row lies
+    within f32 reordering; D = 10, an x off 16-byte alignment and D = 300
+    (two groups of two) take the scalar and the masked paths."""
+    from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.ops import message
+
+    s, r, w = _coo(4096, 60000, seed=21)
+    r[:3000] = 5                       # a 3,000-edge row: split
+    s[3000:5000] = 9                   # and a split column
+    s, r, w = torch.from_numpy(s), torch.from_numpy(r), torch.from_numpy(w)
+    csr_cpu = ck.edge_csr(s, r, 4096)
+    csr = csr_cpu.to(cuda_device)
+    x_cpu = _x(4096, d, 3, "cpu")
+    if aligned:
+        x = x_cpu.to(cuda_device)
+    else:
+        buf = torch.empty(4096 * d + 1, device=cuda_device)
+        x = buf[1:].view(4096, d)
+        x.copy_(x_cpu)
+        assert x.data_ptr() % 16 != 0
+    for c_cpu, c, snd, rcv in ((csr_cpu.a, csr.a, s, r), (csr_cpu.a_t, csr.a_t, r, s)):
+        y = ck.spmm_csr(c, w.to(cuda_device), x).cpu()
+        ref = message.spmm(snd, rcv, w, x_cpu)
+        split = torch.zeros(4096, dtype=torch.bool)
+        split[c_cpu.splits[:, 0].long()] = True
+        assert bool(split.any())
+        assert torch.equal(y[~split], ref[~split])
+        err = (y - ref).abs()[split]
+        assert bool((err <= _csr_tol(c_cpu, snd, rcv, w, x_cpu)[split]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight_grad", [False, True])
+def test_csr_matvec_gradients_on_card(cuda_device, weight_grad):
+    """CsrMatvec at the arxiv stand-in's shape, D = 256: y and dx (the
+    kernel on A^T) within f32 reordering of message.spmm's autograd on the
+    card, and dw (both through the gather path) likewise."""
+    from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.ops import message
+
+    a = _arxiv_edges()
+    s, r, w = (a[k].to(cuda_device) for k in ("s", "r", "w"))
+    csr = ck.edge_csr(s, r, a["n"])
+    x = _x(a["n"], 256, 4, cuda_device)
+    gy = _x(a["n"], 256, 5, cuda_device)
+    outs = []
+    for fn in (lambda wa, xa: message.spmm(s, r, wa, xa),
+               lambda wa, xa: ck.csr_matvec(csr, s, r, wa, xa)):
+        xa = x.clone().requires_grad_()
+        wa = w.clone().requires_grad_(weight_grad)
+        y = fn(wa, xa)
+        y.backward(gy)
+        outs.append((y.detach(), xa.grad, wa.grad))
+    (y0, dx0, dw0), (y1, dx1, dw1) = outs
+    assert bool(((y1 - y0).abs() <= _csr_tol(csr.a, s, r, w, x)).all())
+    assert bool(((dx1 - dx0).abs() <= _csr_tol(csr.a_t, r, s, w, gy)).all())
+    if weight_grad:
+        dw_scale = message.sddmm(s, r, x.abs(), gy.abs())
+        assert bool(((dw1 - dw0).abs() <= 1e-5 * 16 * dw_scale + 1e-30).all())
+    else:
+        assert dw0 is None and dw1 is None
+
+
+@pytest.mark.cuda
+def test_spmm_csr_launches_and_device_checks(cuda_device):
+    """No split row: the main pass alone; every row written (empty rows as
+    0, no zero fill); a CPU x with a CUDA CSR raises."""
+    from tpugraph_torch.ops import coo_kernels as ck
+
+    s, r, w = _coo(1000, 5000, seed=2)
+    r = r % 900                        # the last 100 rows are empty
+    s, r, w = (torch.from_numpy(t).to(cuda_device) for t in (s, r, w))
+    csr = ck.edge_csr(s, r, 1000)
+    assert csr.a.splits.shape[0] == 0
+    x = _x(1000, 128, 6, cuda_device)
+    before = dict(ck.LAUNCHES)
+    torch.cuda.synchronize()
+    y = ck.spmm_csr(csr.a, w, x)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["spmm_coo_csr"] == before["spmm_coo_csr"] + 1
+    assert ck.LAUNCHES["spmm_coo_csr_reduce"] == before["spmm_coo_csr_reduce"]
+    assert bool((y[900:] == 0).all()) and not bool(torch.signbit(y[900:]).any())
+    assert bool(torch.isfinite(y).all())
+    with pytest.raises(ValueError, match="the CSR is on"):
+        ck.spmm_csr(csr.a, w, x.cpu())
+
+
+@pytest.mark.cuda
+def test_build_adjacency_gives_coo_its_csr_on_card(cuda_device):
+    """On the card the COO adjacency carries the CSR of its own edges,
+    built there."""
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.nn import SparseAdj
+    from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.train import TrainConfig, loop
+
+    s, r, _ = _coo(500, 4000, seed=3)
+    g = graph_from_edges(s, r, 500)
+    adj, n = loop.build_adjacency(g, TrainConfig(), cuda_device)
+    assert isinstance(adj, SparseAdj) and isinstance(adj.csr, ck.EdgeCSR)
+    assert adj.csr.a.rowptr.device.type == "cuda"
+    want = ck.edge_csr(adj.senders.cpu(), adj.receivers.cpu(), n)
+    for side in ("a", "a_t"):
+        for f in ("rowptr", "col", "eid", "items", "splits"):
+            assert torch.equal(getattr(getattr(adj.csr, side), f).cpu(),
+                               getattr(getattr(want, side), f)), (side, f)

@@ -9,10 +9,14 @@ through one of the branches of ``tpugraph/nn/layers.py``:
 
 * ``SparseAdj`` (``:599-610``) — the padded COO edge list, a gather plus
   ``index_add_`` (:func:`tpugraph_torch.ops.message.spmm`); gradients
-  flow into ``weight`` (training on COO, and the COO explainer);
+  flow into ``weight`` (training on COO on the CPU, the COO explainer,
+  attention);
 
 and on hand-written kernels:
 
+* ``SparseAdj`` with its ``csr`` set — training on COO on the card: the
+  CSR kernel (:func:`tpugraph_torch.ops.coo_kernels.csr_matvec`), ``dx``
+  by the same kernel on ``A^T``, ``dw`` by the gather path's ``sddmm``;
 * static weights, ``BCSRAdj(m, m_t, k_pack=k)`` (``:380-384``) — training
   on tiles, B1 (or B3 when ``k > 1``);
 * differentiable weights with caller-supplied transposed tiles,
@@ -76,6 +80,7 @@ from tpugraph_torch.nn.initializers import xavier_relu_uniform
 from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose
 from tpugraph_torch.ops.bcsr_kernels import (bcsr_matvec, bcsr_matvec_dw,
                                              bcsr_matvec_dw_pair, sddmm_dw)
+from tpugraph_torch.ops.coo_kernels import EdgeCSR, csr_matvec
 from tpugraph_torch.ops.dense import dense_spmm
 from tpugraph_torch.ops.message import sddmm, spmm
 from tpugraph_torch.ops.packets import EdgePackets
@@ -91,12 +96,15 @@ from tpugraph_torch.utils.profiling import trace_annotation, trace_backward
 class SparseAdj(NamedTuple):
     """Padded COO adjacency of one graph (``tpugraph/nn/layers.py:35``):
     edge ``e`` carries ``weight[e]`` from ``senders[e]`` to
-    ``receivers[e]``; ``weight`` is 0 on padding edges.  All three on the
-    device of ``x``."""
+    ``receivers[e]``; ``weight`` is 0 on padding edges.  All on the
+    device of ``x``.  ``csr``, where set, is the edge list's CSR
+    (:func:`~tpugraph_torch.ops.coo_kernels.edge_csr`), and the product
+    runs the CSR kernel; without it, the gather and ``index_add_``."""
 
     senders: torch.Tensor    # int32/int64[E_pad]
     receivers: torch.Tensor  # int32/int64[E_pad]
     weight: torch.Tensor     # float32[E_pad]
+    csr: Optional[EdgeCSR] = None
 
 
 @dataclasses.dataclass
@@ -400,8 +408,11 @@ class GraphConv(nn.Module):
             if self.att:
                 x_att = torch.matmul(x, self.att_weight)
                 weight = weight * sddmm(adj.senders, adj.receivers, x_att, x_att)
-                adj_att = SparseAdj(adj.senders, adj.receivers, weight)
-            y = spmm(adj.senders, adj.receivers, weight, x)
+                adj_att = SparseAdj(adj.senders, adj.receivers, weight, adj.csr)
+            if adj.csr is None:
+                y = spmm(adj.senders, adj.receivers, weight, x)
+            else:
+                y = csr_matvec(adj.csr, adj.senders, adj.receivers, weight, x)
         elif isinstance(adj, (PacketAdj, StackedAdj)) and self.att:
             raise NotImplementedError(
                 "GAT attention needs tile or edge score gradients: use "

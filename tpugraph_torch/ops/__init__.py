@@ -28,6 +28,13 @@ from tpugraph_torch.ops.bcsr_kernels import (  # noqa: F401
     spmm_bcsr,
     spmm_bcsr_packed,
 )
+from tpugraph_torch.ops.coo_kernels import (  # noqa: F401
+    CsrMatvec,
+    EdgeCSR,
+    csr_matvec,
+    edge_csr,
+    spmm_csr,
+)
 from tpugraph_torch.ops.dense import dense_sddmm, dense_spmm  # noqa: F401
 from tpugraph_torch.ops.diffusion import DiffusionOperator, diffuse  # noqa: F401
 from tpugraph_torch.ops.message import (  # noqa: F401
@@ -56,12 +63,14 @@ from tpugraph_torch.ops.resident_kernels import (  # noqa: F401
 
 from tpugraph_torch.ops import (  # noqa: E402
     bcsr_kernels,
+    coo_kernels,
     packets_kernels,
     probe_kernels,
     resident_kernels,
 )
 
-_KERNEL_MODULES = (bcsr_kernels, resident_kernels, packets_kernels, probe_kernels)
+_KERNEL_MODULES = (bcsr_kernels, resident_kernels, packets_kernels, probe_kernels,
+                   coo_kernels)
 
 
 def launch_counts() -> dict:

@@ -18,8 +18,10 @@ inside), ``train.inputs``, in each epoch ``train.forward``,
 ``train.eval``; ``GraphConv`` marks its adjacency products.
 
 ``use_bcsr=False`` (the default, as in JAX) aggregates over the padded
-COO edge list, a gather plus ``index_add_`` (``SparseAdj``,
-``tpugraph/train/loop.py:476-477``).  ``use_bcsr=True`` picks the format
+COO edge list (``SparseAdj``, ``tpugraph/train/loop.py:476-477``), which
+``build_adjacency`` gives its CSR on the card (``ops/coo_kernels.py:
+edge_csr``, a device sort), so each product there is the CSR kernel; the
+CPU, like JAX, gathers and sums by segment.  ``use_bcsr=True`` picks the format
 as ``tpugraph/train/loop.py:316-475`` does (:func:`resolve_bcsr_format`):
 
 * ``bcsr_format="packets"`` — edge packets at ``packet_geom``, kernel B7;
@@ -70,6 +72,7 @@ from tpugraph_torch.nn.losses import (link_prediction_loss, node_cross_entropy,
 from tpugraph_torch.ops.bcsr import (bcsr_from_coo, bcsr_transpose_host,
                                      bcsr_transpose_plan, choose_k_pack_counts,
                                      coo_tile_counts)
+from tpugraph_torch.ops.coo_kernels import edge_csr
 from tpugraph_torch.ops.packets import pack_edges, pack_edges_transpose
 from tpugraph_torch.ops.resident_kernels import stack_bcsr
 from tpugraph_torch.train.metrics import eval_graph_preds, eval_node
@@ -248,14 +251,19 @@ def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
     """Pack ``g`` in the format ``cfg`` selects and move it to ``device``
     (``tpugraph/train/loop.py:316-477``); returns the adjacency and the
     padded node count it needs (a multiple of the block for the tile
-    formats).  Without ``use_bcsr`` it is the COO edge list itself;
+    formats).  Without ``use_bcsr`` it is the COO edge list itself, with
+    its CSR built on the card after the upload (the CPU runs the gather
+    path, which needs none);
     otherwise :func:`choose_format` picks the format (``att``: an
     attention model, which takes f32 tiles with a transpose plan)."""
     if not cfg.use_bcsr:
         with trace_annotation("train.pack.upload"):
-            return (SparseAdj(g.senders.to(device, torch.int64),
-                              g.receivers.to(device, torch.int64),
-                              g.edge_weight.to(device)), g.num_nodes_padded)
+            s = g.senders.to(device, torch.int64)
+            r = g.receivers.to(device, torch.int64)
+            csr = (edge_csr(s, r, g.num_nodes_padded) if device.type == "cuda"
+                   else None)
+            return (SparseAdj(s, r, g.edge_weight.to(device), csr),
+                    g.num_nodes_padded)
     s_np = g.senders.numpy()
     r_np = g.receivers.numpy()
     w_np = g.edge_weight.numpy()
