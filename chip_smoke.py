@@ -1503,6 +1503,7 @@ def measure_cli_stacked(shape, argv, seed):
 
 
 ARXIV_NODES, ARXIV_EDGES = 169343, 1166243   # gnnbench/configs/gcn-arxiv.json
+GAT_ARXIV_EPOCHS = 3    # phase_gat's training on the stand-in at gat-arxiv's widths
 CSR_CHUNKS = (64, 128, 256, 512, 2048, 1 << 30)
 
 
@@ -1583,6 +1584,193 @@ def phase_coo_csr(gen):
     del csr
     torch.cuda.empty_cache()
     return {"spmm_coo_csr": records, "chunk_sweep": sweep}
+
+
+def library_gat(c, z, el, er, heads, slope, g=None):
+    """PyTorch calls for the GAT attention, which the port never makes:
+    torch's segment softmax (``segment_reduce`` max and sum over the CSR
+    rows) and, per head, ``torch.sparse.mm`` of a CSR with the weights as
+    values; with ``g`` the backward's two products per head, the
+    transpose's ``sparse.mm`` and ``sampled_addmm`` on the edges."""
+    import torch
+
+    n, d = z.shape
+    f = d // heads
+    counts = (c.rowptr[1:] - c.rowptr[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(n, device=z.device), counts)
+    col = c.col.long()
+    zh = [z[:, h * f:(h + 1) * f].contiguous() for h in range(heads)]
+    gh = None if g is None else [g[:, h * f:(h + 1) * f].contiguous() for h in range(heads)]
+    crow = c.rowptr.long()
+
+    def fwd():
+        sc = el[col] + er[rows]
+        e = torch.where(sc > 0, sc, sc * slope)
+        m = torch.segment_reduce(e, "max", lengths=counts, unsafe=True)
+        p = torch.exp(e - m[rows])
+        alpha = p / torch.segment_reduce(p, "sum", lengths=counts, unsafe=True)[rows]
+        if g is None:
+            return torch.cat([torch.sparse.mm(torch.sparse_csr_tensor(
+                crow, col, alpha[:, h].contiguous(), (n, n)), zh[h])
+                for h in range(heads)], 1)
+        outs = []
+        for h in range(heads):
+            a = torch.sparse_csr_tensor(crow, col, alpha[:, h].contiguous(), (n, n))
+            outs.append(torch.sparse.mm(a.t().to_sparse_csr(), gh[h]))
+            torch.sparse.sampled_addmm(a, gh[h], zh[h].t(), beta=0.0)
+        return torch.cat(outs, 1)
+
+    return fwd
+
+
+def phase_gat(gen):
+    """GAT's edge attention at the ``gat-arxiv-train`` cell's shapes (the
+    arxiv stand-in, self-loops removed and one added a node: 2,501,829
+    edges; D = 3 x 250 and 3 x 40): the forward (main and reduce pass), the
+    backward over A^T (main and reduce) and the receiver-score row sum,
+    each held entry by entry to its plain version and timed beside its
+    bound, the plain version and PyTorch's calls; every other output
+    (lse, d el, each edge's ds, d er) within 1e-5 of its largest entry,
+    two launches bit-identical.  Then a few epochs of ``GatEncoderNode`` at
+    the cell's widths on the stand-in through ``train_node_classifier``,
+    whose launches (both reduce passes among them) are the ones the report
+    counts, not the timing loops'.  Then ``cli.train --method gat`` on
+    syn2 (COO), its first 20 epochs held within 1e-4 of the CPU's.  Not syn1:
+    its constant features give every node the same row, whose batch norm
+    over the nodes divides rounding noise by sqrt(eps) (card and CPU part
+    by ~4e-3 in 20 epochs)."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gnnbench import gat_counts
+    from gnnbench.data import chunglu
+    from tpugraph_torch import ops
+    from tpugraph_torch.cli import train as cli_train
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.nn import GatEncoderNode
+    from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+    from tpugraph_torch.train.loop import gat_adjacency
+
+    d0 = chunglu.generate(0, ARXIV_NODES, ARXIV_EDGES, feat_dim=1, num_classes=1)
+    g = graph_from_edges(np.concatenate([d0["lo"], d0["hi"]]),
+                         np.concatenate([d0["hi"], d0["lo"]]), ARXIV_NODES)
+    ops.reset_launch_counts()
+    adj, n = gat_adjacency(g, torch.device("cuda"))
+    csr, e = adj.csr, int(adj.senders.shape[0])
+    k_row = int((csr.a.rowptr[1:] - csr.a.rowptr[:-1]).max())
+    print(f"  gat: {n} nodes, {e} attended edges, longest row {k_row}, "
+          f"{csr.a.splits.shape[0]} / {csr.a_t.splits.shape[0]} rows split (A / A^T)",
+          flush=True)
+    records = {"gat_attention": [], "gat_attention_backward": [],
+               "gat_attention_dst_sum": []}
+    warnings.filterwarnings("ignore", message=".*[Ss]parse.*")  # library_gat's CSR calls
+    for heads, f in ((3, 250), (3, 40)):
+        d = heads * f
+        z = torch.randn((n, d), generator=gen, device="cuda")
+        el = torch.randn((n, heads), generator=gen, device="cuda")
+        er = torch.randn((n, heads), generator=gen, device="cuda")
+        gy = torch.randn((n, d), generator=gen, device="cuda")
+        y0, lse0 = ck.gat_attention_plain(csr.a, z, el, er, heads, 0.2)
+        t = (gy * y0).view(n, heads, f).sum(-1)
+        shape = f"gat-arxiv {heads}x{f}"
+        records["gat_attention"].append(measure_case(
+            "gat_attention", shape, d,
+            lambda: ck.gat_attention_csr(csr.a, z, el, er, heads, 0.2)[0],
+            lambda: ck.gat_attention_plain(csr.a, z, el, er, heads, 0.2)[0],
+            lambda: library_gat(csr.a, z, el, er, heads, 0.2),
+            gat_counts.attention_bytes(n, e, heads, f, False),
+            gat_counts.attention_flops(e, heads, f, False), F32_FLOPS_PER_S, k_row,
+            extra={"edges": e, "split_rows": int(csr.a.splits.shape[0])}))
+        records["gat_attention_backward"].append(measure_case(
+            "gat_attention_backward", shape, d,
+            lambda: ck.gat_attention_backward_csr(csr.a_t, z, gy, el, er, lse0, t,
+                                                  heads, 0.2)[0],
+            lambda: ck.gat_attention_backward_plain(csr.a_t, z, gy, el, er, lse0, t,
+                                                    heads, 0.2)[0],
+            lambda: library_gat(csr.a, z, el, er, heads, 0.2, gy),
+            gat_counts.attention_bytes(n, e, heads, f, True),
+            gat_counts.attention_flops(e, heads, f, True), F32_FLOPS_PER_S, k_row,
+            extra={"edges": e, "split_rows": int(csr.a_t.splits.shape[0])}))
+        back0 = ck.gat_attention_backward_plain(csr.a_t, z, gy, el, er, lse0, t, heads, 0.2)
+        records["gat_attention_dst_sum"].append(measure_case(
+            "gat_attention_dst_sum", shape, heads,
+            lambda: ck.gat_dst_sum(csr.a, back0[2]),
+            lambda: ck.gat_dst_sum_plain(csr.a, back0[2]),
+            lambda: (lambda: torch.segment_reduce(back0[2][csr.a.eid.long()], "sum",
+                                                  offsets=csr.a.rowptr.long())),
+            4 * (e * heads + e + n + 1 + n * heads), e * heads, F32_FLOPS_PER_S, k_row,
+            # a receiver's ds terms cancel (sum_j alpha (dot - t) = 0 but for
+            # the slope): held to the sum of their magnitudes
+            scale=lambda: ck.gat_dst_sum_plain(csr.a, back0[2].abs())))
+        got = [ck.gat_attention_csr(csr.a, z, el, er, heads, 0.2)
+               + ck.gat_attention_backward_csr(csr.a_t, z, gy, el, er, lse0, t, heads, 0.2)
+               + (ck.gat_dst_sum(csr.a, back0[2]),) for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(*got)),
+              f"gat {shape}: two launches differ")
+        for name, out, want in (("lse", got[0][1], lse0), ("d_el", got[0][3], back0[1]),
+                                ("de", got[0][4], back0[2])):
+            gap = float((out - want).abs().max() / want.abs().max())
+            check(gap < 1e-5, f"gat {shape}: {name} leaves its plain version by {gap:.3g}")
+        del z, gy, y0, back0, got
+        torch.cuda.empty_cache()
+
+    # the kernel rows' timing loops are not a path: the launches counted
+    # are those of GAT training on the stand-in, whose split rows take
+    # both reduce passes, and of the CLI below
+    d1 = chunglu.generate(0, ARXIV_NODES, ARXIV_EDGES, feat_dim=128, num_classes=40)
+    model = GatEncoderNode(128, 250, 40, num_layers=3, num_heads=3, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_node_classifier(model, g, d1["feat"], d1["labels"],
+                                TrainConfig(num_epochs=GAT_ARXIV_EPOCHS, lr=0.002))
+    launches = {"gat_arxiv_train": ops.launch_counts()}
+    print(f"  gat arxiv stand-in, 3x250: {GAT_ARXIV_EPOCHS} epochs in "
+          f"{time.perf_counter() - t0:.2f} s (first losses "
+          f"{[round(v, 4) for v in out['history']['loss'][:3]]}); launches "
+          f"{launches['gat_arxiv_train']}", flush=True)
+    for name in ("gat_attention", "gat_attention_reduce", "gat_attention_backward",
+                 "gat_attention_backward_reduce", "gat_attention_dst_sum"):
+        check(launches["gat_arxiv_train"][name] >= 3 * GAT_ARXIV_EPOCHS,
+              f"gat arxiv training launched {name} "
+              f"{launches['gat_arxiv_train'][name]} times")
+    del model, out, d1
+    torch.cuda.empty_cache()
+
+    # the model on syn2 through the CLI (COO), and 20 epochs card vs CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        summary, wall, _ = run_cli(cli_train.main, [
+            "--dataset", "syn2", "--method", "gat", "--ckptdir", os.path.join(tmp, "ck"),
+            "--logdir", os.path.join(tmp, "log")])
+        launches["cli_gat_train"] = ops.launch_counts()
+    print(f"  cli.train --method gat: test acc {summary['result_test']['acc']:.4f}; "
+          f"{EPOCHS / summary['elapsed_s']:.1f} epochs/s over {EPOCHS} epochs "
+          f"({wall:.2f} s the call); launches {launches['cli_gat_train']}", flush=True)
+    check(launches["cli_gat_train"]["gat_attention"] >= 3 * EPOCHS,
+          "cli.train --method gat did not run the attention kernel")
+    from tpugraph_torch.cli.config import parse_train_args
+    from tpugraph_torch.cli.tasks import node_task_data, node_task_model
+
+    cfg = parse_train_args(["--dataset", "syn2", "--method", "gat"])
+    G, labels, _ = node_task_data(cfg)
+    model, gs, feat = node_task_model(cfg, G, labels, "cpu")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    short = TrainConfig(num_epochs=20, lr=cfg.lr, clip=cfg.clip,
+                        weight_decay=cfg.weight_decay)
+    cpu = train_node_classifier(model, gs, feat, labels, short, init_params=init,
+                                device="cpu")
+    card_model = GatEncoderNode(feat.shape[1], cfg.hidden_dim, int(max(labels)) + 1,
+                                cfg.num_gc_layers, cfg.num_heads, device="cuda")
+    card = train_node_classifier(card_model, gs, feat, labels, short, init_params=init)
+    gap = float(np.max(np.abs(np.subtract(cpu["history"]["loss"], card["history"]["loss"]))))
+    print(f"  gat syn2: 20 epochs' losses card vs CPU within {gap:.3g}", flush=True)
+    check(gap < 1e-4, f"gat syn2: card losses leave the CPU's by {gap:.3g}")
+    del adj, csr
+    torch.cuda.empty_cache()
+    return {"records": records, "launches": launches}
 
 
 def phase_coo(banded_tile_sps, keep):
@@ -3597,6 +3785,12 @@ def main() -> int:
     coo_csr = phase_coo_csr(gen)
     print(f"  coo_csr phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 1c: GAT's edge attention at the gat-arxiv cell's shapes
+    print("phase gat", flush=True)
+    t0 = time.perf_counter()
+    gat_ph = phase_gat(gen)
+    print(f"  gat phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 2: training (first 20 epochs held against the CPU)
     print("phase train", flush=True)
     dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
@@ -3767,7 +3961,8 @@ def main() -> int:
              **opt["launches"], **base_ph["launches"], **tasks_ph["launches"],
              **prof_ph["launches"], **par["launches"], **mesh_ph["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
-             **diff["launches"], "launch_probes": probes["launches"]}
+             **diff["launches"], "launch_probes": probes["launches"],
+             **gat_ph["launches"]}
     meta = {
         "spmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
@@ -3810,6 +4005,9 @@ def main() -> int:
                          "none: XLA's gather and segment_sum "
                          "(tpugraph/ops/message.py:22)",
                          coo_csr["spmm_coo_csr"][2], coo_csr["spmm_coo_csr"]),
+        **{name: ("tpugraph_torch/csrc/coo_kernels.cu",
+                  "none: the JAX package normalises no edge weights over a row",
+                  recs[0], recs) for name, recs in gat_ph["records"].items()},
     }
     for name, rec in probes["kernels"].items():
         meta[name] = ("tpugraph_torch/csrc/probe_kernels.cu",
@@ -3826,6 +4024,11 @@ def main() -> int:
         "spmm_coo_csr": {
             "reduce_launches": sum(c["spmm_coo_csr_reduce"] for c in paths.values()),
             "chunk_sweep": coo_csr["chunk_sweep"]},
+        "gat_attention": {
+            "reduce_launches": sum(c["gat_attention_reduce"] for c in paths.values())},
+        "gat_attention_backward": {
+            "reduce_launches": sum(c["gat_attention_backward_reduce"]
+                                   for c in paths.values())},
         "spmm_packets": {
             "reduce_launches": sum(c["spmm_packets_reduce"] for c in paths.values()),
             "packets_ablation": low["packets_ablation"]},

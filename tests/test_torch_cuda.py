@@ -1334,7 +1334,8 @@ def test_spmm_csr_matches_plain_at_arxiv_shape(cuda_device, d):
         y = ck.spmm_csr(c, w, x)
         y2 = ck.spmm_csr(c, w, x)
         torch.cuda.synchronize()
-        assert ck.LAUNCHES == {k: v + 2 for k, v in before.items()}
+        assert ck.LAUNCHES == {k: v + (2 if k.startswith("spmm_coo_csr") else 0)
+                               for k, v in before.items()}
         assert torch.equal(y, y2)
         err = (y - message.spmm(snd, rcv, w, x)).abs()
         tol = _csr_tol(c, snd, rcv, w, x)
@@ -1452,3 +1453,177 @@ def test_build_adjacency_gives_coo_its_csr_on_card(cuda_device):
         for f in ("rowptr", "col", "eid", "items", "splits"):
             assert torch.equal(getattr(getattr(adj.csr, side), f).cpu(),
                                getattr(getattr(want, side), f)), (side, f)
+
+
+_GAT = {}
+
+
+def _gat_arxiv(device):
+    """The GAT cell's adjacency on the card: the arxiv stand-in's edges, no
+    self-loop, then one a node (2,501,829 edges), with its CSR; kept for
+    the module."""
+    if not _GAT:
+        from tpugraph_torch.ops import coo_kernels as ck
+
+        a = _arxiv_edges()
+        n = 169343
+        keep = (a["w"] != 0) & (a["s"] != a["r"])
+        loops = torch.arange(n)
+        s = torch.cat([a["s"][keep], loops]).to(device)
+        r = torch.cat([a["r"][keep], loops]).to(device)
+        _GAT.update(s=s, r=r, n=n, csr=ck.edge_csr(s, r, n))
+    return _GAT
+
+
+def _gat_inputs(n, heads, f, seed, device, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn((n, heads * f), generator=g)
+    el = torch.randn((n, heads), generator=g) * scale
+    er = torch.randn((n, heads), generator=g) * scale
+    gy = torch.randn((n, heads * f), generator=g)
+    return z.to(device), el.to(device), er.to(device), gy.to(device)
+
+
+def _gat_kernels_vs_plain(csr, z, el, er, gy, heads):
+    """Each attention kernel and its plain version on the same inputs (the
+    plain forward's statistics feed both backwards): the largest gap of each
+    output over its largest entry, and whether two launches gave the same
+    bits."""
+    from tpugraph_torch.ops import coo_kernels as ck
+
+    n = z.shape[0]
+    y, lse = ck.gat_attention_csr(csr.a, z, el, er, heads, 0.2)
+    y0, lse0 = ck.gat_attention_plain(csr.a, z, el, er, heads, 0.2)
+    t = (gy * y0).view(n, heads, -1).sum(-1)
+    back = ck.gat_attention_backward_csr(csr.a_t, z, gy, el, er, lse0, t, heads, 0.2)
+    back0 = ck.gat_attention_backward_plain(csr.a_t, z, gy, el, er, lse0, t, heads, 0.2)
+    der = ck.gat_dst_sum(csr.a, back0[2])
+    der0 = ck.gat_dst_sum_plain(csr.a, back0[2])
+    gaps = {}
+    for name, got, want in (("y", y, y0), ("lse", lse, lse0), ("dz", back[0], back0[0]),
+                            ("d_el", back[1], back0[1]), ("de", back[2], back0[2]),
+                            ("d_er", der, der0)):
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got)), name
+        gaps[name] = float((got - want)[fin].abs().max() / want[fin].abs().max())
+    again = (ck.gat_attention_csr(csr.a, z, el, er, heads, 0.2)
+             + ck.gat_attention_backward_csr(csr.a_t, z, gy, el, er, lse0, t, heads, 0.2)
+             + (ck.gat_dst_sum(csr.a, back0[2]),))
+    same = all(torch.equal(a, b) for a, b in zip(again, (y, lse) + tuple(back) + (der,)))
+    return gaps, same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,f", [(3, 250), (3, 40)])
+def test_gat_attention_matches_plain_at_arxiv_shape(cuda_device, heads, f):
+    """The GAT cell's layers (D = 3 x 250 and 3 x 40) on its 2.5M-edge
+    adjacency (422 split rows each way): every output of the forward, the
+    backward and the row sum within f32 reordering of its plain version
+    (1e-5 of the largest entry: sums of up to ~3,000 terms reassociated by
+    the chunks and the warp's order; 6.4e-7 seen), and two launches
+    bit-identical."""
+    a = _gat_arxiv(cuda_device)
+    assert a["csr"].a.splits.shape[0] > 0 and a["csr"].a_t.splits.shape[0] > 0
+    gaps, same = _gat_kernels_vs_plain(a["csr"], *_gat_inputs(a["n"], heads, f, 7,
+                                                              cuda_device), heads)
+    assert same
+    assert max(gaps.values()) < 1e-5, gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,f,scale", [(3, 7, 1.0), (8, 4, 1.0), (2, 512, 1.0),
+                                           (1, 16, 80.0), (3, 5, 30.0)])
+def test_gat_attention_small_cases_match_plain(cuda_device, heads, f, scale):
+    """A hub graph in chunks of 64 (split rows both ways), every slot shape:
+    an odd head width (one column a slot), 8 heads, D = 1,024 (16 slots of
+    two), scores up to +-80 (the softmax's maxima), and empty rows."""
+    from tpugraph_torch.ops import coo_kernels as ck
+
+    s, r, _ = _coo(300, 4000, seed=9)
+    r %= 250                           # rows 250..279 receive only their self-loop
+    s[:1500], r[1500:3000] = 3, 3
+    loops = np.arange(280)             # and rows 280..299 nothing at all
+    s = torch.from_numpy(np.concatenate([s, loops])).to(cuda_device)
+    r = torch.from_numpy(np.concatenate([r, loops])).to(cuda_device)
+    chunk = ck.CHUNK_EDGES
+    ck.CHUNK_EDGES = 64
+    try:
+        csr = ck.edge_csr(s, r, 300)
+    finally:
+        ck.CHUNK_EDGES = chunk
+    gaps, same = _gat_kernels_vs_plain(csr, *_gat_inputs(300, heads, f, 8, cuda_device,
+                                                         scale), heads)
+    assert same
+    assert max(gaps.values()) < 1e-5, gaps
+    y, lse = ck.gat_attention_csr(csr.a, *_gat_inputs(300, heads, f, 8, cuda_device)[:3],
+                                  heads, 0.2)
+    assert bool((y[280:] == 0).all()) and bool(torch.isinf(lse[280:]).all())
+
+
+@pytest.mark.cuda
+def test_gat_attention_launches_and_checks(cuda_device):
+    """The main passes and, with split rows, their reduce passes are
+    counted; more than 8 heads and rows wider than a warp holds raise."""
+    from tpugraph_torch.ops import coo_kernels as ck
+
+    a = _gat_arxiv(cuda_device)
+    z, el, er, gy = _gat_inputs(a["n"], 3, 40, 1, cuda_device)
+    before = dict(ck.LAUNCHES)
+    za = z.clone().requires_grad_()
+    ck.gat_attention(a["csr"], za, el, er, 3, 0.2).backward(gy)
+    torch.cuda.synchronize()
+    for k in ("gat_attention", "gat_attention_reduce", "gat_attention_backward",
+              "gat_attention_backward_reduce", "gat_attention_dst_sum"):
+        assert ck.LAUNCHES[k] == before[k] + 1, k
+    with pytest.raises(ValueError, match="heads"):
+        ck.gat_attention_csr(a["csr"].a, torch.zeros(a["n"], 9, device=cuda_device),
+                             torch.zeros(a["n"], 9, device=cuda_device),
+                             torch.zeros(a["n"], 9, device=cuda_device), 9, 0.2)
+    with pytest.raises(NotImplementedError, match="at most"):
+        ck.gat_attention_csr(a["csr"].a, torch.zeros(a["n"], 1030, device=cuda_device),
+                             torch.zeros(a["n"], 2, device=cuda_device),
+                             torch.zeros(a["n"], 2, device=cuda_device), 2, 0.2)
+
+
+@pytest.mark.cuda
+def test_gat_encoder_training_on_card_matches_reference(cuda_device):
+    """Three epochs of ``train_node_classifier`` on a GatEncoderNode on the
+    card against the plain reference's job on the card from the same state:
+    every loss within 1e-5, the parameters and the closing logits within
+    1e-4 of their largest entry (Adam's first steps move each entry by
+    about lr, so a small gradient's rounding shows in full)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from reference import gat as ref
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.nn import GatEncoderNode
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+
+    s, r, _ = _coo(5000, 60000, seed=12)
+    s[:2000] = 4
+    g = graph_from_edges(np.concatenate([s, r]), np.concatenate([r, s]), 5000)
+    rng = np.random.default_rng(3)
+    feat = rng.standard_normal((g.num_nodes_padded, 32)).astype(np.float32)
+    labels = rng.integers(0, 6, 5000)
+    model = GatEncoderNode(32, 24, 6, 3, 3, generator=torch.Generator().manual_seed(0),
+                           device=cuda_device)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    cfg = TrainConfig(num_epochs=3, lr=0.002, clip=0.0, weight_decay=0.0)
+    out = train_node_classifier(model, g, feat, labels, cfg, seed=2, init_params=state,
+                                device=cuda_device)
+    adj = out["adj"]
+    train_idx, _ = ref.split_nodes(5000, cfg.train_ratio, 2)
+    job = ref.train_job(state, torch.from_numpy(feat[:5000]).to(cuda_device),
+                        ref.structure(adj.senders, adj.receivers, 5000),
+                        torch.from_numpy(labels).to(cuda_device),
+                        torch.from_numpy(train_idx).to(cuda_device), num_layers=3,
+                        num_heads=3, slope=0.2, lr=0.002, weight_decay=0.0, clip=None,
+                        epochs=3, snapshot=3)
+    np.testing.assert_allclose(out["history"]["loss"], job["losses"], rtol=1e-5)
+    for k, v in job["params"].items():
+        got = out["params"][k]
+        assert float((got - v).abs().max() / v.abs().max()) < 1e-4, k
+    want = job["logits"].cpu().numpy()
+    assert float(np.abs(out["ypred"][0] - want).max() / np.abs(want).max()) < 1e-4

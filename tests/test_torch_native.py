@@ -4,8 +4,16 @@ case of ``tests/test_native.py``, first with the C++ engine on both sides
 and then with the numpy fallback on both sides (each side's ``_get_lib``
 patched to ``None``).  Arrays are compared byte for byte (tolerance 0).
 ``label_prop_partition`` is held C++ to C++ and numpy to numpy only: the
-two paths are different algorithms in both packages."""
+two paths are different algorithms in both packages.
 
+``tpugraph``'s engine builds in place (``g++ -o libgraph_engine.so`` next
+to its source) the first time any process asks for it, so under xdist a
+worker here can find the file that ``tests/test_native.py``'s worker is
+still writing, fail to load it, and cache the numpy fallback: every
+``[native]`` case then failed.  The ``native`` engine fixture waits for
+that build to finish and loads the engine again."""
+
+import time
 import warnings
 
 import numpy as np
@@ -20,6 +28,21 @@ from tpugraph_torch.core.graph import graph_from_dense
 from tpugraph_torch.parallel import spmd
 
 ENGINES = ["native", "numpy"]
+JAX_ENGINE_WAIT_S = 300.0  # a build of tpugraph's engine takes ~10 s
+
+
+def jax_engine_ready(timeout: float = JAX_ENGINE_WAIT_S) -> bool:
+    """Whether ``tpugraph``'s C++ engine loads, waiting up to ``timeout``
+    seconds for a build in flight in another process: a failed load
+    (a file still being written is too short) is forgotten, and the load
+    tried again every 2 s."""
+    deadline = time.monotonic() + timeout
+    while not jax_native.native_available():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(2.0)
+        jax_native._lib = None  # forget the cached fallback
+    return True
 
 
 @pytest.fixture(params=ENGINES)
@@ -29,7 +52,7 @@ def engine(request, monkeypatch):
         monkeypatch.setattr(jax_native, "_get_lib", lambda: None)
         monkeypatch.setattr(native, "_get_lib", lambda: None)
     else:
-        assert native.native_available() and jax_native.native_available()
+        assert native.native_available() and jax_engine_ready()
     return request.param
 
 

@@ -31,7 +31,8 @@ class Config:
     ckptdir: str = "ckpt"
 
     # model (reference configs.py:86-99)
-    method: str = "base"          # base | att | soft-assign
+    method: str = "base"          # base | att | soft-assign | gat
+    num_heads: int = 3            # --method gat: attention heads a layer
     input_dim: int = 10
     hidden_dim: int = 20
     output_dim: int = 20
@@ -107,7 +108,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--datadir", default=d.datadir)
     p.add_argument("--logdir", default=d.logdir)
     p.add_argument("--ckptdir", default=d.ckptdir)
-    p.add_argument("--method", default=d.method)
+    p.add_argument("--method", default=d.method,
+                   help="base | att | soft-assign | gat (the port's own "
+                        "multi-head GAT node classifier; node tasks only)")
+    p.add_argument("--num-heads", dest="num_heads", type=int, default=d.num_heads,
+                   help="--method gat: heads a layer, --hidden-dim wide each")
     p.add_argument("--input-dim", "--input_dim", dest="input_dim", type=int,
                    default=d.input_dim)
     p.add_argument("--hidden-dim", "--hidden_dim", dest="hidden_dim", type=int,
@@ -231,11 +236,21 @@ def _to_config(ns: argparse.Namespace) -> Config:
 def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` before anything runs for ``--resume``
     with ``--halo N > 1``, which ``tpugraph`` rejects only once a
-    checkpoint has loaded (``tpugraph/cli/tasks.py:109``)."""
+    checkpoint has loaded (``tpugraph/cli/tasks.py:109``), and for
+    ``--method gat`` anywhere but single-device node classification on
+    the COO edge list."""
     if cfg.resume and cfg.halo_devices > 1:
         raise NotImplementedError(
             "--resume is not supported with --halo; restart or use the "
             "single-device path")
+    if cfg.method == "gat":
+        graph_task = (cfg.bmname is not None or cfg.pkl_fname is not None
+                      or cfg.dataset == "enron_multigraph")
+        if graph_task or cfg.use_bcsr or cfg.halo_devices > 1:
+            raise NotImplementedError(
+                "--method gat trains single-graph node tasks on one device over "
+                "the COO edge list: no --bmname/--pkl/enron_multigraph, --bcsr "
+                "or --halo")
 
 
 def rank_count(cfg: Config, explain: bool = False) -> int:

@@ -73,6 +73,10 @@ from tpugraph_torch.utils.tb_writer import SummaryWriter
 from tpugraph_torch.viz.graphs import denoise_graph, log_graph, save_matrix_image
 
 
+_GAT_EXPLAIN = ("explaining a GAT checkpoint (--method gat) is not supported: "
+                "the explainer masks GcnEncoderNode's edge weights")
+
+
 def build_explainer(cfg: Config) -> Explainer:
     """An :class:`Explainer` over the checkpoint ``cfg`` names, on
     ``--platform``'s device, logging under
@@ -82,6 +86,8 @@ def build_explainer(cfg: Config) -> Explainer:
     device = cli_device(cfg)
     prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
                         cfg.bias, cfg.name_suffix)
+    if cfg.method == "gat":
+        raise NotImplementedError(_GAT_EXPLAIN)
     ckpt = load_checkpoint(cfg.ckptdir, prefix)
     cg = ckpt["cg"]
     if cg is None:
@@ -90,6 +96,8 @@ def build_explainer(cfg: Config) -> Explainer:
     # from the flags, which must then repeat the training's)
     meta = ckpt["meta"] or {}
     model_type = meta.get("model_type", cfg.method)
+    if model_type == "gat":
+        raise NotImplementedError(_GAT_EXPLAIN)
     graph_mode = (cfg.graph_mode or cfg.multigraph_class >= 0
                   or cfg.graph_idx >= 0)
     if graph_mode and model_type == "soft-assign":

@@ -37,7 +37,8 @@ from tpugraph_torch.data.readers import (ENRON_LABELS, disjoint_union_all,
                                          load_enron_slices, load_graph_pickle,
                                          read_biosnap, read_graphfile)
 from tpugraph_torch.data.shapes import SimpleGraph
-from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode, SoftPoolingGcnEncoder
+from tpugraph_torch.nn import (GatEncoderNode, GcnEncoderGraph, GcnEncoderNode,
+                               SoftPoolingGcnEncoder)
 from tpugraph_torch.train.checkpoint import (gen_prefix, load_checkpoint,
                                              save_checkpoint)
 from tpugraph_torch.train.loop import (TrainConfig, train_graph_classifier,
@@ -97,10 +98,18 @@ def train_config(cfg: Config) -> TrainConfig:
 
 
 def build_node_model(cfg: Config, input_dim: int, num_classes: int,
-                     device=None) -> GcnEncoderNode:
+                     device=None):
     """``GcnEncoderNode`` at the configured widths, its parameters drawn
     from a generator seeded with ``cfg.seed`` (``tpugraph/cli/tasks.py:50``;
-    JAX draws them from ``PRNGKey(seed)``)."""
+    JAX draws them from ``PRNGKey(seed)``); for ``--method gat`` the port's
+    :class:`GatEncoderNode`: ``--num-gc-layers`` layers of ``--num-heads``
+    heads ``--hidden-dim`` wide, ``--dropout`` after the hidden ones."""
+    if cfg.method == "gat":
+        return GatEncoderNode(
+            input_dim=input_dim, head_dim=cfg.hidden_dim, label_dim=num_classes,
+            num_layers=cfg.num_gc_layers, num_heads=cfg.num_heads,
+            dropout=cfg.dropout,
+            generator=torch.Generator().manual_seed(cfg.seed), device=device)
     return GcnEncoderNode(
         input_dim=input_dim,
         hidden_dim=cfg.hidden_dim,
@@ -188,6 +197,7 @@ def run_node_task(cfg: Config, G: SimpleGraph, labels,
             "hidden_dim": cfg.hidden_dim,
             "output_dim": cfg.output_dim,
             "bn": cfg.bn,
+            "num_heads": cfg.num_heads,
             "result_train": {k: v for k, v in out["result_train"].items()
                              if k != "conf_mat"},
             "result_test": {k: v for k, v in out["result_test"].items()

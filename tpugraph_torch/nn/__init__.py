@@ -2,6 +2,7 @@
 
 from tpugraph_torch.nn.encoders import (  # noqa: F401
     ConvStack,
+    GatEncoderNode,
     GcnEncoderGraph,
     GcnEncoderNode,
     PredHead,
@@ -10,6 +11,7 @@ from tpugraph_torch.nn.encoders import (  # noqa: F401
 )
 from tpugraph_torch.nn.layers import (  # noqa: F401
     BCSRAdj,
+    GATConv,
     GraphConv,
     PacketAdj,
     SparseAdj,

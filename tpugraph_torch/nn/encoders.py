@@ -1,6 +1,8 @@
 """Port of ``tpugraph/nn/encoders.py``: ``ConvStack``, ``PredHead``,
 ``GcnEncoderNode``, the graph classifier ``GcnEncoderGraph`` and the
-DiffPool ``SoftPoolingGcnEncoder``, plus :func:`params_from_jax`.
+DiffPool ``SoftPoolingGcnEncoder``, plus :func:`params_from_jax`; and the
+port's own :class:`GatEncoderNode`, which has no ``tpugraph``
+counterpart.
 
 Module and parameter names follow the flax tree, so a ``tpugraph``
 parameter tree maps onto the ``state_dict`` by name:
@@ -23,7 +25,8 @@ from torch import nn
 
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.nn.initializers import torch_linear_bias, torch_linear_kernel
-from tpugraph_torch.nn.layers import Adjacency, GraphConv, fresh_batch_norm
+from tpugraph_torch.nn.layers import (Adjacency, GATConv, GraphConv, SparseAdj,
+                                      apply_dropout, fresh_batch_norm)
 
 
 def _torch_dense(out_dim: int, in_dim: int,
@@ -148,6 +151,63 @@ class GcnEncoderNode(nn.Module):
                 dropout_gen: Optional[torch.Generator] = None):
         embedding, att_all = self.stack(x, adj, node_mask, dropout_gen)
         return self.pred_model(embedding), att_all
+
+
+class GatEncoderNode(nn.Module):
+    """GAT node classifier at DGL's ogbn-arxiv example's structure
+    (``examples/pytorch/ogb/ogbn-arxiv/gat.py``): ``num_layers``
+    :class:`GATConv` of ``num_heads`` heads with linear residuals, the
+    hidden ones ``head_dim`` wide a head, each followed by ``BatchNorm1d``
+    over its ``H F`` features (statistics over the nodes, affine, running
+    statistics for evaluation) and ReLU; the last has ``label_dim`` a head,
+    averaged over the heads, plus a bias.  ``x [N, D]`` + a
+    :class:`SparseAdj` with its CSR and a self-loop on every node ->
+    ``(logits [N, C], [])``.  ``dropout`` drops entries of the hidden
+    layers' outputs while training, with masks from ``dropout_gen`` (DGL's
+    input, attention and edge dropout are not ported).
+    Parameters are drawn from ``generator`` on the CPU, then the module
+    moves to ``device`` (``None`` = CUDA).  ``gat`` tells the trainer to
+    give it the GAT adjacency (:func:`~tpugraph_torch.train.loop.
+    build_adjacency`)."""
+
+    gat = True
+
+    def __init__(self, input_dim: int, head_dim: int, label_dim: int,
+                 num_layers: int = 3, num_heads: int = 3,
+                 negative_slope: float = 0.2, dropout: float = 0.0,
+                 generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        device = default_device(device)
+        self.input_dim = input_dim
+        self.head_dim = head_dim
+        self.label_dim = label_dim
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.convs = nn.ModuleList()
+        self.norms = nn.ModuleList()
+        d = input_dim
+        for i in range(num_layers):
+            out = head_dim if i < num_layers - 1 else label_dim
+            self.convs.append(GATConv(d, out, num_heads, negative_slope, generator))
+            if i < num_layers - 1:
+                self.norms.append(nn.BatchNorm1d(num_heads * out))
+            d = num_heads * out
+        self.bias = nn.Parameter(torch.zeros(label_dim))
+        self.to(device)
+
+    def forward(self, x: torch.Tensor, adj: SparseAdj,
+                dropout_gen: Optional[torch.Generator] = None):
+        h = x
+        for i, conv in enumerate(self.convs):
+            h = conv(h, adj)
+            if i < self.num_layers - 1:
+                h = torch.relu(self.norms[i](h))
+                if self.training and self.dropout > 0.001:
+                    h = apply_dropout(h, self.dropout, dropout_gen)
+        logits = h.view(h.shape[0], self.num_heads, self.label_dim).mean(1) + self.bias
+        return logits, []
 
 
 def _masked_max_pool(x: torch.Tensor,

@@ -42,3 +42,13 @@ def torch_linear_bias(fan_in: int, shape: Tuple[int],
     """``nn.Linear`` default bias init, bound 1/sqrt(fan_in)."""
     return _uniform(shape, 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0,
                     generator)
+
+
+def xavier_relu_normal(shape: Tuple[int, ...], fan_in: int, fan_out: int,
+                       generator: Optional[torch.Generator] = None):
+    """N(0, s^2), s = sqrt(2) * sqrt(2 / (fan_in + fan_out)): torch's
+    ``xavier_normal_`` with the ReLU gain, as DGL's ``GATConv`` draws its
+    weights and attention vectors."""
+    std = math.sqrt(2.0) * math.sqrt(2.0 / (fan_in + fan_out))
+    return torch.empty(shape, dtype=torch.float32).normal_(0.0, std,
+                                                           generator=generator)

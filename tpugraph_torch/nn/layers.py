@@ -1,5 +1,7 @@
 """Port of ``tpugraph/nn/layers.py``: ``GraphConv`` on the COO,
-block-sparse and packet paths, and ``fresh_batch_norm``.
+block-sparse and packet paths, and ``fresh_batch_norm``; and the port's
+own :class:`GATConv`, multi-head graph attention (Velickovic et al.,
+arXiv:1710.10903) on the COO edge list's CSR.
 
 ``y = (A @ x) @ W [+ x @ W_self] + b``, then optional L2 normalization
 per node; with ``att``, ``A`` is first scaled by GAT-style scores
@@ -76,11 +78,11 @@ from typing import Iterator, NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from tpugraph_torch.nn.initializers import xavier_relu_uniform
+from tpugraph_torch.nn.initializers import xavier_relu_normal, xavier_relu_uniform
 from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose
 from tpugraph_torch.ops.bcsr_kernels import (bcsr_matvec, bcsr_matvec_dw,
                                              bcsr_matvec_dw_pair, sddmm_dw)
-from tpugraph_torch.ops.coo_kernels import EdgeCSR, csr_matvec
+from tpugraph_torch.ops.coo_kernels import EdgeCSR, csr_matvec, gat_attention
 from tpugraph_torch.ops.dense import dense_spmm
 from tpugraph_torch.ops.message import sddmm, spmm
 from tpugraph_torch.ops.packets import EdgePackets
@@ -576,3 +578,60 @@ class GraphConv(nn.Module):
 def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     """``x`` with zero rows appended up to ``n`` rows."""
     return x if x.shape[0] == n else nn.functional.pad(x, (0, 0, 0, n - x.shape[0]))
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention (arXiv:1710.10903) with a linear
+    residual, as DGL's ogbn-arxiv example builds it: for head ``h`` and
+    receiver ``i`` over its in-edges ``j`` (the adjacency carries a
+    self-loop on every node), ``z = x W``, ``e_ij = LeakyReLU(a_l^h .
+    z_j^h + a_r^h . z_i^h)``, ``alpha_ij = softmax_j e_ij`` and ``y_i^h =
+    sum_j alpha_ij z_j^h + (x_i W_res)^h``; returns ``[N, H F]``, the heads
+    side by side.  No bias (DGL's has none; the encoder adds its own).
+
+    ``adj`` is a :class:`SparseAdj` with its ``csr``
+    (:func:`tpugraph_torch.train.loop.build_adjacency` gives a GAT model
+    one on every device); the attention runs
+    :func:`tpugraph_torch.ops.coo_kernels.gat_attention` (the kernels on
+    the card, their plain versions on the CPU).  ``weight`` and
+    ``res_weight`` are ``[in, H F]``, ``attn_l``/``attn_r`` ``[H, F]``,
+    drawn from ``generator`` with DGL's Xavier-normal ReLU gain.  While a
+    ``torch.profiler`` records, the attention (its scores, softmax and
+    aggregation) is the trace region ``nn.attention`` and its backward
+    ``nn.attention.backward``; the two GEMMs lie outside."""
+
+    def __init__(self, input_dim: int, head_dim: int, num_heads: int,
+                 negative_slope: float = 0.2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.head_dim = head_dim
+        self.num_heads = num_heads
+        self.negative_slope = negative_slope
+        out = head_dim * num_heads
+        self.weight = nn.Parameter(xavier_relu_normal((input_dim, out), input_dim,
+                                                      out, generator))
+        self.attn_l = nn.Parameter(xavier_relu_normal((num_heads, head_dim), out,
+                                                      head_dim, generator))
+        self.attn_r = nn.Parameter(xavier_relu_normal((num_heads, head_dim), out,
+                                                      head_dim, generator))
+        self.res_weight = nn.Parameter(xavier_relu_normal((input_dim, out), input_dim,
+                                                          out, generator))
+
+    def forward(self, x: torch.Tensor, adj: SparseAdj) -> torch.Tensor:
+        if not isinstance(adj, SparseAdj) or adj.csr is None:
+            raise ValueError("GATConv attends over a SparseAdj with its EdgeCSR "
+                             "(train.loop.build_adjacency(..., gat=True))")
+        z = torch.matmul(x, self.weight)
+        with trace_annotation("nn.attention"):
+            y = trace_backward("nn.attention.backward", z,
+                               lambda zs: self._attend(zs, adj.csr))
+        return y + torch.matmul(x, self.res_weight)
+
+    def _attend(self, z: torch.Tensor, csr: EdgeCSR) -> torch.Tensor:
+        """The scores of each node as sender (``el``) and receiver (``er``),
+        then the edge softmax and the weighted sum."""
+        zh = z.view(z.shape[0], self.num_heads, self.head_dim)
+        el = torch.sum(zh * self.attn_l, dim=-1)
+        er = torch.sum(zh * self.attn_r, dim=-1)
+        return gat_attention(csr, z, el, er, self.num_heads, self.negative_slope)

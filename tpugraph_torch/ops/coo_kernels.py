@@ -19,6 +19,10 @@ tensor and summed it with atomics.
 * :class:`CsrMatvec` — ``A @ x`` with ``dx = A^T g`` through the same
   kernel, and, where the weights need a gradient (attention on COO),
   ``dw_e = <g[r_e], x[s_e]>`` by :func:`message.sddmm`.
+* :func:`gat_attention` — GAT's multi-head edge attention over the same
+  work lists (:class:`GatAttention`): for each receiver ``i`` and head
+  ``h``, ``y_i^h = sum_j softmax_j(LeakyReLU(el_j^h + er_i^h)) z_j^h`` over
+  its in-edges, forward on ``A``'s work list, backward on ``A^T``'s.
 
 The kernel walks a work list: each row's edges cut into chunks of at most
 ``CHUNK_EDGES``, longest first.  A row that is one chunk is written
@@ -53,7 +57,15 @@ from tpugraph_torch.ops.message import sddmm
 # (a few MB at D = 256) are under 1% of the gather's E x D x 4 bytes.
 CHUNK_EDGES = 256
 
-LAUNCHES: Dict[str, int] = {"spmm_coo_csr": 0, "spmm_coo_csr_reduce": 0}
+LAUNCHES: Dict[str, int] = {"spmm_coo_csr": 0, "spmm_coo_csr_reduce": 0,
+                            "gat_attention": 0, "gat_attention_reduce": 0,
+                            "gat_attention_backward": 0,
+                            "gat_attention_backward_reduce": 0,
+                            "gat_attention_dst_sum": 0}
+# Heads the attention kernels hold at most, and the widest row (all heads)
+# a warp holds: 16 slots a lane of 2 columns (1 where a head's width is odd).
+GAT_MAX_HEADS = 8
+_GAT_SLOTS = (1, 2, 4, 8, 12, 16)
 _bound = False
 
 
@@ -187,6 +199,17 @@ def _lib():
         lib.spmm_coo_csr.restype = ci
         lib.spmm_coo_csr_reduce.argtypes = [vp, ci, vp, vp, ci, ci, vp]
         lib.spmm_coo_csr_reduce.restype = ci
+        cf = ctypes.c_float
+        lib.gat_attn_fwd.argtypes = ([vp, vp, ci] + [vp] * 7
+                                     + [ci, ci, ci, cf, ci, ci, vp])
+        lib.gat_attn_fwd_reduce.argtypes = [vp, ci] + [vp] * 4 + [ci, ci, ci, vp]
+        lib.gat_attn_bwd.argtypes = ([vp, vp, vp, ci] + [vp] * 11
+                                     + [ci, ci, ci, cf, ci, ci, vp])
+        lib.gat_attn_bwd_reduce.argtypes = [vp, ci] + [vp] * 4 + [ci, ci, vp]
+        lib.gat_attn_dst_sum.argtypes = [vp, vp, ci, vp, vp, ci, vp]
+        for name in ("gat_attn_fwd", "gat_attn_fwd_reduce", "gat_attn_bwd",
+                     "gat_attn_bwd_reduce", "gat_attn_dst_sum"):
+            getattr(lib, name).restype = ci
         _bound = True
     return lib
 
@@ -268,3 +291,303 @@ def csr_matvec(csr: EdgeCSR, senders: torch.Tensor, receivers: torch.Tensor,
     """Differentiable ``A @ x`` (gradients to ``x`` and ``weight``) for the
     edge list whose :class:`EdgeCSR` is ``csr``."""
     return CsrMatvec.apply(x, weight, csr, senders, receivers)
+
+
+# ---------------------------------------------------------------------------
+# GAT edge attention over the CSR work lists
+
+
+def _edge_rows(c: CSR) -> torch.Tensor:
+    """The row of each of ``c``'s sorted edges (int64)."""
+    counts = (c.rowptr[1:] - c.rowptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(c.num_nodes, device=c.col.device),
+                                   counts, output_size=c.col.shape[0])
+
+
+def _edge_items(c: CSR) -> torch.Tensor:
+    """The work-list item (chunk) that holds each of ``c``'s sorted edges."""
+    lo, hi = c.items[:, 1].long(), c.items[:, 2].long()
+    ids = torch.repeat_interleave(torch.arange(lo.shape[0], device=lo.device),
+                                  hi - lo, output_size=c.col.shape[0])
+    first = torch.repeat_interleave(torch.cumsum(hi - lo, 0) - (hi - lo), hi - lo,
+                                    output_size=c.col.shape[0])
+    pos = torch.repeat_interleave(lo, hi - lo, output_size=c.col.shape[0]) \
+        + torch.arange(c.col.shape[0], device=lo.device) - first
+    out = torch.empty_like(ids)
+    out[pos] = ids
+    return out
+
+
+def _chunk_order(c: CSR):
+    """(row of each item, the items in chunk order): a split row's chunks
+    lie in edge order, which is the order its partials are added in."""
+    return c.items[:, 0].long(), torch.sort(c.items[:, 1].long(), stable=True).indices
+
+
+def _chunked_row_sum(c: CSR, item: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Per row, ``vals`` (one row a sorted edge) summed as the kernels add
+    them: each chunk in edge order, then a split row's chunks in order."""
+    part = vals.new_zeros((c.items.shape[0],) + vals.shape[1:]).index_add(0, item, vals)
+    rows, order = _chunk_order(c)
+    return vals.new_zeros((c.num_nodes,) + vals.shape[1:]).index_add(
+        0, rows[order], part[order])
+
+
+def _leaky(sc: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(sc > 0, sc, sc * slope)
+
+
+def gat_attention_plain(c: CSR, z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+                        heads: int, slope: float):
+    """What :func:`gat_attention_csr` computes, in plain PyTorch over the
+    same work list: for each chunk the running maximum of the scores, the
+    sum of ``exp(e - m)`` and of ``exp(e - m) z_j``, then a split row's
+    chunks merged in order by their maxima.  Returns ``(y [N, D], lse [N,
+    H])``, ``lse = m + log(sum)`` (``+inf`` on a row with no edge, whose
+    ``y`` is 0)."""
+    n, d = c.num_nodes, z.shape[1]
+    f = d // heads
+    item = _edge_items(c)
+    src, rows = c.col.long(), _edge_rows(c)
+    e = _leaky(el[src] + er[rows], slope)
+    n_items = c.items.shape[0]
+    m = e.new_full((n_items, heads), -torch.inf).scatter_reduce(
+        0, item[:, None].expand(-1, heads), e, "amax", include_self=True)
+    p = torch.exp(e - m[item])
+    s = e.new_zeros((n_items, heads)).index_add(0, item, p)
+    acc = z.new_zeros((n_items, d)).index_add(
+        0, item, p.repeat_interleave(f, 1) * z[src])
+    rows_i, order = _chunk_order(c)
+    big = e.new_full((n, heads), -torch.inf).scatter_reduce(
+        0, rows_i[:, None].expand(-1, heads), m, "amax", include_self=True)
+    coef = torch.where(torch.isfinite(m), torch.exp(m - big[rows_i]), 0.0)
+    total = e.new_zeros((n, heads)).index_add(0, rows_i[order], (s * coef)[order])
+    acc = z.new_zeros((n, d)).index_add(
+        0, rows_i[order], (acc * coef.repeat_interleave(f, 1))[order])
+    live = total > 0
+    y = torch.where(live.repeat_interleave(f, 1),
+                    acc / torch.where(live, total, 1.0).repeat_interleave(f, 1), 0.0)
+    lse = torch.where(live, big + torch.log(torch.where(live, total, 1.0)), torch.inf)
+    return y, lse
+
+
+def gat_attention_backward_plain(c_t: CSR, z: torch.Tensor, g: torch.Tensor,
+                                 el: torch.Tensor, er: torch.Tensor, lse: torch.Tensor,
+                                 t: torch.Tensor, heads: int, slope: float):
+    """What :func:`gat_attention_backward_csr` computes, in plain PyTorch
+    over ``A^T``'s work list (rows are senders ``j``, columns receivers
+    ``i``): ``alpha_ij`` recomputed from ``lse``, ``ds_ij = alpha_ij
+    (<g_i, z_j> - t_i) LeakyReLU'``, per head; returns ``(dz [N, D] =
+    sum_i alpha_ij g_i, d_el [N, H] = sum_i ds_ij, de [E, H] = ds`` in
+    the edge list's order``)``."""
+    n, d = c_t.num_nodes, z.shape[1]
+    f = d // heads
+    item = _edge_items(c_t)
+    dst, rows = c_t.col.long(), _edge_rows(c_t)
+    sc = el[rows] + er[dst]
+    alpha = torch.exp(_leaky(sc, slope) - lse[dst])
+    gi = g[dst]
+    dot = (gi.view(-1, heads, f) * z[rows].view(-1, heads, f)).sum(-1)
+    ds = alpha * (dot - t[dst]) * torch.where(sc > 0, 1.0, slope)
+    dz = _chunked_row_sum(c_t, item, alpha.repeat_interleave(f, 1) * gi)
+    d_el = _chunked_row_sum(c_t, item, ds)
+    de = torch.empty_like(ds)
+    de[c_t.eid.long()] = ds
+    return dz, d_el, de
+
+
+def gat_dst_sum_plain(c: CSR, de: torch.Tensor) -> torch.Tensor:
+    """``d_er [N, H]``: each row of ``A`` (a receiver) sums ``de`` over its
+    edges, in CSR order."""
+    return de.new_zeros((c.num_nodes, de.shape[1])).index_add(
+        0, _edge_rows(c), de[c.eid.long()])
+
+
+def _gat_shape(d: int, heads: int, ptrs) -> tuple:
+    """(columns a slot, slots a lane) of the kernels for rows of ``d``
+    columns over ``heads`` heads: 2 columns a slot (8-byte loads) where a
+    head's width is even and the rows 8-byte aligned."""
+    if not 1 <= heads <= GAT_MAX_HEADS:
+        raise ValueError(f"the attention kernels take 1 to {GAT_MAX_HEADS} heads, "
+                         f"got {heads}")
+    if d % heads:
+        raise ValueError(f"D = {d} is not a multiple of {heads} heads")
+    pair = (d // heads) % 2 == 0 and all(p % 8 == 0 for p in ptrs)
+    w = 2 if pair else 1
+    need = -(-d // (32 * w))
+    for nv in _GAT_SLOTS:
+        if nv >= need:
+            return int(pair), nv
+    raise NotImplementedError(f"the attention kernels hold rows of at most "
+                              f"{32 * w * _GAT_SLOTS[-1]} columns, got D = {d}")
+
+
+def _check_gat(c: CSR, z, el, er, heads):
+    dev = z.device
+    for name, t in (("col", c.col), ("eid", c.eid)):
+        check_tensor(name, t, torch.int32, 1, dev)
+    check_tensor("items", c.items, torch.int32, 2, dev)
+    check_tensor("splits", c.splits, torch.int32, 2, dev)
+    check_tensor("z", z, torch.float32, 2, dev)
+    for name, t in (("el", el), ("er", er)):
+        check_tensor(name, t, torch.float32, 2, dev)
+        if tuple(t.shape) != (c.num_nodes, heads):
+            raise ValueError(f"{name} must be [{c.num_nodes}, {heads}], got {tuple(t.shape)}")
+    if z.shape[0] != c.num_nodes:
+        raise ValueError(f"z must be [{c.num_nodes}, D], got {tuple(z.shape)}")
+
+
+def _dispatch(name: str, z: torch.Tensor) -> bool:
+    """True for the kernel (a CUDA tensor), False for the plain version (a
+    CPU tensor); raises on any other device."""
+    if z.device.type == "cuda":
+        return True
+    if z.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} runs on CUDA (the kernel) or the CPU (its plain "
+                     f"version), not {z.device}")
+
+
+def gat_attention_csr(c: CSR, z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+                      heads: int, slope: float):
+    """``(y [N, D], lse [N, H])`` of the edge softmax over ``c`` (the CSR of
+    ``A``, rows receivers): the kernel on a CUDA tensor (main pass, then the
+    reduce pass where rows are split), :func:`gat_attention_plain` on a CPU
+    tensor.  ``z [N, D]`` the senders' features (``D = heads * F``), ``el
+    [N, H]`` the sender scores, ``er [N, H]`` the receiver scores."""
+    if not _dispatch("gat_attention", z):
+        return gat_attention_plain(c, z, el, er, heads, slope)
+    _check_gat(c, z, el, er, heads)
+    n, d = z.shape
+    dev = z.device
+    pair, nv = _gat_shape(d, heads, (z.data_ptr(),))
+    y = torch.empty((n, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    if n == 0:
+        return y, lse
+    part_acc = torch.empty((c.num_parts, d), dtype=torch.float32, device=dev)
+    part_ms = torch.empty((c.num_parts, 2 * heads), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        raise_on(lib.gat_attn_fwd(
+            c.col.data_ptr(), c.items.data_ptr(), c.items.shape[0], z.data_ptr(),
+            el.data_ptr(), er.data_ptr(), y.data_ptr(), lse.data_ptr(),
+            part_acc.data_ptr(), part_ms.data_ptr(), d, d // heads, heads, slope,
+            pair, nv, stream(dev)), "gat_attn_fwd")
+        LAUNCHES["gat_attention"] += 1
+        if c.splits.shape[0]:
+            raise_on(lib.gat_attn_fwd_reduce(
+                c.splits.data_ptr(), c.splits.shape[0], part_acc.data_ptr(),
+                part_ms.data_ptr(), y.data_ptr(), lse.data_ptr(), d, d // heads,
+                heads, stream(dev)), "gat_attn_fwd_reduce")
+            LAUNCHES["gat_attention_reduce"] += 1
+    return y, lse
+
+
+def gat_attention_backward_csr(c_t: CSR, z, g, el, er, lse, t, heads: int,
+                               slope: float):
+    """``(dz [N, D], d_el [N, H], de [E, H])`` of the attention's backward
+    over ``c_t`` (the CSR of ``A^T``, rows senders): the kernel on a CUDA
+    tensor, :func:`gat_attention_backward_plain` on a CPU tensor.  ``g`` is
+    the gradient of the attention's output ``y``, ``lse`` the forward's,
+    ``t [N, H] = <g_i^h, y_i^h>``."""
+    if not _dispatch("gat_attention_backward", z):
+        return gat_attention_backward_plain(c_t, z, g, el, er, lse, t, heads, slope)
+    _check_gat(c_t, z, el, er, heads)
+    dev = z.device
+    check_tensor("g", g, torch.float32, 2, dev)
+    for name, v in (("lse", lse), ("t", t)):
+        check_tensor(name, v, torch.float32, 2, dev)
+        if v.shape != el.shape:
+            raise ValueError(f"{name} must be shaped as el, {tuple(el.shape)}")
+    if g.shape != z.shape:
+        raise ValueError(f"g must be shaped as z, {tuple(z.shape)}")
+    n, d = z.shape
+    e = c_t.col.shape[0]
+    pair, nv = _gat_shape(d, heads, (z.data_ptr(), g.data_ptr()))
+    dz = torch.empty((n, d), dtype=torch.float32, device=dev)
+    d_el = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    de = torch.empty((e, heads), dtype=torch.float32, device=dev)
+    if n == 0:
+        return dz, d_el, de
+    part_dz = torch.empty((c_t.num_parts, d), dtype=torch.float32, device=dev)
+    part_del = torch.empty((c_t.num_parts, heads), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        raise_on(lib.gat_attn_bwd(
+            c_t.col.data_ptr(), c_t.eid.data_ptr(), c_t.items.data_ptr(),
+            c_t.items.shape[0], z.data_ptr(), g.data_ptr(), el.data_ptr(),
+            er.data_ptr(), lse.data_ptr(), t.data_ptr(), dz.data_ptr(),
+            d_el.data_ptr(), de.data_ptr(), part_dz.data_ptr(), part_del.data_ptr(),
+            d, d // heads, heads, slope, pair, nv, stream(dev)), "gat_attn_bwd")
+        LAUNCHES["gat_attention_backward"] += 1
+        if c_t.splits.shape[0]:
+            raise_on(lib.gat_attn_bwd_reduce(
+                c_t.splits.data_ptr(), c_t.splits.shape[0], part_dz.data_ptr(),
+                part_del.data_ptr(), dz.data_ptr(), d_el.data_ptr(), d, heads,
+                stream(dev)), "gat_attn_bwd_reduce")
+            LAUNCHES["gat_attention_backward_reduce"] += 1
+    return dz, d_el, de
+
+
+def gat_dst_sum(c: CSR, de: torch.Tensor) -> torch.Tensor:
+    """``d_er [N, H]``, ``de`` summed over each row of ``c`` (the CSR of
+    ``A``): the kernel on a CUDA tensor (a warp a row, a fixed order),
+    :func:`gat_dst_sum_plain` on a CPU tensor."""
+    if not _dispatch("gat_dst_sum", de):
+        return gat_dst_sum_plain(c, de)
+    dev = de.device
+    check_tensor("de", de, torch.float32, 2, dev)
+    check_tensor("rowptr", c.rowptr, torch.int32, 1, dev)
+    check_tensor("eid", c.eid, torch.int32, 1, dev)
+    if de.shape[0] != c.eid.shape[0] or not 1 <= de.shape[1] <= GAT_MAX_HEADS:
+        raise ValueError(f"de must be [{c.eid.shape[0]}, H <= {GAT_MAX_HEADS}], "
+                         f"got {tuple(de.shape)}")
+    n, heads = c.num_nodes, de.shape[1]
+    der = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    if n == 0:
+        return der
+    with torch.cuda.device(dev):
+        raise_on(_lib().gat_attn_dst_sum(c.rowptr.data_ptr(), c.eid.data_ptr(), n,
+                                         de.data_ptr(), der.data_ptr(), heads,
+                                         stream(dev)), "gat_attn_dst_sum")
+        LAUNCHES["gat_attention_dst_sum"] += 1
+    return der
+
+
+class GatAttention(torch.autograd.Function):
+    """GAT's edge attention through an :class:`EdgeCSR`: forward
+    :func:`gat_attention_csr` on ``A``, keeping the log-sum-exp of each
+    row and head; backward ``t = <g, y>`` by head (so the softmax's
+    backward needs no extra pass over the rows), one pass over ``A^T``
+    (:func:`gat_attention_backward_csr`: ``dz``, the sender scores'
+    gradient and each edge's ``ds``), and ``ds`` summed over ``A``'s rows
+    for the receiver scores' gradient (:func:`gat_dst_sum`)."""
+
+    @staticmethod
+    def forward(ctx, z, el, er, csr, heads, slope):
+        z, el, er = z.contiguous(), el.contiguous(), er.contiguous()
+        y, lse = gat_attention_csr(csr.a, z, el, er, heads, slope)
+        ctx.csr, ctx.heads, ctx.slope = csr, heads, slope
+        ctx.save_for_backward(z, el, er, y, lse)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        z, el, er, y, lse = ctx.saved_tensors
+        g = g.contiguous()
+        n, d = g.shape
+        t = (g * y).view(n, ctx.heads, d // ctx.heads).sum(-1)
+        dz, d_el, de = gat_attention_backward_csr(ctx.csr.a_t, z, g, el, er, lse, t,
+                                                  ctx.heads, ctx.slope)
+        return dz, d_el, gat_dst_sum(ctx.csr.a, de), None, None, None
+
+
+def gat_attention(csr: EdgeCSR, z: torch.Tensor, el: torch.Tensor, er: torch.Tensor,
+                  heads: int, slope: float) -> torch.Tensor:
+    """Differentiable multi-head edge attention (gradients to ``z``, ``el``
+    and ``er``): ``y_i^h = sum_j alpha_ij^h z_j^h`` with ``alpha_ij^h =
+    softmax_j LeakyReLU_slope(el_j^h + er_i^h)`` over the in-edges ``j -> i``
+    of the edge list whose :class:`EdgeCSR` is ``csr``.  ``z [N, H F]``,
+    ``el``, ``er [N, H]`` -> ``[N, H F]``, heads side by side."""
+    return GatAttention.apply(z, el, er, csr, heads, slope)

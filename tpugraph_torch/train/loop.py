@@ -17,6 +17,10 @@ inside), ``train.inputs``, in each epoch ``train.forward``,
 ``train.backward`` and ``train.optimizer``, and the closing
 ``train.eval``; ``GraphConv`` marks its adjacency products.
 
+A GAT model (:class:`~tpugraph_torch.nn.GatEncoderNode`, which the JAX
+package does not have) always trains on COO: ``build_adjacency`` gives it
+the live edges with one self-loop a node and their CSR on every device.
+
 ``use_bcsr=False`` (the default, as in JAX) aggregates over the padded
 COO edge list (``SparseAdj``, ``tpugraph/train/loop.py:476-477``), which
 ``build_adjacency`` gives its CSR on the card (``ops/coo_kernels.py:
@@ -246,8 +250,26 @@ def choose_format(s_np: np.ndarray, r_np: np.ndarray, w_np: np.ndarray,
     return "tiles"
 
 
+def gat_adjacency(g: Graph, device: torch.device) -> Tuple[SparseAdj, int]:
+    """The adjacency a GAT model attends over, as DGL's ogbn-arxiv example
+    builds it (``remove_self_loop().add_self_loop()``): the live edges
+    (weight not 0) that are not self-loops, then one self-loop for each of
+    the ``g.n_node`` real nodes, all weights 1, with the :class:`EdgeCSR`
+    built on ``device``.  Padding nodes are left out, so the node count it
+    needs is ``g.n_node``."""
+    with trace_annotation("train.pack.host"):
+        keep = (g.edge_weight != 0) & (g.senders != g.receivers)
+        loops = torch.arange(g.n_node, dtype=torch.int64)
+        s = torch.cat([g.senders[keep].long(), loops])
+        r = torch.cat([g.receivers[keep].long(), loops])
+    with trace_annotation("train.pack.upload"):
+        s, r = s.to(device), r.to(device)
+        return (SparseAdj(s, r, torch.ones(s.shape[0], device=device),
+                          edge_csr(s, r, g.n_node)), g.n_node)
+
+
 def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
-                    att: bool = False) -> Tuple[Adjacency, int]:
+                    att: bool = False, gat: bool = False) -> Tuple[Adjacency, int]:
     """Pack ``g`` in the format ``cfg`` selects and move it to ``device``
     (``tpugraph/train/loop.py:316-477``); returns the adjacency and the
     padded node count it needs (a multiple of the block for the tile
@@ -255,7 +277,14 @@ def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
     its CSR built on the card after the upload (the CPU runs the gather
     path, which needs none);
     otherwise :func:`choose_format` picks the format (``att``: an
-    attention model, which takes f32 tiles with a transpose plan)."""
+    attention model, which takes f32 tiles with a transpose plan).  A GAT
+    model (``gat``) takes :func:`gat_adjacency` and raises with
+    ``use_bcsr``."""
+    if gat:
+        if cfg.use_bcsr:
+            raise ValueError("a GAT model trains on the COO edge list's CSR: "
+                             "use_bcsr is not supported")
+        return gat_adjacency(g, device)
     if not cfg.use_bcsr:
         with trace_annotation("train.pack.upload"):
             s = g.senders.to(device, torch.int64)
@@ -350,7 +379,8 @@ def train_node_classifier(
     """Full-batch node classification on one padded graph
     (``tpugraph/train/loop.py:279``).
 
-    ``model`` is a :class:`tpugraph_torch.nn.GcnEncoderNode`; it moves to
+    ``model`` is a :class:`tpugraph_torch.nn.GcnEncoderNode` or a
+    :class:`~tpugraph_torch.nn.GatEncoderNode`; it moves to
     ``device`` (``None`` = CUDA) and trains in place, starting from
     ``init_params`` (a ``state_dict``) and ``init_opt_state`` (the
     optimizer's ``state_dict``, its update count included) when given,
@@ -359,7 +389,8 @@ def train_node_classifier(
     {"loss", "train_acc", "test_acc"})`` is called every ``LOG_EVERY``
     epochs and after the last (each call waits for the device).  Returns params
     (the ``state_dict``), ``ypred [1, N_pad, C]``, the split, the metric
-    history, train/test results, the seconds of the epoch loop
+    history, train/test results (``ypred`` holds ``N_real`` rows for a GAT
+    model, which has no padding nodes), the seconds of the epoch loop
     (``"elapsed"``) and of packing and uploading the adjacency
     (``"pack_s"``), the packed adjacency (``"adj"``) and the optimizer's
     ``state_dict`` (``"opt_state"``).  ``class_weight [C]`` weighs each
@@ -376,12 +407,14 @@ def train_node_classifier(
     with trace_annotation("train.pack"):
         t_pack = time.perf_counter()
         sp, n_new = build_adjacency(g, cfg, device,
-                                    att=bool(getattr(model, "att", False)))
+                                    att=bool(getattr(model, "att", False)),
+                                    gat=bool(getattr(model, "gat", False)))
         pack_s = time.perf_counter() - t_pack
 
     with trace_annotation("train.inputs"):
         feat_pad = np.zeros((n_new, feat.shape[1]), dtype=np.float32)
-        feat_pad[: feat.shape[0]] = feat
+        k = min(feat.shape[0], n_new)
+        feat_pad[:k] = feat[:k]
         labels_pad = np.zeros((n_new,), dtype=np.int64)
         labels_pad[:n_real] = np.asarray(labels)
         train_mask = np.zeros((n_new,), dtype=np.float32)
