@@ -980,46 +980,48 @@ def phase_probes(gen):
     return {"launches": launches, "record": rec, "kernels": kernels}
 
 
-def measure_packets(shape, p, x, compute_dtype):
-    """B7 against its plain version on one packet layout."""
+def measure_packets(shape, p, x, compute_dtype, schedule_plain=False):
+    """B7 against its plain version on one packet layout (the one-pass one,
+    or with ``schedule_plain`` the schedule-walking one, whose gather holds
+    only the live slots), two launches held bit for bit; the bound counts
+    12 bytes a live edge, x read once and y written once, as the
+    benchmark's ``least_seconds`` does."""
     import torch
 
     from tpugraph_torch.ops import packets_kernels as pk
 
     d = x.shape[1]
-    live = p.w != 0
-    e = int(live.sum())
-    rows_g = (p.row_of.long()[:, None] * p.block_r + p.rows.long())[live]
-    per_row = int(torch.bincount(rows_g).max()) if e else 1
-    hub = int(torch.bincount(rows_g // p.block_r).max()) / e if e else 0.0
+    sc = pk.schedule(p)
+    e = int(sc.slot.shape[0])
+    per_row = int((sc.rowptr[1:] - sc.rowptr[:-1]).max()) if e else 1
     bf16 = compute_dtype == torch.bfloat16
-    wl = pk.work_list(p)
-    return measure_case(
-        "spmm_packets", shape, d,
-        lambda: pk.spmm_packets(p, x, compute_dtype=compute_dtype),
-        lambda: pk.spmm_packets_plain(p, x, None, compute_dtype),
-        lambda: library_packets(p, x),
-        12 * p.num_edge_slots + 4 * (2 * p.num_packets + p.num_row_blocks + 1)
-        + 4 * 2 * p.num_nodes * d,
+    plain = pk.spmm_packets_schedule_plain if schedule_plain else pk.spmm_packets_plain
+    run = lambda: pk.spmm_packets(p, x, compute_dtype=compute_dtype)
+    rec = measure_case(
+        "spmm_packets", shape, d, run, lambda: plain(p, x, None, compute_dtype),
+        lambda: library_packets(p, x), 12 * e + 4 * 2 * p.num_nodes * d,
         2.0 * e * d, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S, per_row,
-        extra={"packets": p.num_packets, "edges": e,
-               "compute": "bf16" if bf16 else "f32",
-               "heaviest_block_share": round(hub, 4),
-               "chunks": int(wl.items.shape[0]),
-               "split_blocks": int(wl.splits.shape[0]),
-               "split_chunks": wl.num_parts})
+        extra={"packets": p.num_packets, "slots": p.num_edge_slots,
+               "live_edges": e, "compute": "bf16" if bf16 else "f32",
+               "longest_row": per_row, "items": int(sc.items.shape[0]),
+               "split_rows": int(sc.splits.shape[0]),
+               "partial_rows": sc.num_parts})
+    got = [run() for _ in range(2)]
+    check(torch.equal(got[0], got[1]), f"spmm_packets {shape} D={d}: two launches "
+          "differ")
+    return rec
 
 
-def packets_ablation(p, x, full_ms):
+def packets_ablation(shape, p, x):
     """D2's counterpart: B7 (bf16 compute, f32 output) timed in each of its
-    diagnostic modes on one packet layout, beside B7's own time."""
+    diagnostic modes on one packet layout (``full`` is B7 itself)."""
     from tpugraph_torch.ops import packets_kernels as pk
 
-    times = {m: time_ms(lambda m=m: pk._spmm_packets_ablation(p, x, m))
-             for m in pk.ABLATIONS}
-    rec = {"spmm_packets_ms": full_ms, **{f"{m}_ms": t for m, t in times.items()}}
-    print(f"  packets_ablation {json.dumps(rec)}", flush=True)
-    return rec
+    rec = {f"{m}_ms": time_ms(lambda m=m: pk._spmm_packets_ablation(p, x, m))
+           for m in pk.ABLATIONS}
+    print(f"  packets_ablation {shape} D={x.shape[1]} {json.dumps(rec)} [{CARD}]",
+          flush=True)
+    return {"shape": shape, "d": x.shape[1], **rec}
 
 
 def phase_lowloc(report, gen):
@@ -1163,15 +1165,15 @@ def phase_lowloc(report, gen):
                          "res_pack_s_per_tile": out["pack_s"] / adj.st.num_tiles}
         elif fmt == "packets":
             check(launches[fmt]["spmm_packets_reduce"] > 0,
-                  "packets did not launch B7's reduce pass (no split block)")
+                  "packets did not launch B7's reduce pass (no split row)")
             shapes[fmt] = measure_packets(shape, adj.p, x, torch.bfloat16)
-            wl = pk.work_list(adj.p)
-            print(f"  B7 work list: {wl.items.shape[0]} chunks of at most "
-                  f"{pk.CHUNK_SLOTS // adj.p.k} packets over {adj.p.num_row_blocks} "
-                  f"receiver blocks; {wl.splits.shape[0]} blocks split into "
-                  f"{wl.num_parts} chunks (block 0: "
-                  f"{int(adj.p.row_ptr[1] - adj.p.row_ptr[0])} packets)", flush=True)
-            ablation = packets_ablation(adj.p, x, shapes[fmt]["ms"])
+            sc = pk.schedule(adj.p)
+            print(f"  B7 schedule: {sc.slot.shape[0]} live edges of "
+                  f"{adj.p.num_edge_slots} slots, {sc.items.shape[0]} chunks of at "
+                  f"most {pk.CHUNK_EDGES} edges over {adj.p.num_nodes} rows; "
+                  f"{sc.splits.shape[0]} rows split into {sc.num_parts} partial "
+                  f"rows (longest row {shapes[fmt]['longest_row']} edges)", flush=True)
+            ablation = [packets_ablation(shape, adj.p, x)]
             pair_ms = time_ms(lambda: (pk.spmm_packets(adj.p, x),
                                        pk.spmm_packets(adj.p_t, x)))
             pkt_rates = {"pkt_edges_per_s": n_live / (pair_ms / 1e3),
@@ -1523,7 +1525,9 @@ def phase_coo_csr(gen):
     nodes, 2.33M directed unit-weight edges), A and A^T at D = 128 and
     256, each held to its plain version, the gather path it replaced
     (``message.spmm``), and timed beside its bound, that plain version and
-    ``torch.sparse.mm``; then the kernel's time by ``CHUNK_EDGES``."""
+    ``torch.sparse.mm``; B7 on the same graph beside it
+    (:func:`phase_coo_csr_packets`); then the kernel's time by
+    ``CHUNK_EDGES``."""
     import numpy as np
     import torch
 
@@ -1567,6 +1571,7 @@ def phase_coo_csr(gen):
             del got
             records.append(rec)
             torch.cuda.empty_cache()
+    packet_records, ablation = phase_coo_csr_packets(g, gen)
     sweep, chunk_edges = {}, ck.CHUNK_EDGES
     for chunk in CSR_CHUNKS:
         ck.CHUNK_EDGES = chunk
@@ -1583,7 +1588,53 @@ def phase_coo_csr(gen):
           flush=True)
     del csr
     torch.cuda.empty_cache()
-    return {"spmm_coo_csr": records, "chunk_sweep": sweep}
+    return {"spmm_coo_csr": records, "chunk_sweep": sweep,
+            "spmm_packets": packet_records, "packets_ablation": ablation}
+
+
+def phase_coo_csr_packets(g, gen):
+    """B7 beside the CSR kernel on the same graph: the arxiv stand-in packed
+    as the ``arxiv-train-auto`` cell packs it (``TrainConfig.packet_geom``),
+    A and A^T at D = 128 and 256 with f32 compute as that cell runs them,
+    each held to the schedule-walking plain version; then D2's modes at
+    D = 128."""
+    import torch
+
+    from tpugraph_torch.ops import packets
+    from tpugraph_torch.ops import packets_kernels as pk
+    from tpugraph_torch.train import TrainConfig
+
+    s, r, w = (t.numpy() for t in (g.senders, g.receivers, g.edge_weight))
+    br, bc, k = TrainConfig().packet_geom
+    t0 = time.perf_counter()
+    pa, pa_t = (fn(s, r, w, g.num_nodes_padded, block_r=br, block_c=bc, k=k).to("cuda")
+                for fn in (packets.pack_edges, packets.pack_edges_transpose))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for q in (pa, pa_t):
+        pk.schedule(q)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for name, q in (("A", pa), ("A^T", pa_t)):
+        sc = pk.schedule(q)
+        print(f"  B7 arxiv {name}: {q.num_packets} packets of {k}, {sc.slot.shape[0]} "
+              f"live edges of {q.num_edge_slots} slots; schedule {sc.items.shape[0]} "
+              f"chunks of at most {pk.CHUNK_EDGES} edges over {q.num_nodes} rows, "
+              f"{sc.splits.shape[0]} rows split into {sc.num_parts} partial rows; "
+              f"packing and upload of A and A^T {t1 - t0:.2f} s on the host, their "
+              f"schedules {(t2 - t1) * 1e3:.1f} ms on the card", flush=True)
+    records = []
+    for d in (128, 256):
+        x = torch.randn((pa.num_nodes, d), generator=gen, device="cuda")
+        for shape, q in (("arxiv", pa), ("arxiv-T", pa_t)):
+            records.append(measure_packets(shape, q, x, torch.float32,
+                                           schedule_plain=True))
+            torch.cuda.empty_cache()
+    x = torch.randn((pa.num_nodes, 128), generator=gen, device="cuda")
+    ablation = packets_ablation("arxiv", pa, x)
+    del pa, pa_t, x
+    torch.cuda.empty_cache()
+    return records, ablation
 
 
 def library_gat(c, z, el, er, heads, slope, g=None):
@@ -4000,7 +4051,7 @@ def main() -> int:
                          "tpugraph/ops/pallas_packets.py:146",
                          low["shapes"]["packets"],
                          [low["shapes"]["packets"], low["variants"][4]]
-                         + coo["shapes"]["spmm_packets"]),
+                         + coo["shapes"]["spmm_packets"] + coo_csr["spmm_packets"]),
         "spmm_coo_csr": ("tpugraph_torch/csrc/coo_kernels.cu",
                          "none: XLA's gather and segment_sum "
                          "(tpugraph/ops/message.py:22)",
@@ -4031,7 +4082,7 @@ def main() -> int:
                                    for c in paths.values())},
         "spmm_packets": {
             "reduce_launches": sum(c["spmm_packets_reduce"] for c in paths.values()),
-            "packets_ablation": low["packets_ablation"]},
+            "packets_ablation": low["packets_ablation"] + [coo_csr["packets_ablation"]]},
     }
     report = []
     for name, (src, replaces, main_shape, all_shapes) in meta.items():

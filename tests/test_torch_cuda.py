@@ -190,7 +190,7 @@ def test_spmm_packets_matches_plain(cuda_device, geom, compute_dtype,
         assert packets_kernels.LAUNCHES["spmm_packets"] == before + 1
         ref = packets_kernels.spmm_packets_plain(p, x, None, compute_dtype)
         err = (y.float() - ref).abs()
-        tol = _f32_tol(ref, 64)  # ~20 edges a row, summed by atomics
+        tol = _f32_tol(ref, 64)  # ~20 edges a row, in another order
         if out_dtype == torch.bfloat16:
             tol = tol + BF16_REL * ref.abs()
         assert bool((err <= tol).all()), float(err.max())
@@ -198,17 +198,22 @@ def test_spmm_packets_matches_plain(cuda_device, geom, compute_dtype,
 
 def _hub_packets(device):
     """A hub-heavy graph at the training geometry (512, 256, 128): receiver
-    block 0 holds over half the 60,000 edges, in more packets than one
-    chunk of the work list, so B7 splits it; returns the packets and the
-    largest in-degree."""
+    block 0 holds over half the 60,000 edges, and six receivers and six
+    senders take 1,000 edges each, over the schedule's chunk of 256, so B7
+    splits their rows of A and of A^T; returns the packets of A and A^T
+    and the largest row of either."""
     rng = np.random.default_rng(9)
     n, e = 4096, 60000
     s = rng.integers(0, n, e).astype(np.int32)
     r = np.where(rng.random(e) < 0.6, rng.integers(0, 512, e),
                  rng.integers(0, n, e)).astype(np.int32)
+    r[:6000] = np.repeat([0, 1, 2, 700, 3000, 4095], 1000)
+    s[6000:12000] = np.repeat([5, 6, 7, 800, 3100, 4000], 1000)
     w = rng.standard_normal(e).astype(np.float32)
-    p = packets.pack_edges(s, r, w, n, block_r=512, block_c=256, k=128)
-    return p.to(device), int(np.bincount(r, minlength=n).max())
+    p, p_t = (fn(s, r, w, n, block_r=512, block_c=256, k=128).to(device)
+              for fn in (packets.pack_edges, packets.pack_edges_transpose))
+    k = max(np.bincount(r, minlength=n).max(), np.bincount(s, minlength=n).max())
+    return p, p_t, int(k)
 
 
 def _row_tol(ref, k, out_dtype):
@@ -224,13 +229,15 @@ def _row_tol(ref, k, out_dtype):
 @pytest.mark.parametrize("out_dtype", FLOATS)
 def test_spmm_packets_hub_split_matches_plain(cuda_device, compute_dtype,
                                               out_dtype):
-    """B7 on a hub graph whose receiver block 0 is split over several CTAs:
-    the main pass and the reduce pass each launch once, and the result
-    equals the plain version and the schedule-walking plain version."""
-    p, k_row = _hub_packets(cuda_device)
-    wl = packets_kernels.work_list(p)
-    assert wl.splits.shape[0] >= 1 and int(wl.splits[:, 2].max()) >= 2
-    for d in (128, 20, 10):
+    """B7 on a hub graph whose hub rows the schedule splits into several
+    chunks: the main pass and the reduce pass each launch once, the result
+    equals the schedule-walking plain version and the one-pass plain
+    version at D = 10, 128 and 256, and two launches give the same bits."""
+    p, _, k_row = _hub_packets(cuda_device)
+    sc = packets_kernels.schedule(p)
+    assert sc.splits.shape[0] >= 6 and int(sc.splits[:, 2].max()) >= 4
+    assert sc.slot.shape[0] == int((p.w != 0).sum())
+    for d in (10, 128, 256):
         x = _x(p.num_nodes, d, d, cuda_device)
         before = dict(packets_kernels.LAUNCHES)
         y = packets_kernels.spmm_packets(p, x, out_dtype, compute_dtype)
@@ -238,19 +245,59 @@ def test_spmm_packets_hub_split_matches_plain(cuda_device, compute_dtype,
         assert packets_kernels.LAUNCHES == {
             k: v + 1 for k, v in before.items()}
         assert y.dtype == out_dtype and y.shape == (p.num_nodes, d)
-        for ref in (packets_kernels.spmm_packets_plain(p, x, None, compute_dtype),
-                    packets_kernels.spmm_packets_schedule_plain(
-                        p, x, None, compute_dtype)):
+        for ref in (packets_kernels.spmm_packets_schedule_plain(
+                        p, x, None, compute_dtype),
+                    packets_kernels.spmm_packets_plain(p, x, None, compute_dtype)):
             err = (y.float() - ref).abs()
             assert bool((err <= _row_tol(ref, k_row, out_dtype)).all()), (
                 d, float(err.max()))
+        again = packets_kernels.spmm_packets(p, x, out_dtype, compute_dtype)
+        assert torch.equal(y, again), d  # no atomics: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", FLOATS)
+def test_packets_matvec_grad_through_transpose(cuda_device, compute_dtype):
+    """PacketsMatvec's forward is B7 on A's packets and its x-gradient B7
+    on A^T's, each split at the hub rows, both held to the schedule-walking
+    plain version of its own packets."""
+    p, p_t, k_row = _hub_packets(cuda_device)
+    x = _x(p.num_nodes, 128, 5, cuda_device).requires_grad_(True)
+    gy = _x(p.num_nodes, 128, 6, cuda_device)
+    before = packets_kernels.LAUNCHES["spmm_packets_reduce"]
+    y = packets_kernels.packets_matvec(p, p_t, x, compute_dtype)
+    (dx,) = torch.autograd.grad(y, x, gy)
+    torch.cuda.synchronize()
+    assert packets_kernels.LAUNCHES["spmm_packets_reduce"] == before + 2
+    assert packets_kernels.schedule(p_t).splits.shape[0] >= 1
+    for got, (q, v) in ((y, (p, x.detach())), (dx, (p_t, gy))):
+        ref = packets_kernels.spmm_packets_schedule_plain(q, v, None, compute_dtype)
+        err = (got - ref).abs()
+        assert bool((err <= _row_tol(ref, k_row, torch.float32)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_packets_adjacency_builds_schedules(cuda_device):
+    """``build_adjacency`` builds B7's row schedules of A and A^T on the
+    card with the upload, so no product builds one."""
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.train.loop import TrainConfig, build_adjacency
+
+    s, r, w = _coo(1000, 20000, seed=3)
+    g = graph_from_edges(s, r, 1000)
+    adj, n = build_adjacency(g, TrainConfig(use_bcsr=True, bcsr_format="packets"),
+                             cuda_device)
+    for q in (adj.p, adj.p_t):
+        sc = vars(q)["_schedule"]
+        assert sc.src.device.type == "cuda" and sc.rowptr.shape[0] == n + 1
+        assert sc.slot.shape[0] == int((q.w != 0).sum())
 
 
 @pytest.mark.cuda
 def test_spmm_packets_ablations_run(cuda_device):
     """Every diagnostic mode of B7 runs and keeps the output's shape; the
     ``full`` mode is B7 itself; none counts a launch."""
-    p, k_row = _hub_packets(cuda_device)
+    p, _, k_row = _hub_packets(cuda_device)
     x = _x(p.num_nodes, 128, 3, cuda_device)
     before = dict(packets_kernels.LAUNCHES)
     outs = {m: packets_kernels._spmm_packets_ablation(p, x, m)
@@ -263,6 +310,13 @@ def test_spmm_packets_ablations_run(cuda_device):
     ref = packets_kernels.spmm_packets_plain(p, x, None, torch.bfloat16)
     err = (outs["full"] - ref).abs()
     assert bool((err <= _row_tol(ref, k_row, torch.float32)).all())
+    # slots_only sums each row's bf16 weights, in the schedule's order
+    sc = packets_kernels.schedule(p)
+    ones = torch.ones_like(x)
+    ref1 = packets_kernels.spmm_packets_schedule_plain(p, ones, None, torch.bfloat16)
+    err = (outs["slots_only"] - ref1).abs()
+    assert bool((err <= _row_tol(ref1, k_row, torch.float32)).all())
+    assert sc.splits.shape[0] > 0
     with pytest.raises(ValueError, match="ablations"):
         packets_kernels._spmm_packets_ablation(p, x[:, :10].contiguous(), "full")
 

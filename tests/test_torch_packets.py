@@ -155,47 +155,81 @@ def _hub_packets(seed, br=32, bc=32, k=8, n=256, e=3000):
     return p, p_j, s, r, w
 
 
-@pytest.mark.parametrize("chunk_slots", [64, 200, 1 << 20])
-def test_work_list_covers_every_packet_once(chunk_slots):
-    """Every packet lies in exactly one chunk, chunks of a block are in
-    packet order, only blocks over the chunk size are split, and each
-    split block's partial slots are consecutive from its first one."""
+def _live_slots(p):
+    """(global receiver row, x row, flat slot) of every live slot of
+    ``p``, in packet-and-slot order."""
+    live = np.flatnonzero(p.w.reshape(-1) != 0)
+    pk, k = live // p.k, live % p.k
+    row = p.row_of[pk].astype(np.int64) * p.block_r + p.rows[pk, k]
+    src = p.col_blk[pk].astype(np.int64) * p.block_c + p.cols[pk, k]
+    return row, src, live
+
+
+@pytest.mark.parametrize("chunk", [16, 100, 1 << 20])
+def test_schedule_covers_every_live_slot_once(chunk):
+    """The row schedule lists every live slot exactly once and no dead
+    one, rows in order and, within a row, packet and slot order kept;
+    each edge's x row and the row offsets agree with the packets."""
     p, _, s, r, w = _hub_packets(seed=1)
     counts = np.diff(p.row_ptr)
     assert counts[0] > 0.5 * p.num_packets  # the hub block
-    wl = packets_kernels.packet_work_list(p.row_ptr, p.k, chunk_slots)
-    items = wl.items.astype(np.int64)
+    sc = packets_kernels.packet_schedule(p, chunk)
+    slot, src = sc.slot.numpy().astype(np.int64), sc.src.numpy()
+    rowptr = sc.rowptr.numpy().astype(np.int64)
+    row, want_src, live = _live_slots(p)
+    assert len(slot) == len(live) == int((w != 0).sum())
+    np.testing.assert_array_equal(np.sort(slot), live)  # once each, none dead
+    assert np.all(p.w.reshape(-1)[slot] != 0)
+    order = np.lexsort((live, row))  # by row, then packet and slot
+    np.testing.assert_array_equal(slot, live[order])
+    np.testing.assert_array_equal(src, want_src[order])
+    assert rowptr[0] == 0 and rowptr[-1] == len(slot) and len(rowptr) == p.num_nodes + 1
+    np.testing.assert_array_equal(np.diff(rowptr),
+                                  np.bincount(row, minlength=p.num_nodes))
+    np.testing.assert_array_equal(np.repeat(np.arange(p.num_nodes), np.diff(rowptr)),
+                                  row[order])
+
+
+@pytest.mark.parametrize("chunk", [16, 100, 1 << 20])
+def test_schedule_chunks_longest_first(chunk):
+    """Each row's edges are cut into chunks of at most ``chunk`` in order,
+    every row (an empty one too) has an item, the longest chunks come
+    first, only rows over the chunk are split, and a split row's partial
+    slots are consecutive from its first one."""
+    p, _, _, _, _ = _hub_packets(seed=1)
+    sc = packets_kernels.packet_schedule(p, chunk)
+    items = sc.items.numpy().astype(np.int64)
+    splits = sc.splits.numpy().astype(np.int64)
+    rowptr = sc.rowptr.numpy().astype(np.int64)
     sizes = items[:, 2] - items[:, 1]
-    assert np.all(np.diff(sizes) <= 0)  # largest first
+    assert np.all(np.diff(sizes) <= 0)  # longest first
     by_pos = items[np.lexsort((items[:, 1], items[:, 0]))]
-    covered = np.concatenate([np.arange(lo, hi) for _, lo, hi, _ in by_pos])
-    np.testing.assert_array_equal(covered, np.arange(p.num_packets))
-    chunk = max(1, chunk_slots // p.k)
-    for rb in range(p.num_row_blocks):
-        mine = by_pos[by_pos[:, 0] == rb]
-        assert mine[0, 1] == p.row_ptr[rb] and mine[-1, 2] == p.row_ptr[rb + 1]
+    np.testing.assert_array_equal(np.unique(by_pos[:, 0]), np.arange(p.num_nodes))
+    counts = np.diff(rowptr)
+    for i in np.flatnonzero(counts > chunk // 2).tolist() + [0, p.num_nodes - 1]:
+        mine = by_pos[by_pos[:, 0] == i]
+        assert mine[0, 1] == rowptr[i] and mine[-1, 2] == rowptr[i + 1]
+        np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
         assert np.all(mine[:, 2] - mine[:, 1] <= chunk)
-        split = counts[rb] > chunk
-        assert len(mine) == (-(-counts[rb] // chunk) if split else 1)
-        if split:
-            (row,) = wl.splits[wl.splits[:, 0] == rb]
-            np.testing.assert_array_equal(mine[:, 3],
-                                          row[1] + np.arange(row[2]))
+        assert len(mine) == max(1, -(-counts[i] // chunk))
+        if len(mine) > 1:
+            (sp,) = splits[splits[:, 0] == i]
+            np.testing.assert_array_equal(mine[:, 3], sp[1] + np.arange(sp[2]))
         else:
-            assert mine[0, 3] == -1 and rb not in wl.splits[:, 0]
-    assert wl.num_parts == int(np.sum(wl.splits[:, 2]))
-    assert (len(wl.splits) > 0) == (chunk_slots < counts.max() * p.k)
+            assert mine[0, 3] == -1 and i not in splits[:, 0]
+    np.testing.assert_array_equal(splits[:, 0], np.flatnonzero(counts > chunk))
+    assert sc.num_parts == int(splits[:, 2].sum()) == int((items[:, 3] >= 0).sum())
+    assert (len(splits) > 0) == (chunk < counts.max())
 
 
-def test_work_list_empty_receiver_block():
-    """A receiver block without packets, and one of dead packets only, is
-    one chunk whose rows come out as zeros."""
+def test_schedule_empty_receiver_block():
+    """A receiver block of dead packets only, and one with no packets,
+    gives one empty item a row, whose rows come out as zeros."""
     p, _, _, _, _ = _hub_packets(seed=2)
     dead = p.num_row_blocks - 1
     assert not np.any(p.w[p.row_ptr[dead]:p.row_ptr[dead + 1]])
     x = torch.from_numpy(_x(p.num_nodes, 16, 0))
-    y = packets_kernels.spmm_packets_schedule_plain(p.to("cpu"), x,
-                                                    chunk_slots=64)
+    y = packets_kernels.spmm_packets_schedule_plain(p.to("cpu"), x, chunk_edges=16)
     assert not bool(y[dead * p.block_r:].any())
     # drop the dead block's packets: a block of zero packets
     lo = int(p.row_ptr[dead])
@@ -203,18 +237,21 @@ def test_work_list_empty_receiver_block():
         rows=p.rows[:lo], cols=p.cols[:lo], w=p.w[:lo], row_of=p.row_of[:lo],
         col_blk=p.col_blk[:lo], row_ptr=np.minimum(p.row_ptr, lo),
         num_nodes=p.num_nodes, block_r=p.block_r, block_c=p.block_c)
-    wl = packets_kernels.packet_work_list(bare.row_ptr, bare.k, 64)
-    (item,) = wl.items[wl.items[:, 0] == dead]
-    assert item[1] == item[2] == lo and item[3] == -1
+    for q in (p, bare):
+        sc = packets_kernels.packet_schedule(q, 16)
+        items = sc.items.numpy()
+        mine = items[items[:, 0] >= dead * p.block_r]
+        assert len(mine) == p.block_r and np.all(mine[:, 1] == mine[:, 2])
+        assert np.all(mine[:, 1] == sc.slot.shape[0]) and np.all(mine[:, 3] == -1)
     y2 = packets_kernels.spmm_packets_schedule_plain(bare.to("cpu"), x,
-                                                     chunk_slots=64)
+                                                     chunk_edges=16)
     np.testing.assert_array_equal(y2.numpy(), y.numpy())
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
 def test_schedule_plain_matches_plain_and_pallas(compute_dtype, out_dtype):
-    """The plain version that walks B7's work list (f32 chunk partials
+    """The plain version that walks B7's row schedule (f32 chunk partials
     summed in chunk order, one rounding at the end) equals the one-pass
     plain version and JAX's kernel in interpret mode on the hub graph:
     f32 sums in another order (1e-5 of each row's largest |value| times
@@ -224,9 +261,9 @@ def test_schedule_plain_matches_plain_and_pallas(compute_dtype, out_dtype):
     x = _x(p.num_nodes, 24, 5)
     pt, xt = p.to("cpu"), torch.from_numpy(x)
     y = packets_kernels.spmm_packets_schedule_plain(pt, xt, out_dtype,
-                                                    compute_dtype, chunk_slots=64)
+                                                    compute_dtype, chunk_edges=16)
     assert y.dtype == out_dtype and y.shape == (p.num_nodes, 24)
-    assert len(packets_kernels.packet_work_list(p.row_ptr, p.k, 64).splits) > 1
+    assert len(packets_kernels.packet_schedule(p, 16).splits) > 1
     ref_plain = packets_kernels.spmm_packets_plain(pt, xt, None, compute_dtype)
     ref_jax = np.asarray(jax_pk.spmm_packets(
         p_j, jnp.asarray(np.pad(x, ((0, 0), (0, 104)))), interpret=True,

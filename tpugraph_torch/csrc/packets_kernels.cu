@@ -2,60 +2,56 @@
 // (sm_90a).  Plain C interface, loaded with ctypes by
 // tpugraph_torch/ops/packets_kernels.py, which checks every argument first.
 //
-// Layout: rows/cols int32[P, K] (row within the receiver block, row of x within
-// the sender block), w f32[P, K] (0 = dead slot), col_blk int32[P].  The wrapper
-// derives a work list from the packets' row_ptr once per EdgePackets:
-//   work   int4[n_items]  (receiver block, first packet, end packet, partial slot
-//                          or -1 for a block that is one chunk), largest first;
-//   splits int4[n_split]  (receiver block, first partial slot, chunks, 0) for each
-//                          receiver block cut into several chunks.
+// Layout: the packets keep w f32[P * K] (0 = dead slot).  The wrapper derives a
+// row schedule from the packets once per EdgePackets, on their device
+// (ops/packets_kernels.py:packet_schedule): every live slot (w != 0), in order of
+// (global receiver row, packet, slot), as
+//   src    int32[E]  col_blk * block_c + cols, the x row it gathers
+//   slot   int32[E]  p * K + k, the slot whose weight w[slot] it reads
+//   work   int4[n_items]  (row, first edge, end edge, partial slot or -1 for a row
+//                          that is one chunk), longest chunk first; every row has
+//                          at least one item, so an empty row is written as zeros
+//   splits int4[n_split]  (row, first partial slot, chunks, 0) of each split row
 //
 // spmm_packets replaces tpugraph/ops/pallas_packets.py:spmm_packets
-// (_packet_kernel_factory): y[R*Br, D] = A @ x.
-//   Semantics: per edge e, g[e] = w[e] * x[col_blk*Bc + cols[e]]; with a bf16
-//   compute type w and x are rounded to bf16 first and g is rounded to bf16
-//   after the (exact) f32 product, as the TPU kernel stages g at the compute
-//   dtype.  y[rows[e]] += g[e] accumulates in f32; a bf16 output is rounded once.
+// (_packet_kernel_factory): y[N, D] = A @ x.
+//   Semantics: per edge e, g[e] = w[e] * x[src[e]]; with a bf16 compute type w and
+//   x are rounded to bf16 first and g is rounded to bf16 after the (exact) f32
+//   product, as the TPU kernel stages g at the compute dtype.  y[row] is the f32
+//   sum of its g in schedule order, from +0.0; a bf16 output is rounded once.
 //   With bf16 compute the wrapper hands in x already rounded to bf16 (one cast a
-//   call instead of one a gathered entry: the same values, half the bytes).
-//   Bound on the H100: bytes (12 bytes of edge data a slot, x and y once) against
-//   2*E*D operations.  The practical floor is the gather: each live edge reads a
-//   D-wide x row, E*D*itemsize bytes through the 50 MB L2 that holds x (about
-//   1.07 GB in f32 and 0.54 GB in bf16 on the 65,536-node power-law graph at
-//   D = 128), about 0.1 ms.
+//   call instead of one a gathered entry: the same values, half the bytes).  f32
+//   compute multiplies and adds with IEEE rounding (__fmul_rn, __fadd_rn: no FMA
+//   contraction), so a row that is one chunk has the bits of the plain version's
+//   index_add_ on the CPU.
+//   Bound on the H100: bytes.  Operations are 2*E*D; the least bytes are 12 a live
+//   edge, x read once and y written once (375 MB at the ogbn-arxiv stand-in's 2.33M
+//   edges and D = 256, f32).  The practical floor is the gather: each live edge
+//   reads a D-wide x row, E*D*itemsize bytes (2.4 GB there), partly served by the
+//   50 MB L2, where a power-law graph's hub rows stay.
 //   Design: the TPU kernel turns gather and scatter into one-hot matmuls for its
-//   matrix unit; Hopper gathers rows directly.  A degree-sorted power-law graph
-//   puts a fifth of its edges in receiver block 0, so one CTA per receiver
-//   block leaves that block's CTAs as the kernel's tail.  Instead each receiver
-//   block's packet range is cut into chunks of at most 16,384 slots (128 packets
-//   of 128), and one CTA owns a (chunk, 64-column slice of D).  It accumulates
-//   Br x 64 f32 in shared memory (128 KB at Br = 512, one CTA an SM) with
-//   shared-memory atomics, since the rows of a chunk's edges are in no order.
-//   A warp takes 32 slots at once: its lanes read the slot data once and shuffle
-//   it, and each half-warp takes one edge, each lane 4 columns of the x row with
-//   one 16-byte (f32) or 8-byte (bf16) load; the loads of 8 edges are issued
-//   before their atomics.  The shared accumulator keeps column c of a row at
-//   (c % 4) * 16 + c / 4 and the two half-warps add their 4 values in opposite
-//   orders, so the 32 lanes of one atomic hit 32 banks.  A block that is one
-//   chunk writes its rows directly (no atomics in device memory).  A chunk of a
-//   split block writes its f32 partial to scratch, and spmm_packets_reduce sums
-//   a block's partials in chunk order and rounds once: deterministic across
-//   chunks, never a bf16 partial, at a cost of (split chunks) x Br x D x 4 bytes
-//   written and read again (33 MB on the power-law graph at D = 128, 3% of the
-//   f32 gather bytes).  f32 atomics in device memory (red.global.v4.f32 for
-//   every edge, into a zeroed buffer) were slower in a trial on the H100: the
-//   L2's atomic rate, not its bandwidth, set their time.  Shared-memory f32
-//   atomicAdd compiles to a compare-and-swap loop (ATOMS.CAS) on sm_90; w is
-//   rounded once a slot and g two values at a time with cvt.rn.bf16x2.f32.  Every output row is written; the f32 order of the
-//   shared-memory atomics within a chunk varies from run to run.  Any D: with
-//   D % 4 != 0 (D = 10: a 40-byte f32 row pitch) or an x that is not 16-byte
-//   aligned, the same kernel takes scalar loads and stores.
+//   matrix unit; Hopper gathers rows directly, and a row's sum is best kept in
+//   registers.  So the kernel walks receiver rows, not packets: one warp a work
+//   item.  Its lanes load 32 (src, slot) pairs and their weights at once and
+//   broadcast them with __shfl_sync; each lane owns 4 columns of each 128-column
+//   group (one 16-byte f32 or 8-byte bf16 load of the x row, or 4 scalar loads
+//   when D % 4 != 0 or x is not 16-byte aligned) and keeps the row's sum in
+//   registers: V groups, V = 2 for D > 128, else 1; wider D takes more CTAs in
+//   grid.y.  The loads of 8 / V edges start before their adds.  Only live slots
+//   are read: a packet's dead slots (91% of the arxiv stand-in's 27.3M) cost
+//   nothing a product.  No shared memory and no atomics: the result is the same
+//   bits from launch to launch.  A power-law graph's hub rows are cut into chunks
+//   of at most CHUNK_EDGES (ops/packets_kernels.py), longest first, so no warp's
+//   row is the kernel's tail; a chunk of a split row writes one f32 row of
+//   partial sums, and spmm_packets_reduce adds a row's partials in chunk order
+//   and rounds once (never a bf16 partial).  Every output row is written.
 //
 // spmm_packets_ablation runs the same kernel in a diagnostic mode (the
 // counterpart of bench_packets_diag.py's variants), with bf16 compute, f32 output
-// and D % 4 == 0: 1 slots_only (slot data read and accumulated, no x gather),
-// 2 no_gather (every x read goes to row 0), 3 gather_only (no shared-memory
-// accumulation: each lane sums in registers and adds once at the end).
+// and D % 4 == 0: 1 slots_only (schedule and weights read, no x gather), 2
+// no_gather (every x read goes to row 0), 3 gather_only (no per-row store: each
+// lane adds its columns' sums into one value, written once a warp to row `row`
+// of y, and no partials, so the reduce pass does not run).
 //
 // Each entry point launches on the caller's stream and returns cudaGetLastError()
 // after its launch, or cudaErrorInvalidValue for an unknown mode.
@@ -66,10 +62,10 @@
 
 namespace {
 
-constexpr int COLS = 64;       // columns of D per CTA
-constexpr int THREADS = 1024;  // 32 warps
-constexpr int UNROLL = 4;      // warp steps (2 edges each) whose loads are in flight together
-constexpr int RED_ROWS = 8;    // rows of a split block per reduce CTA
+constexpr int THREADS = 256;           // 8 warps a CTA, one work item each
+constexpr int WARPS = THREADS / 32;
+constexpr int GROUP = 128;             // columns of one group: 32 lanes x 4
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 enum Mode { FULL = 0, SLOTS_ONLY = 1, NO_GATHER = 2, GATHER_ONLY = 3 };
 
@@ -85,267 +81,272 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
     return (__float_as_uint(bf16_round(lo)) >> 16) | (__float_as_uint(bf16_round(hi)) & 0xffff0000u);
 }
 
-// columns c..c+3 of x row `row` (bf16 bits when XB16); zero past d
+// a lane's 4 columns of group c0 of row `row` of a [*, d] array (bf16 bits when
+// XB16): c0 + 4 lane .. + 3 (VEC) or c0 + lane + 32 m; zero past d
 template <bool XB16, bool VEC>
-__device__ __forceinline__ void load4(const void* __restrict__ x, size_t row, int c, int d,
-                                      float v[4]) {
+__device__ __forceinline__ void load4(const void* __restrict__ src, size_t row, int c0,
+                                      int lane, int d, float v[4]) {
     if (VEC) {  // d % 4 == 0, so c < d covers c + 3
-        if (XB16) {
-            const uint2 u = *(const uint2*)((const uint16_t*)x + row * d + c);
+        const int c = c0 + 4 * lane;
+        if (c >= d) {
+            v[0] = v[1] = v[2] = v[3] = 0.f;
+        } else if (XB16) {
+            const uint2 u = __ldg((const uint2*)((const uint16_t*)src + row * d + c));
             v[0] = bf16_widen(u.x & 0xffffu);
             v[1] = bf16_widen(u.x >> 16);
             v[2] = bf16_widen(u.y & 0xffffu);
             v[3] = bf16_widen(u.y >> 16);
         } else {
-            const float4 f = *(const float4*)((const float*)x + row * d + c);
+            const float4 f = __ldg((const float4*)((const float*)src + row * d + c));
             v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
         }
         return;
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        const size_t i = row * d + c + e;
-        v[e] = c + e >= d ? 0.f
-             : XB16 ? bf16_widen(((const uint16_t*)x)[i]) : ((const float*)x)[i];
+    for (int m = 0; m < 4; ++m) {
+        const int c = c0 + lane + 32 * m;
+        const size_t i = row * d + c;
+        v[m] = c >= d ? 0.f
+             : XB16 ? bf16_widen(__ldg((const uint16_t*)src + i)) : __ldg((const float*)src + i);
     }
 }
 
-// 4 values to columns c..c+3 of row `row` of a [*, d] f32 or bf16 array
+// the same 4 columns of row `row` of a [*, d] f32 or bf16 array
 template <bool OUT_BF16, bool VEC>
-__device__ __forceinline__ void store4(void* __restrict__ y, size_t row, int c, int d,
-                                       const float v[4]) {
-    const size_t i = row * d + c;
+__device__ __forceinline__ void store4(void* __restrict__ dst, size_t row, int c0, int lane,
+                                       int d, const float v[4]) {
     if (VEC) {
+        const int c = c0 + 4 * lane;
+        if (c >= d) return;
+        const size_t i = row * d + c;
         if (OUT_BF16)
-            *(uint2*)((uint16_t*)y + i) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+            *(uint2*)((uint16_t*)dst + i) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
         else
-            *(float4*)((float*)y + i) = make_float4(v[0], v[1], v[2], v[3]);
+            *(float4*)((float*)dst + i) = make_float4(v[0], v[1], v[2], v[3]);
         return;
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-        if (c + e >= d) break;
+    for (int m = 0; m < 4; ++m) {
+        const int c = c0 + lane + 32 * m;
+        if (c >= d) continue;
+        const size_t i = row * d + c;
         if (OUT_BF16)
-            ((uint16_t*)y)[i + e] = (uint16_t)(__float_as_uint(bf16_round(v[e])) >> 16);
+            ((uint16_t*)dst)[i] = (uint16_t)(__float_as_uint(bf16_round(v[m])) >> 16);
         else
-            ((float*)y)[i + e] = v[e];
+            ((float*)dst)[i] = v[m];
     }
 }
 
-template <bool BF16, bool OUT_BF16, bool VEC, int MODE>
+template <bool BF16, bool OUT_BF16, bool VEC, int V, int MODE>
 __global__ void __launch_bounds__(THREADS)
-spmm_packets_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ cols,
-                    const float* __restrict__ w, const int32_t* __restrict__ col_blk,
-                    const int4* __restrict__ work, const void* __restrict__ x,
-                    void* __restrict__ y, float* __restrict__ partial, int k, int br,
-                    int bc, int d) {
-    extern __shared__ float acc[];  // [br][COLS], column c at (c % 4) * 16 + c / 4
-    const int4 item = work[blockIdx.x];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int h = lane >> 4;                       // which edge of a warp step
-    const int q = lane & 15;                       // this lane's 4 columns: 4q..4q+3
-    const int c = blockIdx.y * COLS + 4 * q;
-    const bool in = c < d;
-    for (int i = threadIdx.x; i < br * COLS; i += THREADS) acc[i] = 0.f;
-    __syncthreads();
-
-    float reg[4] = {0.f, 0.f, 0.f, 0.f};           // GATHER_ONLY's register sum
-    const int groups = (k + 31) >> 5;              // 32-slot groups a packet
-    for (int u = item.y * groups + warp; u < item.z * groups; u += THREADS / 32) {
-        const int p = u / groups;
-        const int e = (u - p * groups) * 32 + lane;
-        const size_t base = (size_t)p * k;
-        const bool ok = e < k;
-        float my_w = ok ? w[base + e] : 0.f;
-        if (BF16) my_w = bf16_round(my_w);         // once a slot, before the shuffles
-        const int my_r = ok ? rows[base + e] : 0;
-        const int my_c = ok ? cols[base + e] : 0;
-        const unsigned live = __ballot_sync(0xffffffffu, my_w != 0.f);
-        if (!live) continue;                       // a dead group (warp-uniform)
-        const int n = 32 - __clz(live);            // slots up to the last live one
-        const size_t xrow = MODE == NO_GATHER ? 0 : (size_t)col_blk[p] * bc;
-        for (int s0 = 0; s0 < n; s0 += 2 * UNROLL) {
-            float v[UNROLL][4], wt[UNROLL];
-            int rt[UNROLL];
+spmm_packets_kernel(const int32_t* __restrict__ src, const int32_t* __restrict__ slot,
+                    const float* __restrict__ w, const int4* __restrict__ work, int n_items,
+                    const void* __restrict__ x, void* __restrict__ y,
+                    float* __restrict__ partial, int d) {
+    constexpr int U = 8 / V;                      // edges whose x rows are in flight together
+    const int lane = threadIdx.x & 31;
+    const int item = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    if (item >= n_items) return;                  // the whole warp
+    const int4 it = work[item];
+    const int c0 = blockIdx.y * GROUP * V;
+    float acc[V][4];
 #pragma unroll
-            for (int t = 0; t < UNROLL; ++t) {     // slot s0 + 2t + h <= 31
-                const int j = s0 + 2 * t + h;
-                wt[t] = __shfl_sync(0xffffffffu, my_w, j);
-                rt[t] = __shfl_sync(0xffffffffu, my_r, j);
-                const int cj = __shfl_sync(0xffffffffu, my_c, j);
-                if (wt[t] != 0.f && in) {
-                    if (MODE == SLOTS_ONLY) {
-                        v[t][0] = v[t][1] = v[t][2] = v[t][3] = 1.f;
-                    } else {
-                        load4<BF16, VEC>(x, xrow + (MODE == NO_GATHER ? 0 : cj), c, d, v[t]);
+    for (int g = 0; g < V; ++g)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) acc[g][m] = 0.f;
+
+    for (int base = it.y; base < it.z; base += 32) {
+        const int k = base + lane;
+        const bool ok = k < it.z;
+        const int my_s = ok ? src[k] : 0;
+        float my_w = ok ? w[slot[k]] : 0.f;
+        if (BF16) my_w = bf16_round(my_w);        // once an edge, before the shuffles
+        const int n = min(32, it.z - base);       // warp-uniform
+        for (int j0 = 0; j0 < n; j0 += U) {       // j0 + t <= 31: U divides 32
+            float v[U][V][4];
+#pragma unroll
+            for (int t = 0; t < U; ++t) {
+                const int s = __shfl_sync(FULL_MASK, my_s, j0 + t);
+                if (j0 + t < n) {
+#pragma unroll
+                    for (int g = 0; g < V; ++g) {
+                        if (MODE == SLOTS_ONLY)
+                            v[t][g][0] = v[t][g][1] = v[t][g][2] = v[t][g][3] = 1.f;
+                        else
+                            load4<BF16, VEC>(x, MODE == NO_GATHER ? 0 : (size_t)s,
+                                             c0 + g * GROUP, lane, d, v[t][g]);
                     }
                 }
             }
 #pragma unroll
-            for (int t = 0; t < UNROLL; ++t) {
-                if (wt[t] == 0.f || !in) continue;  // dead slot, or columns past d
-                float g[4];
+            for (int t = 0; t < U; ++t) {
+                const float wt = __shfl_sync(FULL_MASK, my_w, j0 + t);
+                if (j0 + t < n) {
 #pragma unroll
-                for (int m = 0; m < 4; m += 2) {
-                    if (BF16) {  // exact f32 products, rounded two at a time (cvt.rn.bf16x2)
-                        const __nv_bfloat162 b =
-                            __floats2bfloat162_rn(wt[t] * v[t][m], wt[t] * v[t][m + 1]);
-                        g[m] = __low2float(b);
-                        g[m + 1] = __high2float(b);
-                    } else {
-                        g[m] = wt[t] * v[t][m];
-                        g[m + 1] = wt[t] * v[t][m + 1];
+                    for (int g = 0; g < V; ++g) {
+                        if (BF16) {  // exact f32 products, rounded two at a time (cvt.rn.bf16x2)
+#pragma unroll
+                            for (int m = 0; m < 4; m += 2) {
+                                const __nv_bfloat162 b = __floats2bfloat162_rn(
+                                    __fmul_rn(wt, v[t][g][m]), __fmul_rn(wt, v[t][g][m + 1]));
+                                acc[g][m] = __fadd_rn(acc[g][m], __low2float(b));
+                                acc[g][m + 1] = __fadd_rn(acc[g][m + 1], __high2float(b));
+                            }
+                        } else {
+#pragma unroll
+                            for (int m = 0; m < 4; ++m)
+                                acc[g][m] = __fadd_rn(acc[g][m], __fmul_rn(wt, v[t][g][m]));
+                        }
                     }
-                }
-                if (MODE == GATHER_ONLY) {
-#pragma unroll
-                    for (int m = 0; m < 4; ++m) reg[m] += g[m];
-                    continue;
-                }
-                float* a = acc + rt[t] * COLS + q;
-#pragma unroll
-                for (int m = 0; m < 4; ++m) {      // half-warp 1 adds in the order 1 0 3 2
-                    const float gm = h ? g[m ^ 1] : g[m];
-                    atomicAdd(a + 16 * (m ^ h), gm);
                 }
             }
         }
     }
-    if (MODE == GATHER_ONLY && in) {
-        float* a = acc + (warp % br) * COLS + q;
+    if (MODE == GATHER_ONLY) {                    // one value a lane, one write a warp
+        float s = 0.f;
 #pragma unroll
-        for (int m = 0; m < 4; ++m) atomicAdd(a + 16 * m, reg[m]);
+        for (int g = 0; g < V; ++g)
+#pragma unroll
+            for (int m = 0; m < 4; ++m) s += acc[g][m];
+        if (blockIdx.y == 0 && lane < d) ((float*)y)[(size_t)it.x * d + lane] = s;
+        return;
     }
-    __syncthreads();
-
-    const bool direct = item.w < 0;
-    const size_t row0 = direct ? (size_t)item.x * br : (size_t)item.w * br;
-    for (int i = threadIdx.x; i < br * 16; i += THREADS) {
-        const int row = i >> 4, qq = i & 15;
-        const int cc = blockIdx.y * COLS + 4 * qq;
-        if (cc >= d) continue;
-        const float* a = acc + row * COLS + qq;
-        const float o[4] = {a[0], a[16], a[32], a[48]};
-        if (direct)
-            store4<OUT_BF16, VEC>(y, row0 + row, cc, d, o);
-        else
-            store4<false, VEC>(partial, row0 + row, cc, d, o);
+    if (it.w < 0) {
+#pragma unroll
+        for (int g = 0; g < V; ++g)
+            store4<OUT_BF16, VEC>(y, (size_t)it.x, c0 + g * GROUP, lane, d, acc[g]);
+    } else {
+#pragma unroll
+        for (int g = 0; g < V; ++g)
+            store4<false, VEC>(partial, (size_t)it.w, c0 + g * GROUP, lane, d, acc[g]);
     }
 }
 
-// y rows of each split block = the sum of its chunks' partials, in chunk order
-template <bool OUT_BF16, bool VEC>
-__global__ void __launch_bounds__(256)
-spmm_packets_reduce_kernel(const int4* __restrict__ splits, const float* __restrict__ partial,
-                           void* __restrict__ y, int br, int d) {
-    const int4 s = splits[blockIdx.x];
-    const int r0 = blockIdx.y * RED_ROWS;
-    const int nr = min(RED_ROWS, br - r0);
-    const size_t stride = (size_t)br * d;          // one partial
-    const int quads = nr * ((d + 3) / 4);
-    for (int i = threadIdx.x; i < quads; i += blockDim.x) {
-        const int row = r0 + i / ((d + 3) / 4);
-        const int c = 4 * (i % ((d + 3) / 4));
-        float o[4] = {0.f, 0.f, 0.f, 0.f};
-        for (int part = 0; part < s.z; ++part) {
-            float v[4];
-            load4<false, VEC>(partial + (size_t)(s.y + part) * stride, row, c, d, v);
+// y rows of the split rows: the sum of each one's partials in chunk order,
+// rounded once to the output dtype
+template <bool OUT_BF16, bool VEC, int V>
+__global__ void __launch_bounds__(THREADS)
+spmm_packets_reduce_kernel(const int4* __restrict__ splits, int n_split,
+                           const float* __restrict__ partial, void* __restrict__ y, int d) {
+    const int lane = threadIdx.x & 31;
+    const int s = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    if (s >= n_split) return;
+    const int4 sp = splits[s];
+    const int c0 = blockIdx.y * GROUP * V;
+    float o[V][4], v[4];
 #pragma unroll
-            for (int m = 0; m < 4; ++m) o[m] += v[m];
+    for (int g = 0; g < V; ++g)
+        load4<false, VEC>(partial, (size_t)sp.y, c0 + g * GROUP, lane, d, o[g]);
+    for (int i = 1; i < sp.z; ++i) {
+#pragma unroll
+        for (int g = 0; g < V; ++g) {
+            load4<false, VEC>(partial, (size_t)(sp.y + i), c0 + g * GROUP, lane, d, v);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) o[g][m] = __fadd_rn(o[g][m], v[m]);
         }
-        store4<OUT_BF16, VEC>(y, (size_t)s.x * br + row, c, d, o);
     }
+#pragma unroll
+    for (int g = 0; g < V; ++g) store4<OUT_BF16, VEC>(y, (size_t)sp.x, c0 + g * GROUP, lane, d, o[g]);
 }
 
-template <bool BF16, bool OUT_BF16, bool VEC, int MODE>
-int launch(const void* rows, const void* cols, const void* w, const void* col_blk,
-           const void* work, int n_items, const void* x, void* y, void* partial, int k,
-           int br, int bc, int d, cudaStream_t st) {
-    const size_t smem = (size_t)br * COLS * sizeof(float);
-    auto kern = spmm_packets_kernel<BF16, OUT_BF16, VEC, MODE>;
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid(n_items, (d + COLS - 1) / COLS);
-    kern<<<grid, THREADS, smem, st>>>((const int32_t*)rows, (const int32_t*)cols,
-                                      (const float*)w, (const int32_t*)col_blk,
-                                      (const int4*)work, x, y, (float*)partial, k, br, bc, d);
+inline dim3 grid_of(int n, int d, int v) {
+    return dim3((n + WARPS - 1) / WARPS, (d + GROUP * v - 1) / (GROUP * v));
+}
+
+template <bool BF16, bool OUT_BF16, bool VEC, int V, int MODE>
+int launch_v(const void* src, const void* slot, const void* w, const void* work, int n_items,
+             const void* x, void* y, void* partial, int d, cudaStream_t st) {
+    spmm_packets_kernel<BF16, OUT_BF16, VEC, V, MODE><<<grid_of(n_items, d, V), THREADS, 0, st>>>(
+        (const int32_t*)src, (const int32_t*)slot, (const float*)w, (const int4*)work, n_items,
+        x, y, (float*)partial, d);
     return (int)cudaGetLastError();
 }
 
+template <bool BF16, bool OUT_BF16, bool VEC, int MODE>
+int launch(const void* src, const void* slot, const void* w, const void* work, int n_items,
+           const void* x, void* y, void* partial, int d, cudaStream_t st) {
+    return d > GROUP
+        ? launch_v<BF16, OUT_BF16, VEC, 2, MODE>(src, slot, w, work, n_items, x, y, partial, d, st)
+        : launch_v<BF16, OUT_BF16, VEC, 1, MODE>(src, slot, w, work, n_items, x, y, partial, d, st);
+}
+
 template <bool BF16, bool OUT_BF16>
-int launch_vec(int vec, const void* rows, const void* cols, const void* w,
-               const void* col_blk, const void* work, int n_items, const void* x, void* y,
-               void* partial, int k, int br, int bc, int d, cudaStream_t st) {
-    return vec ? launch<BF16, OUT_BF16, true, FULL>(rows, cols, w, col_blk, work, n_items, x,
-                                                    y, partial, k, br, bc, d, st)
-               : launch<BF16, OUT_BF16, false, FULL>(rows, cols, w, col_blk, work, n_items, x,
-                                                     y, partial, k, br, bc, d, st);
+int launch_vec(int vec, const void* src, const void* slot, const void* w, const void* work,
+               int n_items, const void* x, void* y, void* partial, int d, cudaStream_t st) {
+    return vec ? launch<BF16, OUT_BF16, true, FULL>(src, slot, w, work, n_items, x, y, partial,
+                                                    d, st)
+               : launch<BF16, OUT_BF16, false, FULL>(src, slot, w, work, n_items, x, y,
+                                                     partial, d, st);
+}
+
+template <bool OUT_BF16, bool VEC>
+int launch_reduce(const void* splits, int n_split, const void* partial, void* y, int d,
+                  cudaStream_t st) {
+    const int4* s = (const int4*)splits;
+    const float* pp = (const float*)partial;
+    if (d > GROUP)
+        spmm_packets_reduce_kernel<OUT_BF16, VEC, 2>
+            <<<grid_of(n_split, d, 2), THREADS, 0, st>>>(s, n_split, pp, y, d);
+    else
+        spmm_packets_reduce_kernel<OUT_BF16, VEC, 1>
+            <<<grid_of(n_split, d, 1), THREADS, 0, st>>>(s, n_split, pp, y, d);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Main pass: y[n_rb * br, d] (f32, or bf16 bits when out_bf16) for the blocks that
-// are one chunk, f32 partials[n_parts, br, d] for the chunks of split blocks.
-// compute_bf16 selects the bf16 roundings of w and g and takes x as bf16 bits
-// (already rounded); otherwise x is f32.  vec: d % 4 == 0 and x 16-byte aligned.
-int spmm_packets(const void* rows, const void* cols, const void* w, const void* col_blk,
-                 const void* work, int n_items, const void* x, void* y, void* partial,
-                 int compute_bf16, int out_bf16, int vec, int k, int br, int bc, int d,
-                 void* stream) {
+// Main pass: y[N, d] (f32, or bf16 bits when out_bf16) for the rows that are one
+// chunk, f32 partials[n_parts, d] for the chunks of split rows.  compute_bf16
+// selects the bf16 roundings of w and g and takes x as bf16 bits (already
+// rounded); otherwise x is f32.  vec: d % 4 == 0 and x 16-byte aligned.
+int spmm_packets(const void* src, const void* slot, const void* w, const void* work,
+                 int n_items, const void* x, void* y, void* partial, int compute_bf16,
+                 int out_bf16, int vec, int d, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     if (compute_bf16)
-        return out_bf16 ? launch_vec<true, true>(vec, rows, cols, w, col_blk, work, n_items, x,
-                                                 y, partial, k, br, bc, d, st)
-                        : launch_vec<true, false>(vec, rows, cols, w, col_blk, work, n_items,
-                                                  x, y, partial, k, br, bc, d, st);
-    return out_bf16 ? launch_vec<false, true>(vec, rows, cols, w, col_blk, work, n_items, x, y,
-                                              partial, k, br, bc, d, st)
-                    : launch_vec<false, false>(vec, rows, cols, w, col_blk, work, n_items, x,
-                                               y, partial, k, br, bc, d, st);
+        return out_bf16 ? launch_vec<true, true>(vec, src, slot, w, work, n_items, x, y,
+                                                 partial, d, st)
+                        : launch_vec<true, false>(vec, src, slot, w, work, n_items, x, y,
+                                                  partial, d, st);
+    return out_bf16 ? launch_vec<false, true>(vec, src, slot, w, work, n_items, x, y, partial,
+                                              d, st)
+                    : launch_vec<false, false>(vec, src, slot, w, work, n_items, x, y,
+                                               partial, d, st);
 }
 
-// Second pass: the rows of each of the n_split split blocks, summed from their
-// partials in chunk order, rounded once to the output dtype.
+// Second pass: the rows of the n_split split rows, summed from their partials in
+// chunk order, rounded once to the output dtype.
 int spmm_packets_reduce(const void* splits, int n_split, const void* partial, void* y,
-                        int out_bf16, int vec, int br, int d, void* stream) {
-    const dim3 grid(n_split, (br + RED_ROWS - 1) / RED_ROWS);
+                        int out_bf16, int vec, int d, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    const int4* s = (const int4*)splits;
-    const float* pp = (const float*)partial;
-    if (out_bf16) {
-        if (vec) spmm_packets_reduce_kernel<true, true><<<grid, 256, 0, st>>>(s, pp, y, br, d);
-        else spmm_packets_reduce_kernel<true, false><<<grid, 256, 0, st>>>(s, pp, y, br, d);
-    } else {
-        if (vec) spmm_packets_reduce_kernel<false, true><<<grid, 256, 0, st>>>(s, pp, y, br, d);
-        else spmm_packets_reduce_kernel<false, false><<<grid, 256, 0, st>>>(s, pp, y, br, d);
-    }
-    return (int)cudaGetLastError();
+    if (out_bf16)
+        return vec ? launch_reduce<true, true>(splits, n_split, partial, y, d, st)
+                   : launch_reduce<true, false>(splits, n_split, partial, y, d, st);
+    return vec ? launch_reduce<false, true>(splits, n_split, partial, y, d, st)
+               : launch_reduce<false, false>(splits, n_split, partial, y, d, st);
 }
 
 // The main pass in a diagnostic mode (1 slots_only, 2 no_gather, 3 gather_only;
 // 0 is the full kernel): bf16 compute on bf16-bits x, f32 output, d % 4 == 0.
-int spmm_packets_ablation(const void* rows, const void* cols, const void* w,
-                          const void* col_blk, const void* work, int n_items, const void* x,
-                          void* y, void* partial, int mode, int k, int br, int bc, int d,
+int spmm_packets_ablation(const void* src, const void* slot, const void* w, const void* work,
+                          int n_items, const void* x, void* y, void* partial, int mode, int d,
                           void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     switch (mode) {
         case FULL:
-            return launch<true, false, true, FULL>(rows, cols, w, col_blk, work, n_items, x, y,
-                                                   partial, k, br, bc, d, st);
+            return launch<true, false, true, FULL>(src, slot, w, work, n_items, x, y, partial,
+                                                   d, st);
         case SLOTS_ONLY:
-            return launch<true, false, true, SLOTS_ONLY>(rows, cols, w, col_blk, work, n_items,
-                                                         x, y, partial, k, br, bc, d, st);
+            return launch<true, false, true, SLOTS_ONLY>(src, slot, w, work, n_items, x, y,
+                                                         partial, d, st);
         case NO_GATHER:
-            return launch<true, false, true, NO_GATHER>(rows, cols, w, col_blk, work, n_items,
-                                                        x, y, partial, k, br, bc, d, st);
+            return launch<true, false, true, NO_GATHER>(src, slot, w, work, n_items, x, y,
+                                                        partial, d, st);
         case GATHER_ONLY:
-            return launch<true, false, true, GATHER_ONLY>(rows, cols, w, col_blk, work,
-                                                          n_items, x, y, partial, k, br, bc,
-                                                          d, st);
+            return launch<true, false, true, GATHER_ONLY>(src, slot, w, work, n_items, x, y,
+                                                          partial, d, st);
         default:
             return (int)cudaErrorInvalidValue;
     }

@@ -16,12 +16,16 @@ is rounded to bf16 again before the f32 scatter-sum.  ``None`` means
 bfloat16 on a CUDA tensor and float32 on the CPU, as the JAX package
 picks bf16 on its accelerator and f32 in interpret mode.
 
-The kernel walks a work list (:func:`packet_work_list`): each receiver
-block's packet range cut into chunks of at most ``CHUNK_SLOTS`` slots.
-A block that is one chunk is written directly; the chunks of a split
-block write f32 partials, which a second pass (``spmm_packets_reduce``)
-sums in chunk order and rounds once.  :func:`spmm_packets_schedule_plain`
-repeats that schedule in plain PyTorch.
+The kernel walks receiver rows, not packets: :func:`packet_schedule`
+lists every live slot in order of (global receiver row, packet, slot),
+built once per :class:`EdgePackets` on the packets' device and kept on
+the object (:func:`schedule`).  Each row is cut into chunks of at most
+``CHUNK_EDGES`` live edges; a row that is one chunk is written directly,
+and the chunks of a split row write f32 partial rows, which a second
+pass (``spmm_packets_reduce``) adds in chunk order and rounds once.  Each
+row sums in schedule order in registers, with no atomics, so every
+launch gives the same bits.  :func:`spmm_packets_schedule_plain` repeats
+that schedule in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -30,20 +34,17 @@ import ctypes
 import dataclasses
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
-from tpugraph_torch.ops.bcsr import _host
-from tpugraph_torch.ops.packets import Array, EdgePackets
+from tpugraph_torch.ops.packets import EdgePackets
 
-_COLS = 64                    # columns of D per CTA (csrc COLS)
-_SMEM_LIMIT = 232_448         # bytes of shared memory a block may use (H100)
-# Slots a chunk of the work list holds at most: 128 packets of 128.  On the
-# 65,536-node power-law graph (block_r 512) it cuts the hub receiver block
-# into 26 chunks, and the split blocks' f32 partials (126 chunks x 512 x
-# D x 4 bytes, 33 MB at D = 128) stay near 3% of the gather's E x D x 4.
-CHUNK_SLOTS = 16_384
+# Live edges a chunk of the schedule holds at most.  On the ogbn-arxiv
+# stand-in (169,343 nodes, 2.33M edges, Chung-Lu at gamma 2.5) the hub
+# rows have a few thousand edges; chunks of 256 split a few hundred rows,
+# whose f32 partial rows (a few MB at D = 256) are under 1% of the
+# gather's E x D x 4 bytes.
+CHUNK_EDGES = 256
 ABLATIONS = ("full", "slots_only", "no_gather", "gather_only")
 
 LAUNCHES: Dict[str, int] = {"spmm_packets": 0, "spmm_packets_reduce": 0}
@@ -51,57 +52,94 @@ _bound = False
 
 
 @dataclasses.dataclass
-class PacketWork:
-    """B7's schedule over one :class:`EdgePackets`.
+class PacketSchedule:
+    """B7's row schedule over one :class:`EdgePackets`: its live slots
+    (``w != 0``) in order of (global receiver row, packet, slot).
 
-    items  int32[n_items, 4] — (receiver block, first packet, end packet,
-                                partial slot or -1 for an unsplit block),
-                                largest chunk first
-    splits int32[n_split, 4] — (receiver block, first partial slot,
-                                chunks, 0) of every split block
+    rowptr int32[N + 1]   — row ``i``'s edges are ``rowptr[i]..rowptr[i+1]``
+    src    int32[E]       — ``col_blk * block_c + cols``, the x row each
+                             edge gathers
+    slot   int32[E]       — ``packet * K + k``, the slot whose weight
+                             ``w[slot]`` it reads
+    items  int32[n, 4]    — (row, first edge, end edge, partial slot or -1
+                             for a row that is one chunk), longest first;
+                             every row has at least one
+    splits int32[s, 4]    — (row, first partial slot, chunks, 0) of each
+                             split row
     """
 
-    items: Array    # numpy on the host, a tensor on the packets' device
-    splits: Array
-    num_parts: int  # f32 partials a call writes (chunks of split blocks)
+    rowptr: torch.Tensor
+    src: torch.Tensor
+    slot: torch.Tensor
+    items: torch.Tensor
+    splits: torch.Tensor
+    num_parts: int  # f32 partial rows a call writes (chunks of split rows)
 
 
-def packet_work_list(row_ptr, k: int, chunk_slots: int = CHUNK_SLOTS
-                     ) -> PacketWork:
-    """Cut each receiver block's packets ``row_ptr[r]..row_ptr[r+1]`` into
-    chunks of at most ``chunk_slots // k`` packets (numpy, on the host).
-    A block with no packets is one empty chunk, so its rows are written
-    as zeros."""
-    row_ptr = _host(row_ptr).astype(np.int64)
-    chunk = max(1, chunk_slots // k)
-    counts = np.diff(row_ptr)
-    n_chunks = np.maximum(1, -(-counts // chunk))
-    rb = np.repeat(np.arange(len(counts)), n_chunks)
-    first = np.cumsum(n_chunks) - n_chunks
-    lo = row_ptr[rb] + (np.arange(len(rb)) - first[rb]) * chunk
-    hi = np.minimum(lo + chunk, row_ptr[rb + 1])
-    split = n_chunks[rb] > 1
-    part = np.full(len(rb), -1, np.int64)
-    part[split] = np.arange(int(split.sum()))
-    items = np.stack([rb, lo, hi, part], 1)
-    items = items[np.argsort(-(hi - lo), kind="stable")]
-    sb = np.flatnonzero(n_chunks > 1)
-    first_part = np.cumsum(n_chunks[sb]) - n_chunks[sb]
-    splits = np.stack([sb, first_part, n_chunks[sb], np.zeros_like(sb)], 1)
-    return PacketWork(items.astype(np.int32), splits.astype(np.int32),
-                      int(split.sum()))
+def _work_list(rowptr: torch.Tensor, n_chunks: torch.Tensor, total: int,
+               num_split: int, chunk: int):
+    """(items, splits) of :class:`PacketSchedule` on ``rowptr``'s device:
+    every row's edges cut into chunks of ``chunk`` in order, the longest
+    chunks first (a stable sort), and a split row's chunks given
+    consecutive partial slots.  Scans, sorts and 1-D gathers, no host
+    sync."""
+    dev = rowptr.device
+    row = torch.repeat_interleave(n_chunks, output_size=total)
+    first_chunk = torch.cumsum(n_chunks, 0) - n_chunks
+    k = torch.arange(total, device=dev) - torch.gather(first_chunk, 0, row)
+    lo = torch.gather(rowptr[:-1], 0, row) + k * chunk
+    hi = torch.minimum(lo + chunk, torch.gather(rowptr[1:], 0, row))
+    split = n_chunks > 1
+    parts = torch.where(split, n_chunks, 0)
+    first_part = torch.cumsum(parts, 0) - parts
+    part = torch.where(torch.gather(split, 0, row),
+                       torch.gather(first_part, 0, row) + k, -1)
+    order = torch.sort(lo - hi, stable=True).indices
+    items = torch.stack([torch.gather(v, 0, order) for v in (row, lo, hi, part)], 1)
+    # the split rows in order: the head of a stable sort that puts them
+    # first (nonzero would wait for the device)
+    sb = torch.sort((~split).to(torch.int32), stable=True).indices[:num_split]
+    splits = torch.stack([sb, torch.gather(first_part, 0, sb),
+                          torch.gather(n_chunks, 0, sb), torch.zeros_like(sb)], 1)
+    return items.int(), splits.int()
 
 
-def work_list(p: EdgePackets) -> PacketWork:
-    """:func:`packet_work_list` of ``p`` on ``p``'s device, built once and
-    kept on the object (one host read of ``row_ptr`` the first time)."""
-    cached = vars(p).get("_work")
+def packet_schedule(p: EdgePackets, chunk_edges: int = CHUNK_EDGES
+                    ) -> PacketSchedule:
+    """The :class:`PacketSchedule` of ``p`` with torch on ``p``'s device
+    (numpy arrays on the CPU): one stable sort of every slot by its global
+    receiver row (dead slots last), scans and 1-D gathers, and one host
+    sync for the sizes."""
+    rows, cols, w, row_of, col_blk = (torch.as_tensor(getattr(p, f)) for f in
+                                      ("rows", "cols", "w", "row_of", "col_blk"))
+    n, k = p.num_nodes, p.k
+    if p.num_edge_slots >= 2 ** 31 or n >= 2 ** 31:
+        raise ValueError("the schedule holds int32 indices")
+    dev = rows.device
+    row = (row_of[:, None] * p.block_r + rows).reshape(-1)
+    key = torch.where(w.reshape(-1) != 0, row, n)
+    sorted_key, order = torch.sort(key, stable=True)
+    rowptr = torch.searchsorted(
+        sorted_key, torch.arange(n + 1, device=dev, dtype=key.dtype))
+    n_chunks = torch.clamp((rowptr[1:] - rowptr[:-1] + chunk_edges - 1)
+                           // chunk_edges, min=1)
+    total, num_split, num_parts, e = torch.stack([
+        n_chunks.sum(), (n_chunks > 1).sum(),
+        torch.where(n_chunks > 1, n_chunks, 0).sum(), rowptr[-1]]).tolist()
+    slot = order[:e]
+    src = (torch.gather(col_blk.long(), 0, slot // k) * p.block_c
+           + torch.gather(cols.reshape(-1).long(), 0, slot))
+    items, splits = _work_list(rowptr, n_chunks, total, num_split, chunk_edges)
+    return PacketSchedule(rowptr.int(), src.int(), slot.int(), items, splits,
+                          num_parts)
+
+
+def schedule(p: EdgePackets) -> PacketSchedule:
+    """:func:`packet_schedule` of ``p``, built once and kept on the
+    object."""
+    cached = vars(p).get("_schedule")
     if cached is None:
-        wl = packet_work_list(p.row_ptr, p.k)
-        dev = p.row_ptr.device if isinstance(p.row_ptr, torch.Tensor) else "cpu"
-        cached = PacketWork(torch.from_numpy(wl.items).to(dev),
-                            torch.from_numpy(wl.splits).to(dev), wl.num_parts)
-        vars(p)["_work"] = cached
+        cached = vars(p)["_schedule"] = packet_schedule(p)
     return cached
 
 
@@ -114,21 +152,14 @@ def _compute_dtype(compute_dtype: Optional[torch.dtype], device) -> torch.dtype:
     return compute_dtype
 
 
-def _packet_terms(p: EdgePackets, x: torch.Tensor, compute_dtype,
-                  lo: int = 0, hi: Optional[int] = None):
-    """(output row of every slot, its term ``g``) of packets ``lo..hi``,
-    with the compute dtype's roundings."""
-    sl = slice(lo, hi)
-    w = p.w[sl]
+def _terms(w: torch.Tensor, xg: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """Each edge's term ``g = w x`` from its weights ``w [...]`` and
+    gathered x rows ``xg [..., D]``, with the compute dtype's roundings."""
     if compute_dtype == torch.bfloat16:
-        x = x.to(torch.bfloat16).float()
         w = w.to(torch.bfloat16).float()
-    src = p.col_blk[sl].long()[:, None] * p.block_c + p.cols[sl].long()
-    dst = p.row_of[sl].long()[:, None] * p.block_r + p.rows[sl].long()
-    g = w[:, :, None] * x[src]  # [P, K, D]
-    if compute_dtype == torch.bfloat16:
-        g = g.to(torch.bfloat16).float()
-    return dst.reshape(-1), g.reshape(-1, x.shape[1])
+        xg = xg.to(torch.bfloat16).float()
+        return (w[..., None] * xg).to(torch.bfloat16).float()
+    return w[..., None] * xg
 
 
 def spmm_packets_plain(p: EdgePackets, x: torch.Tensor,
@@ -138,37 +169,46 @@ def spmm_packets_plain(p: EdgePackets, x: torch.Tensor,
     """Plain PyTorch ``A @ x``: gather the x row of every slot, scale by
     its weight (with the compute dtype's roundings) and ``index_add_``
     into the slot's output row."""
-    dst, g = _packet_terms(p, x, compute_dtype)
+    src = p.col_blk.long()[:, None] * p.block_c + p.cols.long()
+    dst = p.row_of.long()[:, None] * p.block_r + p.rows.long()
+    g = _terms(p.w, x[src], compute_dtype)  # [P, K, D]
     y = torch.zeros((p.num_nodes, x.shape[1]), dtype=torch.float32,
                     device=x.device)
-    y.index_add_(0, dst, g)
+    y.index_add_(0, dst.reshape(-1), g.reshape(-1, x.shape[1]))
     return y.to(out_dtype or torch.float32)
 
 
 def spmm_packets_schedule_plain(p: EdgePackets, x: torch.Tensor,
                                 out_dtype: Optional[torch.dtype] = None,
                                 compute_dtype: torch.dtype = torch.float32,
-                                chunk_slots: int = CHUNK_SLOTS
+                                chunk_edges: Optional[int] = None
                                 ) -> torch.Tensor:
-    """Plain PyTorch ``A @ x`` that walks the kernel's work list: an f32
-    sum per chunk, written directly for an unsplit block and as a partial
-    otherwise; each split block's partials summed in chunk order; one
-    rounding to ``out_dtype`` at the end."""
-    wl = packet_work_list(p.row_ptr, p.k, chunk_slots)
-    br, d = p.block_r, x.shape[1]
+    """Plain PyTorch ``A @ x`` that walks the kernel's schedule (the one
+    kept on ``p``, or one in chunks of ``chunk_edges``): each chunk's f32
+    sum over its edges in schedule order, written directly for a row that
+    is one chunk and as a partial row otherwise; each split row's partials
+    summed in chunk order; one rounding to ``out_dtype`` at the end."""
+    sc = schedule(p) if chunk_edges is None else packet_schedule(p, chunk_edges)
+    d = x.shape[1]
+    g = _terms(p.w.reshape(-1)[sc.slot.long()], x[sc.src.long()], compute_dtype)
+    items = sc.items.long()
+    items = items[torch.argsort(items[:, 1], stable=True)]  # in edge order
+    chunk_of = torch.repeat_interleave(
+        torch.arange(items.shape[0], device=x.device), items[:, 2] - items[:, 1],
+        output_size=g.shape[0])
+    acc = torch.zeros((items.shape[0], d), dtype=torch.float32, device=x.device)
+    acc.index_add_(0, chunk_of, g)
     y = torch.zeros((p.num_nodes, d), dtype=torch.float32, device=x.device)
-    parts = torch.zeros((wl.num_parts, br, d), dtype=torch.float32,
-                        device=x.device)
-    for rb, lo, hi, part in wl.items.tolist():
-        acc = torch.zeros((br, d), dtype=torch.float32, device=x.device)
-        dst, g = _packet_terms(p, x, compute_dtype, lo, hi)
-        acc.index_add_(0, dst - rb * br, g)
-        (y[rb * br:(rb + 1) * br] if part < 0 else parts[part]).copy_(acc)
-    for rb, first, n, _ in wl.splits.tolist():
-        acc = parts[first].clone()
-        for i in range(first + 1, first + n):
-            acc += parts[i]
-        y[rb * br:(rb + 1) * br] = acc
+    direct = items[:, 3] < 0
+    y[items[direct, 0]] = acc[direct]
+    parts = torch.empty((sc.num_parts, d), dtype=torch.float32, device=x.device)
+    parts[items[~direct, 3]] = acc[~direct]
+    row, first, n = sc.splits.long()[:, :3].unbind(1)
+    out = parts[first]
+    for j in range(1, int(n.max()) if n.numel() else 0):
+        more = n > j
+        out[more] += parts[first[more] + j]
+    y[row] = out
     return y.to(out_dtype or torch.float32)
 
 
@@ -177,11 +217,11 @@ def _lib():
     lib = library("packets_kernels")
     if not _bound:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.spmm_packets.argtypes = [vp] * 5 + [ci] + [vp] * 3 + [ci] * 7 + [vp]
+        lib.spmm_packets.argtypes = [vp] * 4 + [ci] + [vp] * 3 + [ci] * 4 + [vp]
         lib.spmm_packets.restype = ci
-        lib.spmm_packets_reduce.argtypes = [vp, ci, vp, vp, ci, ci, ci, ci, vp]
+        lib.spmm_packets_reduce.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
         lib.spmm_packets_reduce.restype = ci
-        lib.spmm_packets_ablation.argtypes = [vp] * 5 + [ci] + [vp] * 3 + [ci] * 5 + [vp]
+        lib.spmm_packets_ablation.argtypes = [vp] * 4 + [ci] + [vp] * 3 + [ci] * 2 + [vp]
         lib.spmm_packets_ablation.restype = ci
         _bound = True
     return lib
@@ -217,40 +257,43 @@ def _check_args(p: EdgePackets, x: torch.Tensor, out_dtype) -> torch.dtype:
 
 def _launch(p: EdgePackets, x: torch.Tensor, out_dtype: torch.dtype,
             bf16: bool, mode: Optional[int] = None) -> torch.Tensor:
-    """Run B7's main pass (or its ablation ``mode``) and, where blocks are
-    split, the reduce pass; counts launches only for ``mode=None``."""
-    if p.block_r * _COLS * 4 > _SMEM_LIMIT:
-        raise ValueError(f"block_r {p.block_r} too large: the kernel keeps "
-                         f"block_r x {_COLS} float32 in shared memory")
+    """Run B7's main pass (or its ablation ``mode``) and, where rows are
+    split, the reduce pass (not for ``gather_only``, which writes no
+    partials); counts launches only for ``mode=None``."""
     lib = _lib()
-    wl = work_list(p)
+    sc = schedule(p)
+    dev = x.device
+    for name in ("src", "slot"):
+        check_tensor(name, getattr(sc, name), torch.int32, 1, dev)
+    check_tensor("items", sc.items, torch.int32, 2, dev)
+    check_tensor("splits", sc.splits, torch.int32, 2, dev)
     n, d = x.shape
     xk = x.to(torch.bfloat16) if bf16 else x  # rounded once, not per edge
     vec = d % 4 == 0 and xk.data_ptr() % 16 == 0
     if mode is not None and not (bf16 and vec and out_dtype == torch.float32):
         raise ValueError("the ablations take bf16 compute, an f32 output and "
                          "D % 4 == 0")
-    y = torch.empty((n, d), dtype=out_dtype, device=x.device)
-    partial = torch.empty((wl.num_parts, p.block_r, d), dtype=torch.float32,
-                          device=x.device)
-    args = (p.rows.data_ptr(), p.cols.data_ptr(), p.w.data_ptr(),
-            p.col_blk.data_ptr(), wl.items.data_ptr(), wl.items.shape[0],
-            xk.data_ptr(), y.data_ptr(), partial.data_ptr())
-    geom = (p.k, p.block_r, p.block_c, d, stream(x.device))
-    with torch.cuda.device(x.device):
+    gather_only = mode == ABLATIONS.index("gather_only")
+    y = (torch.zeros if gather_only else torch.empty)(
+        (n, d), dtype=out_dtype, device=dev)
+    partial = torch.empty((sc.num_parts, d), dtype=torch.float32, device=dev)
+    args = (sc.src.data_ptr(), sc.slot.data_ptr(), p.w.data_ptr(),
+            sc.items.data_ptr(), sc.items.shape[0], xk.data_ptr(), y.data_ptr(),
+            partial.data_ptr())
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
         if mode is None:
-            err = lib.spmm_packets(*args, int(bf16),
-                                   int(out_dtype == torch.bfloat16), int(vec), *geom)
+            err = lib.spmm_packets(*args, int(bf16), out_bf16, int(vec), d,
+                                   stream(dev))
         else:
-            err = lib.spmm_packets_ablation(*args, mode, *geom)
+            err = lib.spmm_packets_ablation(*args, mode, d, stream(dev))
         raise_on(err, "spmm_packets")
         if mode is None:
             LAUNCHES["spmm_packets"] += 1
-        if wl.splits.shape[0]:
+        if sc.splits.shape[0] and not gather_only:
             err = lib.spmm_packets_reduce(
-                wl.splits.data_ptr(), wl.splits.shape[0], partial.data_ptr(),
-                y.data_ptr(), int(out_dtype == torch.bfloat16), int(vec),
-                p.block_r, d, stream(x.device))
+                sc.splits.data_ptr(), sc.splits.shape[0], partial.data_ptr(),
+                y.data_ptr(), out_bf16, int(vec), d, stream(dev))
             raise_on(err, "spmm_packets_reduce")
             if mode is None:
                 LAUNCHES["spmm_packets_reduce"] += 1
@@ -276,9 +319,9 @@ def _spmm_packets_ablation(p: EdgePackets, x: torch.Tensor,
                            mode: str) -> torch.Tensor:
     """B7 (bf16 compute, f32 output) in one of its diagnostic modes, the
     counterpart of ``bench_packets_diag.py:112 run_variant``: ``full``;
-    ``slots_only`` (slot data read and accumulated, no gather);
+    ``slots_only`` (the schedule and weights read, nothing gathered);
     ``no_gather`` (every x read goes to row 0); ``gather_only`` (no
-    shared-memory accumulation, one register sum a lane).  Only ``full``
+    per-row store: one register sum a lane, written once a warp).  Only ``full``
     gives ``A @ x``; the others keep its shape.  Card only; no launch is
     counted."""
     if mode not in ABLATIONS:

@@ -73,6 +73,7 @@ from tpugraph_torch.nn.layers import (Adjacency, BCSRAdj, PacketAdj,
                                       SparseAdj, StackedAdj)
 from tpugraph_torch.nn.losses import (link_prediction_loss, node_cross_entropy,
                                       softmax_cross_entropy)
+from tpugraph_torch.ops import packets_kernels
 from tpugraph_torch.ops.bcsr import (bcsr_from_coo, bcsr_transpose_host,
                                      bcsr_transpose_plan, choose_k_pack_counts,
                                      coo_tile_counts)
@@ -149,12 +150,12 @@ def _opt_config(cfg: TrainConfig) -> OptimizerConfig:
 # power-law graph (2,097,152 edges, block 256), and the pack of A and A^T
 # with the upload, per 256^2 int8 tile (resident) or per edge (packets).
 # Override any subset with
-#   TPUGRAPH_RATES="res_edges_per_s=6.8e8,pkt_edges_per_s=2.3e9,
+#   TPUGRAPH_RATES="res_edges_per_s=6.8e8,pkt_edges_per_s=4.7e9,
 #                   res_pack_s_per_tile=1.5e-4,pkt_pack_s_per_edge=5e-7"
 # or pin TrainConfig.bcsr_format.
 _RATE_DEFAULTS = {
     "res_edges_per_s": 6.8e8,       # resident-stacked kernel B4, a pair
-    "pkt_edges_per_s": 2.3e9,       # edge-packet kernel B7, a pair
+    "pkt_edges_per_s": 4.7e9,       # edge-packet kernel B7, a pair
     "res_pack_s_per_tile": 1.5e-4,  # int8 tiles, stack and upload
     "pkt_pack_s_per_edge": 5e-7,    # packets of A and A^T and upload
 }
@@ -275,7 +276,8 @@ def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
     padded node count it needs (a multiple of the block for the tile
     formats).  Without ``use_bcsr`` it is the COO edge list itself, with
     its CSR built on the card after the upload (the CPU runs the gather
-    path, which needs none);
+    path, which needs none); packets carry B7's row schedules, built on
+    the card after the upload (:func:`packets_kernels.schedule`);
     otherwise :func:`choose_format` picks the format (``att``: an
     attention model, which takes f32 tiles with a transpose plan).  A GAT
     model (``gat``) takes :func:`gat_adjacency` and raises with
@@ -309,8 +311,11 @@ def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
             p_t = pack_edges_transpose(s_np, r_np, w_np, n_pad, block_r=br,
                                        block_c=bc, k=kk)
         with trace_annotation("train.pack.upload"):
-            return (PacketAdj(p.to(device), p_t.to(device),
-                              cfg.packet_compute_dtype), p.num_nodes)
+            p, p_t = p.to(device), p_t.to(device)
+            if p.w.device.type == "cuda":  # B7's row schedules, once a job
+                for q in (p, p_t):
+                    packets_kernels.schedule(q)
+            return PacketAdj(p, p_t, cfg.packet_compute_dtype), p.num_nodes
     if fmt == "resident":
         with trace_annotation("train.pack.host"):
             integral = bool(np.all(w_np == np.rint(w_np))
