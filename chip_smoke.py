@@ -989,16 +989,20 @@ def measure_packets(shape, p, x, compute_dtype, schedule_plain=False):
     import torch
 
     from tpugraph_torch.ops import packets_kernels as pk
+    from tpugraph_torch.ops.csr import spmm_csr_plain
 
     d = x.shape[1]
     sc = pk.schedule(p)
-    e = int(sc.slot.shape[0])
+    e = int(sc.eid.shape[0])
     per_row = int((sc.rowptr[1:] - sc.rowptr[:-1]).max()) if e else 1
     bf16 = compute_dtype == torch.bfloat16
-    plain = pk.spmm_packets_schedule_plain if schedule_plain else pk.spmm_packets_plain
+    if schedule_plain:
+        plain = lambda: spmm_csr_plain(sc, p.w, x, compute_dtype)
+    else:
+        plain = lambda: pk.spmm_packets_plain(p, x, None, compute_dtype)
     run = lambda: pk.spmm_packets(p, x, compute_dtype=compute_dtype)
     rec = measure_case(
-        "spmm_packets", shape, d, run, lambda: plain(p, x, None, compute_dtype),
+        "spmm_packets", shape, d, run, plain,
         lambda: library_packets(p, x), 12 * e + 4 * 2 * p.num_nodes * d,
         2.0 * e * d, BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S, per_row,
         extra={"packets": p.num_packets, "slots": p.num_edge_slots,
@@ -1034,6 +1038,7 @@ def phase_lowloc(report, gen):
     from tpugraph_torch.nn import GcnEncoderNode
     from tpugraph_torch.ops import bcsr, packets
     from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.ops import csr as row_csr
     from tpugraph_torch.ops import packets_kernels as pk
     from tpugraph_torch.ops import resident_kernels as rk
     from tpugraph_torch.train import TrainConfig, train_node_classifier
@@ -1168,9 +1173,9 @@ def phase_lowloc(report, gen):
                   "packets did not launch B7's reduce pass (no split row)")
             shapes[fmt] = measure_packets(shape, adj.p, x, torch.bfloat16)
             sc = pk.schedule(adj.p)
-            print(f"  B7 schedule: {sc.slot.shape[0]} live edges of "
+            print(f"  B7 schedule: {sc.eid.shape[0]} live edges of "
                   f"{adj.p.num_edge_slots} slots, {sc.items.shape[0]} chunks of at "
-                  f"most {pk.CHUNK_EDGES} edges over {adj.p.num_nodes} rows; "
+                  f"most {row_csr.CHUNK_EDGES} edges over {adj.p.num_nodes} rows; "
                   f"{sc.splits.shape[0]} rows split into {sc.num_parts} partial "
                   f"rows (longest row {shapes[fmt]['longest_row']} edges)", flush=True)
             ablation = [packets_ablation(shape, adj.p, x)]
@@ -1534,6 +1539,7 @@ def phase_coo_csr(gen):
     from gnnbench.data import chunglu
     from tpugraph_torch.core.graph import graph_from_edges
     from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.ops import csr as row_csr
     from tpugraph_torch.ops import message
 
     d0 = chunglu.generate(0, ARXIV_NODES, ARXIV_EDGES, feat_dim=1, num_classes=1)
@@ -1550,7 +1556,7 @@ def phase_coo_csr(gen):
     for name, c in (("A", csr.a), ("A^T", csr.a_t)):
         deg = c.rowptr[1:] - c.rowptr[:-1]
         print(f"  coo_csr {name}: {n} rows, {e} edges, longest row {int(deg.max())}; "
-              f"work list {c.items.shape[0]} chunks of at most {ck.CHUNK_EDGES} edges, "
+              f"work list {c.items.shape[0]} chunks of at most {row_csr.CHUNK_EDGES} edges, "
               f"{c.splits.shape[0]} rows split into {c.num_parts} chunks; edge_csr "
               f"of A and A^T {build_s * 1e3:.1f} ms on the card", flush=True)
     records = []
@@ -1572,13 +1578,13 @@ def phase_coo_csr(gen):
             records.append(rec)
             torch.cuda.empty_cache()
     packet_records, ablation = phase_coo_csr_packets(g, gen)
-    sweep, chunk_edges = {}, ck.CHUNK_EDGES
+    sweep, chunk_edges = {}, row_csr.CHUNK_EDGES
     for chunk in CSR_CHUNKS:
-        ck.CHUNK_EDGES = chunk
+        row_csr.CHUNK_EDGES = chunk
         try:
             cc = ck.edge_csr(s, r, n)
         finally:
-            ck.CHUNK_EDGES = chunk_edges
+            row_csr.CHUNK_EDGES = chunk_edges
         for d in (128, 256):
             x = torch.randn((n, d), generator=gen, device="cuda")
             sweep[f"chunk={chunk} D={d}"] = round(
@@ -1600,6 +1606,7 @@ def phase_coo_csr_packets(g, gen):
     D = 128."""
     import torch
 
+    from tpugraph_torch.ops import csr as row_csr
     from tpugraph_torch.ops import packets
     from tpugraph_torch.ops import packets_kernels as pk
     from tpugraph_torch.train import TrainConfig
@@ -1617,9 +1624,9 @@ def phase_coo_csr_packets(g, gen):
     t2 = time.perf_counter()
     for name, q in (("A", pa), ("A^T", pa_t)):
         sc = pk.schedule(q)
-        print(f"  B7 arxiv {name}: {q.num_packets} packets of {k}, {sc.slot.shape[0]} "
+        print(f"  B7 arxiv {name}: {q.num_packets} packets of {k}, {sc.eid.shape[0]} "
               f"live edges of {q.num_edge_slots} slots; schedule {sc.items.shape[0]} "
-              f"chunks of at most {pk.CHUNK_EDGES} edges over {q.num_nodes} rows, "
+              f"chunks of at most {row_csr.CHUNK_EDGES} edges over {q.num_nodes} rows, "
               f"{sc.splits.shape[0]} rows split into {sc.num_parts} partial rows; "
               f"packing and upload of A and A^T {t1 - t0:.2f} s on the host, their "
               f"schedules {(t2 - t1) * 1e3:.1f} ms on the card", flush=True)

@@ -1,9 +1,10 @@
 """The COO product over the edge list's CSR (``ops/coo_kernels.py``) on the
-CPU: the CSR walked row by row in its order against the gather and
-``index_add_`` of ``ops/message.py``, the autograd wrapper's gradients
-(around a plain walk of the CSR in the kernel's place), the work list the
-card's kernel walks, and COO training with and without the CSR.  The
-kernel itself runs on the card only (``tests/test_torch_cuda.py``)."""
+CPU: the CSR walked by the kernel's plain twin (``ops/csr.py``) against
+the gather and ``index_add_`` of ``ops/message.py``, the autograd
+wrapper's gradients (around that twin in the kernel's place), the work
+list the card's kernels walk (of the edge list's CSR and of B7's packet
+schedule, which share it), and COO training with and without the CSR.
+The kernels themselves run on the card only (``tests/test_torch_cuda.py``)."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,9 @@ import torch
 from tpugraph_torch.core.graph import graph_from_edges
 from tpugraph_torch.nn import GcnEncoderNode, SparseAdj
 from tpugraph_torch.ops import coo_kernels as ck
-from tpugraph_torch.ops import message
+from tpugraph_torch.ops import csr as row_csr
+from tpugraph_torch.ops import message, packets, packets_kernels
+from tpugraph_torch.ops.csr import spmm_csr_plain
 from tpugraph_torch.train import TrainConfig, train_node_classifier
 from tpugraph_torch.train import loop
 
@@ -44,24 +47,17 @@ def _graph(case, seed=0):
 CASES = ["plain", "padding", "empty_rows", "repeats", "hub", "wide"]
 
 
-def spmm_csr_plain(c, weight, x):
-    """What the kernel computes, in plain PyTorch on the CPU: the sorted
-    edges' x rows, scaled by their weights, added into their rows in CSR
-    order."""
-    rows = torch.repeat_interleave(torch.arange(c.num_nodes),
-                                   (c.rowptr[1:] - c.rowptr[:-1]).long())
-    return message.spmm(c.col, rows, weight[c.eid.long()], x)
-
-
 @pytest.fixture
 def plain_kernel(monkeypatch):
-    """``spmm_csr_plain`` in the kernel's place; counts its calls."""
+    """``spmm_csr_plain`` in the kernel's place, over CSRs whose rows are
+    each one chunk, so it has ``message.spmm``'s bits; counts its calls."""
     calls = []
 
     def spmm_csr(c, weight, x):
         calls.append(c)
         return spmm_csr_plain(c, weight, x)
 
+    monkeypatch.setattr(row_csr, "CHUNK_EDGES", 1 << 20)
     monkeypatch.setattr(ck, "spmm_csr", spmm_csr)
     return calls
 
@@ -76,13 +72,23 @@ def _tensors(case, dtype, seed=0):
 @pytest.mark.parametrize("case", CASES)
 def test_spmm_csr_plain_is_message_spmm_bit_for_bit(case, dtype, monkeypatch):
     """A @ x and A^T @ x walked over the CSR equal the gather and
-    index_add_ over the edge list exactly: each row keeps its edges in
-    edge order, so an unsplit row's sum is the CPU's."""
-    monkeypatch.setattr(ck, "CHUNK_EDGES", 64)
+    index_add_ over the edge list exactly where a row is one chunk: each
+    row keeps its edges in edge order, so an unsplit row's sum is the
+    CPU's.  In chunks of 64 (the hub case splits rows) the unsplit rows
+    keep those bits and a split row lies within f32 reordering."""
     s, r, w, x, n = _tensors(case, dtype)
-    csr = ck.edge_csr(s, r, n)
-    assert torch.equal(spmm_csr_plain(csr.a, w, x), message.spmm(s, r, w, x))
-    assert torch.equal(spmm_csr_plain(csr.a_t, w, x), message.spmm(r, s, w, x))
+    for chunk in (1 << 20, 64):
+        monkeypatch.setattr(row_csr, "CHUNK_EDGES", chunk)
+        csr = ck.edge_csr(s, r, n)
+        for c, snd, rcv in ((csr.a, s, r), (csr.a_t, r, s)):
+            y, ref = spmm_csr_plain(c, w, x), message.spmm(snd, rcv, w, x)
+            split = torch.zeros(n, dtype=torch.bool)
+            split[c.splits[:, 0].long()] = True
+            assert chunk == 64 or not bool(split.any())
+            assert torch.equal(y[~split], ref[~split])
+            k = (c.rowptr[1:] - c.rowptr[:-1]).float()[:, None]
+            tol = 1e-5 * k.sqrt() * message.spmm(snd, rcv, w.abs(), x.abs())
+            assert bool(((y - ref).abs() <= tol)[split].all())
 
 
 @pytest.mark.parametrize("weight_grad", [False, True])
@@ -125,21 +131,53 @@ def test_csr_matvec_without_x_gradient_skips_the_transpose(plain_kernel):
     assert torch.equal(wa.grad, wb.grad)
 
 
-@pytest.mark.parametrize("chunk", [1, 5, 64, 256])
-@pytest.mark.parametrize("case", CASES)
-def test_work_list_covers_every_edge_once(case, chunk, monkeypatch):
-    """Each row's chunks tile its CSR range in order, at most ``chunk``
-    edges each, longest first; an empty row is one empty chunk written
-    directly; a split row's chunks own consecutive partial slots, which
-    ``splits`` lists; the CSR keeps each row's edges in edge order."""
-    monkeypatch.setattr(ck, "CHUNK_EDGES", chunk)
-    s, r, w, x, n = _tensors(case, torch.int64)
+def _hub_packets(seed=1, br=32, bc=32, k=8, n=256, e=3000):
+    """B7's source: a hub-heavy graph packed into edge packets, over half
+    its edges in receiver block 0 and the upper half's receiver blocks
+    without an edge; returns the packets and, for each slot, its global
+    receiver row and x row, and the live slots."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = np.where(rng.random(e) < 0.6, rng.integers(0, br, e),
+                 rng.integers(0, n // 2, e)).astype(np.int32)
+    w = rng.standard_normal(e).astype(np.float32)
+    p = packets.pack_edges(s, r, w, n, block_r=br, block_c=bc, k=k).to("cpu")
+    rows = (p.row_of.long()[:, None] * br + p.rows.long()).reshape(-1)
+    cols = (p.col_blk.long()[:, None] * bc + p.cols.long()).reshape(-1)
+    return p, rows, cols, torch.nonzero(p.w.reshape(-1) != 0)[:, 0]
+
+
+def _work_list_sources(case):
+    """(CSR, row and column of every entry, the entries it must list, rows)
+    of each CSR the case builds: A and A^T of an edge list, or B7's packet
+    schedule (only the live slots)."""
+    if case == "packets":
+        p, rows, cols, live = _hub_packets()
+        return [(packets_kernels.packet_schedule(p), rows, cols, live, p.num_nodes)]
+    s, r, _, _, n = _tensors(case, torch.int64)
     csr = ck.edge_csr(s, r, n)
-    for c, rows, cols in ((csr.a, r, s), (csr.a_t, s, r)):
+    every = torch.arange(len(s))
+    return [(csr.a, r, s, every, n), (csr.a_t, s, r, every, n)]
+
+
+@pytest.mark.parametrize("case,chunk", [(case, chunk) for case in CASES
+                                        for chunk in (1, 5, 64, 256)]
+                         + [("packets", chunk) for chunk in (16, 100, 1 << 20)],
+                         ids=lambda v: str(v))
+def test_work_list_covers_every_edge_once(case, chunk, monkeypatch):
+    """Each row's chunks tile its CSR range in order, as few as ``chunk``
+    edges each allows, longest first; an empty row is one empty chunk
+    written directly; exactly the rows over ``chunk`` are split, and a
+    split row's chunks own consecutive partial slots, which ``splits``
+    lists in row order; the CSR lists each entry it must once, keeping
+    each row's entries in their order (edge order, or B7's packet and slot
+    order)."""
+    monkeypatch.setattr(row_csr, "CHUNK_EDGES", chunk)
+    for c, rows, cols, live, n in _work_list_sources(case):
         rowptr, items = c.rowptr.long(), c.items.long()
-        assert rowptr[0] == 0 and rowptr[-1] == len(s) == c.col.shape[0]
+        assert rowptr[0] == 0 and rowptr[-1] == len(live) == c.col.shape[0]
         eid = c.eid.long()
-        assert torch.equal(torch.sort(eid).values, torch.arange(len(s)))
+        assert torch.equal(torch.sort(eid).values, live)
         assert torch.equal(c.col.long(), cols[eid])
         sorted_rows = rows[eid]
         assert torch.all(sorted_rows[1:] >= sorted_rows[:-1])
@@ -152,18 +190,22 @@ def test_work_list_covers_every_edge_once(case, chunk, monkeypatch):
             by_row.setdefault(row, []).append((lo, hi, part))
         assert sorted(by_row) == list(range(n))
         splits = {row: (first, k) for row, first, k, _ in c.splits.tolist()}
+        counts = (rowptr[1:] - rowptr[:-1]).tolist()
+        assert list(splits) == [i for i in range(n) if counts[i] > chunk]
         for row, chunks in by_row.items():
             chunks.sort()
             lo, hi = int(rowptr[row]), int(rowptr[row + 1])
             assert chunks[0][0] == lo and chunks[-1][1] == hi
             assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+            assert len(chunks) == max(1, -(-counts[row] // chunk))
             if len(chunks) == 1:
                 assert chunks[0][2] == -1 and row not in splits
             else:
                 first, k = splits[row]
                 assert k == len(chunks)
                 assert [p for _, _, p in chunks] == list(range(first, first + k))
-        assert c.num_parts == sum(k for _, k in splits.values())
+        assert c.num_parts == sum(k for _, k in splits.values()) \
+            == int((items[:, 3] >= 0).sum())
 
 
 def test_edge_csr_checks_its_edges():

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from tpugraph_torch.ops import bcsr, bcsr_kernels, packets, packets_kernels
+from tpugraph_torch.ops import csr as row_csr
 from tpugraph_torch.ops import resident_kernels as rk
+from tpugraph_torch.ops.csr import spmm_csr_plain
 
 BF16_REL = 2.0 ** -8  # one bf16 rounding of a value (8 significant bits)
 BF16_ULP = 2.0 ** -7  # one bf16 ulp, relative
@@ -236,7 +238,7 @@ def test_spmm_packets_hub_split_matches_plain(cuda_device, compute_dtype,
     p, _, k_row = _hub_packets(cuda_device)
     sc = packets_kernels.schedule(p)
     assert sc.splits.shape[0] >= 6 and int(sc.splits[:, 2].max()) >= 4
-    assert sc.slot.shape[0] == int((p.w != 0).sum())
+    assert sc.eid.shape[0] == int((p.w != 0).sum())
     for d in (10, 128, 256):
         x = _x(p.num_nodes, d, d, cuda_device)
         before = dict(packets_kernels.LAUNCHES)
@@ -245,8 +247,7 @@ def test_spmm_packets_hub_split_matches_plain(cuda_device, compute_dtype,
         assert packets_kernels.LAUNCHES == {
             k: v + 1 for k, v in before.items()}
         assert y.dtype == out_dtype and y.shape == (p.num_nodes, d)
-        for ref in (packets_kernels.spmm_packets_schedule_plain(
-                        p, x, None, compute_dtype),
+        for ref in (spmm_csr_plain(sc, p.w, x, compute_dtype),
                     packets_kernels.spmm_packets_plain(p, x, None, compute_dtype)):
             err = (y.float() - ref).abs()
             assert bool((err <= _row_tol(ref, k_row, out_dtype)).all()), (
@@ -271,7 +272,7 @@ def test_packets_matvec_grad_through_transpose(cuda_device, compute_dtype):
     assert packets_kernels.LAUNCHES["spmm_packets_reduce"] == before + 2
     assert packets_kernels.schedule(p_t).splits.shape[0] >= 1
     for got, (q, v) in ((y, (p, x.detach())), (dx, (p_t, gy))):
-        ref = packets_kernels.spmm_packets_schedule_plain(q, v, None, compute_dtype)
+        ref = spmm_csr_plain(packets_kernels.schedule(q), q.w, v, compute_dtype)
         err = (got - ref).abs()
         assert bool((err <= _row_tol(ref, k_row, torch.float32)).all()), float(err.max())
 
@@ -289,8 +290,8 @@ def test_packets_adjacency_builds_schedules(cuda_device):
                              cuda_device)
     for q in (adj.p, adj.p_t):
         sc = vars(q)["_schedule"]
-        assert sc.src.device.type == "cuda" and sc.rowptr.shape[0] == n + 1
-        assert sc.slot.shape[0] == int((q.w != 0).sum())
+        assert sc.col.device.type == "cuda" and sc.rowptr.shape[0] == n + 1
+        assert sc.eid.shape[0] == int((q.w != 0).sum())
 
 
 @pytest.mark.cuda
@@ -313,7 +314,7 @@ def test_spmm_packets_ablations_run(cuda_device):
     # slots_only sums each row's bf16 weights, in the schedule's order
     sc = packets_kernels.schedule(p)
     ones = torch.ones_like(x)
-    ref1 = packets_kernels.spmm_packets_schedule_plain(p, ones, None, torch.bfloat16)
+    ref1 = spmm_csr_plain(sc, p.w, ones, torch.bfloat16)
     err = (outs["slots_only"] - ref1).abs()
     assert bool((err <= _row_tol(ref1, k_row, torch.float32)).all())
     assert sc.splits.shape[0] > 0
@@ -1599,12 +1600,12 @@ def test_gat_attention_small_cases_match_plain(cuda_device, heads, f, scale):
     loops = np.arange(280)             # and rows 280..299 nothing at all
     s = torch.from_numpy(np.concatenate([s, loops])).to(cuda_device)
     r = torch.from_numpy(np.concatenate([r, loops])).to(cuda_device)
-    chunk = ck.CHUNK_EDGES
-    ck.CHUNK_EDGES = 64
+    chunk = row_csr.CHUNK_EDGES
+    row_csr.CHUNK_EDGES = 64
     try:
         csr = ck.edge_csr(s, r, 300)
     finally:
-        ck.CHUNK_EDGES = chunk
+        row_csr.CHUNK_EDGES = chunk
     gaps, same = _gat_kernels_vs_plain(csr, *_gat_inputs(300, heads, f, 8, cuda_device,
                                                          scale), heads)
     assert same

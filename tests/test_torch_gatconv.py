@@ -27,6 +27,7 @@ from reference import gat as ref
 from tpugraph_torch.core.graph import graph_from_edges
 from tpugraph_torch.nn import GATConv, GatEncoderNode, SparseAdj
 from tpugraph_torch.ops import coo_kernels as ck
+from tpugraph_torch.ops import csr as row_csr
 from tpugraph_torch.train import TrainConfig, train_node_classifier
 from tpugraph_torch.train import loop
 
@@ -55,7 +56,7 @@ def _graph(seed=0, n=300, e=2000, hub=True):
 
 @pytest.fixture
 def small(monkeypatch):
-    monkeypatch.setattr(ck, "CHUNK_EDGES", 64)
+    monkeypatch.setattr(row_csr, "CHUNK_EDGES", 64)
     g, rng = _graph()
     adj, n = loop.gat_adjacency(g, torch.device("cpu"))
     return g, adj, n, rng
@@ -157,7 +158,7 @@ def test_split_rows_agree_with_unsplit_rows(monkeypatch):
     g, rng = _graph(3)
     out = []
     for chunk in (16, 100000):
-        monkeypatch.setattr(ck, "CHUNK_EDGES", chunk)
+        monkeypatch.setattr(row_csr, "CHUNK_EDGES", chunk)
         adj, n = loop.gat_adjacency(g, torch.device("cpu"))
         if not out:
             z = torch.from_numpy(rng.standard_normal((n, 6)).astype(np.float32))

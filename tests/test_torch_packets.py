@@ -13,7 +13,9 @@ import jax.numpy as jnp
 from tpugraph.ops import packets as jax_packets
 from tpugraph.ops import pallas_packets as jax_pk
 from tpugraph.train import loop as jax_loop
+from tpugraph_torch.ops import csr as row_csr
 from tpugraph_torch.ops import packets, packets_kernels
+from tpugraph_torch.ops.csr import spmm_csr_plain
 from tpugraph_torch.train import TrainConfig, resolve_bcsr_format
 
 torch.set_num_threads(1)
@@ -166,15 +168,16 @@ def _live_slots(p):
 
 
 @pytest.mark.parametrize("chunk", [16, 100, 1 << 20])
-def test_schedule_covers_every_live_slot_once(chunk):
+def test_schedule_covers_every_live_slot_once(chunk, monkeypatch):
     """The row schedule lists every live slot exactly once and no dead
     one, rows in order and, within a row, packet and slot order kept;
     each edge's x row and the row offsets agree with the packets."""
+    monkeypatch.setattr(row_csr, "CHUNK_EDGES", chunk)
     p, _, s, r, w = _hub_packets(seed=1)
     counts = np.diff(p.row_ptr)
     assert counts[0] > 0.5 * p.num_packets  # the hub block
-    sc = packets_kernels.packet_schedule(p, chunk)
-    slot, src = sc.slot.numpy().astype(np.int64), sc.src.numpy()
+    sc = packets_kernels.packet_schedule(p)
+    slot, src = sc.eid.numpy().astype(np.int64), sc.col.numpy()
     rowptr = sc.rowptr.numpy().astype(np.int64)
     row, want_src, live = _live_slots(p)
     assert len(slot) == len(live) == int((w != 0).sum())
@@ -191,45 +194,31 @@ def test_schedule_covers_every_live_slot_once(chunk):
 
 
 @pytest.mark.parametrize("chunk", [16, 100, 1 << 20])
-def test_schedule_chunks_longest_first(chunk):
-    """Each row's edges are cut into chunks of at most ``chunk`` in order,
-    every row (an empty one too) has an item, the longest chunks come
-    first, only rows over the chunk are split, and a split row's partial
-    slots are consecutive from its first one."""
+def test_schedule_is_row_csrs_on_live_slots(chunk, monkeypatch):
+    """B7's schedule is ``csr.row_csrs`` run on the live slots alone, each
+    with its global receiver row and x row: every field equal, ``eid``
+    mapped from the live slots' positions to their slots."""
+    monkeypatch.setattr(row_csr, "CHUNK_EDGES", chunk)
     p, _, _, _, _ = _hub_packets(seed=1)
-    sc = packets_kernels.packet_schedule(p, chunk)
-    items = sc.items.numpy().astype(np.int64)
-    splits = sc.splits.numpy().astype(np.int64)
-    rowptr = sc.rowptr.numpy().astype(np.int64)
-    sizes = items[:, 2] - items[:, 1]
-    assert np.all(np.diff(sizes) <= 0)  # longest first
-    by_pos = items[np.lexsort((items[:, 1], items[:, 0]))]
-    np.testing.assert_array_equal(np.unique(by_pos[:, 0]), np.arange(p.num_nodes))
-    counts = np.diff(rowptr)
-    for i in np.flatnonzero(counts > chunk // 2).tolist() + [0, p.num_nodes - 1]:
-        mine = by_pos[by_pos[:, 0] == i]
-        assert mine[0, 1] == rowptr[i] and mine[-1, 2] == rowptr[i + 1]
-        np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
-        assert np.all(mine[:, 2] - mine[:, 1] <= chunk)
-        assert len(mine) == max(1, -(-counts[i] // chunk))
-        if len(mine) > 1:
-            (sp,) = splits[splits[:, 0] == i]
-            np.testing.assert_array_equal(mine[:, 3], sp[1] + np.arange(sp[2]))
-        else:
-            assert mine[0, 3] == -1 and i not in splits[:, 0]
-    np.testing.assert_array_equal(splits[:, 0], np.flatnonzero(counts > chunk))
-    assert sc.num_parts == int(splits[:, 2].sum()) == int((items[:, 3] >= 0).sum())
-    assert (len(splits) > 0) == (chunk < counts.max())
+    row, src, live = (torch.from_numpy(v) for v in _live_slots(p))
+    sc = packets_kernels.packet_schedule(p)
+    (want,) = row_csr.row_csrs([(row, lambda i: src[i])], p.num_nodes)
+    assert sc.num_parts == want.num_parts
+    for name in ("rowptr", "col", "items", "splits"):
+        assert torch.equal(getattr(sc, name), getattr(want, name)), name
+    assert torch.equal(sc.eid.long(), live[want.eid.long()])
 
 
-def test_schedule_empty_receiver_block():
+def test_schedule_empty_receiver_block(monkeypatch):
     """A receiver block of dead packets only, and one with no packets,
     gives one empty item a row, whose rows come out as zeros."""
     p, _, _, _, _ = _hub_packets(seed=2)
     dead = p.num_row_blocks - 1
     assert not np.any(p.w[p.row_ptr[dead]:p.row_ptr[dead + 1]])
     x = torch.from_numpy(_x(p.num_nodes, 16, 0))
-    y = packets_kernels.spmm_packets_schedule_plain(p.to("cpu"), x, chunk_edges=16)
+    monkeypatch.setattr(row_csr, "CHUNK_EDGES", 16)
+    pt = p.to("cpu")
+    y = spmm_csr_plain(packets_kernels.packet_schedule(pt), pt.w, x)
     assert not bool(y[dead * p.block_r:].any())
     # drop the dead block's packets: a block of zero packets
     lo = int(p.row_ptr[dead])
@@ -238,19 +227,20 @@ def test_schedule_empty_receiver_block():
         col_blk=p.col_blk[:lo], row_ptr=np.minimum(p.row_ptr, lo),
         num_nodes=p.num_nodes, block_r=p.block_r, block_c=p.block_c)
     for q in (p, bare):
-        sc = packets_kernels.packet_schedule(q, 16)
+        sc = packets_kernels.packet_schedule(q)
         items = sc.items.numpy()
         mine = items[items[:, 0] >= dead * p.block_r]
         assert len(mine) == p.block_r and np.all(mine[:, 1] == mine[:, 2])
-        assert np.all(mine[:, 1] == sc.slot.shape[0]) and np.all(mine[:, 3] == -1)
-    y2 = packets_kernels.spmm_packets_schedule_plain(bare.to("cpu"), x,
-                                                     chunk_edges=16)
+        assert np.all(mine[:, 1] == sc.eid.shape[0]) and np.all(mine[:, 3] == -1)
+    bt = bare.to("cpu")
+    y2 = spmm_csr_plain(packets_kernels.packet_schedule(bt), bt.w, x)
     np.testing.assert_array_equal(y2.numpy(), y.numpy())
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
-def test_schedule_plain_matches_plain_and_pallas(compute_dtype, out_dtype):
+def test_schedule_plain_matches_plain_and_pallas(compute_dtype, out_dtype,
+                                                 monkeypatch):
     """The plain version that walks B7's row schedule (f32 chunk partials
     summed in chunk order, one rounding at the end) equals the one-pass
     plain version and JAX's kernel in interpret mode on the hub graph:
@@ -260,10 +250,11 @@ def test_schedule_plain_matches_plain_and_pallas(compute_dtype, out_dtype):
     p, p_j, s, r, w = _hub_packets(seed=3)
     x = _x(p.num_nodes, 24, 5)
     pt, xt = p.to("cpu"), torch.from_numpy(x)
-    y = packets_kernels.spmm_packets_schedule_plain(pt, xt, out_dtype,
-                                                    compute_dtype, chunk_edges=16)
+    monkeypatch.setattr(row_csr, "CHUNK_EDGES", 16)
+    sc = packets_kernels.packet_schedule(pt)
+    y = spmm_csr_plain(sc, pt.w, xt, compute_dtype, out_dtype)
     assert y.dtype == out_dtype and y.shape == (p.num_nodes, 24)
-    assert len(packets_kernels.packet_schedule(p, 16).splits) > 1
+    assert len(sc.splits) > 1
     ref_plain = packets_kernels.spmm_packets_plain(pt, xt, None, compute_dtype)
     ref_jax = np.asarray(jax_pk.spmm_packets(
         p_j, jnp.asarray(np.pad(x, ((0, 0), (0, 104)))), interpret=True,

@@ -17,124 +17,56 @@ bfloat16 on a CUDA tensor and float32 on the CPU, as the JAX package
 picks bf16 on its accelerator and f32 in interpret mode.
 
 The kernel walks receiver rows, not packets: :func:`packet_schedule`
-lists every live slot in order of (global receiver row, packet, slot),
-built once per :class:`EdgePackets` on the packets' device and kept on
-the object (:func:`schedule`).  Each row is cut into chunks of at most
-``CHUNK_EDGES`` live edges; a row that is one chunk is written directly,
-and the chunks of a split row write f32 partial rows, which a second
-pass (``spmm_packets_reduce``) adds in chunk order and rounds once.  Each
-row sums in schedule order in registers, with no atomics, so every
-launch gives the same bits.  :func:`spmm_packets_schedule_plain` repeats
-that schedule in plain PyTorch.
+lists every live slot in order of (global receiver row, packet, slot) as a
+:class:`~tpugraph_torch.ops.csr.CSR` (``col`` the x row it gathers, ``eid``
+the slot whose weight it reads), built once per :class:`EdgePackets` on the
+packets' device and kept on the object (:func:`schedule`).  The kernel is
+the COO product's row walk (``ops/csr.py``, ``csrc/row_spmm.cuh``) with
+B7's compute and output dtypes: each row sums in schedule order in
+registers, with no atomics, so every launch gives the same bits;
+:func:`~tpugraph_torch.ops.csr.spmm_csr_plain` repeats that walk in plain
+PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from typing import Dict, Optional
 
 import torch
 
-from tpugraph_torch.ops._build import check_tensor, library, raise_on, stream
+from tpugraph_torch.ops._build import check_tensor, library
+from tpugraph_torch.ops.csr import CSR, edge_terms, launch, row_csrs
 from tpugraph_torch.ops.packets import EdgePackets
 
-# Live edges a chunk of the schedule holds at most.  On the ogbn-arxiv
-# stand-in (169,343 nodes, 2.33M edges, Chung-Lu at gamma 2.5) the hub
-# rows have a few thousand edges; chunks of 256 split a few hundred rows,
-# whose f32 partial rows (a few MB at D = 256) are under 1% of the
-# gather's E x D x 4 bytes.
-CHUNK_EDGES = 256
 ABLATIONS = ("full", "slots_only", "no_gather", "gather_only")
 
 LAUNCHES: Dict[str, int] = {"spmm_packets": 0, "spmm_packets_reduce": 0}
 _bound = False
 
 
-@dataclasses.dataclass
-class PacketSchedule:
-    """B7's row schedule over one :class:`EdgePackets`: its live slots
-    (``w != 0``) in order of (global receiver row, packet, slot).
-
-    rowptr int32[N + 1]   — row ``i``'s edges are ``rowptr[i]..rowptr[i+1]``
-    src    int32[E]       — ``col_blk * block_c + cols``, the x row each
-                             edge gathers
-    slot   int32[E]       — ``packet * K + k``, the slot whose weight
-                             ``w[slot]`` it reads
-    items  int32[n, 4]    — (row, first edge, end edge, partial slot or -1
-                             for a row that is one chunk), longest first;
-                             every row has at least one
-    splits int32[s, 4]    — (row, first partial slot, chunks, 0) of each
-                             split row
-    """
-
-    rowptr: torch.Tensor
-    src: torch.Tensor
-    slot: torch.Tensor
-    items: torch.Tensor
-    splits: torch.Tensor
-    num_parts: int  # f32 partial rows a call writes (chunks of split rows)
-
-
-def _work_list(rowptr: torch.Tensor, n_chunks: torch.Tensor, total: int,
-               num_split: int, chunk: int):
-    """(items, splits) of :class:`PacketSchedule` on ``rowptr``'s device:
-    every row's edges cut into chunks of ``chunk`` in order, the longest
-    chunks first (a stable sort), and a split row's chunks given
-    consecutive partial slots.  Scans, sorts and 1-D gathers, no host
-    sync."""
-    dev = rowptr.device
-    row = torch.repeat_interleave(n_chunks, output_size=total)
-    first_chunk = torch.cumsum(n_chunks, 0) - n_chunks
-    k = torch.arange(total, device=dev) - torch.gather(first_chunk, 0, row)
-    lo = torch.gather(rowptr[:-1], 0, row) + k * chunk
-    hi = torch.minimum(lo + chunk, torch.gather(rowptr[1:], 0, row))
-    split = n_chunks > 1
-    parts = torch.where(split, n_chunks, 0)
-    first_part = torch.cumsum(parts, 0) - parts
-    part = torch.where(torch.gather(split, 0, row),
-                       torch.gather(first_part, 0, row) + k, -1)
-    order = torch.sort(lo - hi, stable=True).indices
-    items = torch.stack([torch.gather(v, 0, order) for v in (row, lo, hi, part)], 1)
-    # the split rows in order: the head of a stable sort that puts them
-    # first (nonzero would wait for the device)
-    sb = torch.sort((~split).to(torch.int32), stable=True).indices[:num_split]
-    splits = torch.stack([sb, torch.gather(first_part, 0, sb),
-                          torch.gather(n_chunks, 0, sb), torch.zeros_like(sb)], 1)
-    return items.int(), splits.int()
-
-
-def packet_schedule(p: EdgePackets, chunk_edges: int = CHUNK_EDGES
-                    ) -> PacketSchedule:
-    """The :class:`PacketSchedule` of ``p`` with torch on ``p``'s device
-    (numpy arrays on the CPU): one stable sort of every slot by its global
-    receiver row (dead slots last), scans and 1-D gathers, and one host
-    sync for the sizes."""
+def packet_schedule(p: EdgePackets) -> CSR:
+    """B7's row schedule over ``p``: its live slots (``w != 0``) in order of
+    (global receiver row, packet, slot) as a :class:`CSR` (``col =
+    col_blk * block_c + cols``, computed for the live slots only; ``eid``
+    the slot ``packet * K + k``), by :func:`~tpugraph_torch.ops.csr.row_csrs`
+    with the dead slots keyed past the last row, with torch on ``p``'s
+    device (numpy arrays on the CPU) and one host sync."""
     rows, cols, w, row_of, col_blk = (torch.as_tensor(getattr(p, f)) for f in
                                       ("rows", "cols", "w", "row_of", "col_blk"))
-    n, k = p.num_nodes, p.k
-    if p.num_edge_slots >= 2 ** 31 or n >= 2 ** 31:
-        raise ValueError("the schedule holds int32 indices")
-    dev = rows.device
+    k = p.k
     row = (row_of[:, None] * p.block_r + rows).reshape(-1)
-    key = torch.where(w.reshape(-1) != 0, row, n)
-    sorted_key, order = torch.sort(key, stable=True)
-    rowptr = torch.searchsorted(
-        sorted_key, torch.arange(n + 1, device=dev, dtype=key.dtype))
-    n_chunks = torch.clamp((rowptr[1:] - rowptr[:-1] + chunk_edges - 1)
-                           // chunk_edges, min=1)
-    total, num_split, num_parts, e = torch.stack([
-        n_chunks.sum(), (n_chunks > 1).sum(),
-        torch.where(n_chunks > 1, n_chunks, 0).sum(), rowptr[-1]]).tolist()
-    slot = order[:e]
-    src = (torch.gather(col_blk.long(), 0, slot // k) * p.block_c
-           + torch.gather(cols.reshape(-1).long(), 0, slot))
-    items, splits = _work_list(rowptr, n_chunks, total, num_split, chunk_edges)
-    return PacketSchedule(rowptr.int(), src.int(), slot.int(), items, splits,
-                          num_parts)
+    key = torch.where(w.reshape(-1) != 0, row, p.num_nodes)
+
+    def col_of(slot):
+        return (torch.gather(col_blk.long(), 0, slot // k) * p.block_c
+                + torch.gather(cols.reshape(-1).long(), 0, slot))
+
+    (sc,) = row_csrs([(key, col_of)], p.num_nodes)
+    return sc
 
 
-def schedule(p: EdgePackets) -> PacketSchedule:
+def schedule(p: EdgePackets) -> CSR:
     """:func:`packet_schedule` of ``p``, built once and kept on the
     object."""
     cached = vars(p).get("_schedule")
@@ -152,16 +84,6 @@ def _compute_dtype(compute_dtype: Optional[torch.dtype], device) -> torch.dtype:
     return compute_dtype
 
 
-def _terms(w: torch.Tensor, xg: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """Each edge's term ``g = w x`` from its weights ``w [...]`` and
-    gathered x rows ``xg [..., D]``, with the compute dtype's roundings."""
-    if compute_dtype == torch.bfloat16:
-        w = w.to(torch.bfloat16).float()
-        xg = xg.to(torch.bfloat16).float()
-        return (w[..., None] * xg).to(torch.bfloat16).float()
-    return w[..., None] * xg
-
-
 def spmm_packets_plain(p: EdgePackets, x: torch.Tensor,
                        out_dtype: Optional[torch.dtype] = None,
                        compute_dtype: torch.dtype = torch.float32
@@ -171,44 +93,10 @@ def spmm_packets_plain(p: EdgePackets, x: torch.Tensor,
     into the slot's output row."""
     src = p.col_blk.long()[:, None] * p.block_c + p.cols.long()
     dst = p.row_of.long()[:, None] * p.block_r + p.rows.long()
-    g = _terms(p.w, x[src], compute_dtype)  # [P, K, D]
+    g = edge_terms(p.w, x[src], compute_dtype)  # [P, K, D]
     y = torch.zeros((p.num_nodes, x.shape[1]), dtype=torch.float32,
                     device=x.device)
     y.index_add_(0, dst.reshape(-1), g.reshape(-1, x.shape[1]))
-    return y.to(out_dtype or torch.float32)
-
-
-def spmm_packets_schedule_plain(p: EdgePackets, x: torch.Tensor,
-                                out_dtype: Optional[torch.dtype] = None,
-                                compute_dtype: torch.dtype = torch.float32,
-                                chunk_edges: Optional[int] = None
-                                ) -> torch.Tensor:
-    """Plain PyTorch ``A @ x`` that walks the kernel's schedule (the one
-    kept on ``p``, or one in chunks of ``chunk_edges``): each chunk's f32
-    sum over its edges in schedule order, written directly for a row that
-    is one chunk and as a partial row otherwise; each split row's partials
-    summed in chunk order; one rounding to ``out_dtype`` at the end."""
-    sc = schedule(p) if chunk_edges is None else packet_schedule(p, chunk_edges)
-    d = x.shape[1]
-    g = _terms(p.w.reshape(-1)[sc.slot.long()], x[sc.src.long()], compute_dtype)
-    items = sc.items.long()
-    items = items[torch.argsort(items[:, 1], stable=True)]  # in edge order
-    chunk_of = torch.repeat_interleave(
-        torch.arange(items.shape[0], device=x.device), items[:, 2] - items[:, 1],
-        output_size=g.shape[0])
-    acc = torch.zeros((items.shape[0], d), dtype=torch.float32, device=x.device)
-    acc.index_add_(0, chunk_of, g)
-    y = torch.zeros((p.num_nodes, d), dtype=torch.float32, device=x.device)
-    direct = items[:, 3] < 0
-    y[items[direct, 0]] = acc[direct]
-    parts = torch.empty((sc.num_parts, d), dtype=torch.float32, device=x.device)
-    parts[items[~direct, 3]] = acc[~direct]
-    row, first, n = sc.splits.long()[:, :3].unbind(1)
-    out = parts[first]
-    for j in range(1, int(n.max()) if n.numel() else 0):
-        more = n > j
-        out[more] += parts[first[more] + j]
-    y[row] = out
     return y.to(out_dtype or torch.float32)
 
 
@@ -221,7 +109,7 @@ def _lib():
         lib.spmm_packets.restype = ci
         lib.spmm_packets_reduce.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp]
         lib.spmm_packets_reduce.restype = ci
-        lib.spmm_packets_ablation.argtypes = [vp] * 4 + [ci] + [vp] * 3 + [ci] * 2 + [vp]
+        lib.spmm_packets_ablation.argtypes = [vp] * 4 + [ci] + [vp] * 3 + [ci] * 3 + [vp]
         lib.spmm_packets_ablation.restype = ci
         _bound = True
     return lib
@@ -260,44 +148,17 @@ def _launch(p: EdgePackets, x: torch.Tensor, out_dtype: torch.dtype,
     """Run B7's main pass (or its ablation ``mode``) and, where rows are
     split, the reduce pass (not for ``gather_only``, which writes no
     partials); counts launches only for ``mode=None``."""
-    lib = _lib()
-    sc = schedule(p)
-    dev = x.device
-    for name in ("src", "slot"):
-        check_tensor(name, getattr(sc, name), torch.int32, 1, dev)
-    check_tensor("items", sc.items, torch.int32, 2, dev)
-    check_tensor("splits", sc.splits, torch.int32, 2, dev)
-    n, d = x.shape
     xk = x.to(torch.bfloat16) if bf16 else x  # rounded once, not per edge
-    vec = d % 4 == 0 and xk.data_ptr() % 16 == 0
-    if mode is not None and not (bf16 and vec and out_dtype == torch.float32):
-        raise ValueError("the ablations take bf16 compute, an f32 output and "
-                         "D % 4 == 0")
     gather_only = mode == ABLATIONS.index("gather_only")
     y = (torch.zeros if gather_only else torch.empty)(
-        (n, d), dtype=out_dtype, device=dev)
-    partial = torch.empty((sc.num_parts, d), dtype=torch.float32, device=dev)
-    args = (sc.src.data_ptr(), sc.slot.data_ptr(), p.w.data_ptr(),
-            sc.items.data_ptr(), sc.items.shape[0], xk.data_ptr(), y.data_ptr(),
-            partial.data_ptr())
+        x.shape, dtype=out_dtype, device=x.device)
     out_bf16 = int(out_dtype == torch.bfloat16)
-    with torch.cuda.device(dev):
-        if mode is None:
-            err = lib.spmm_packets(*args, int(bf16), out_bf16, int(vec), d,
-                                   stream(dev))
-        else:
-            err = lib.spmm_packets_ablation(*args, mode, d, stream(dev))
-        raise_on(err, "spmm_packets")
-        if mode is None:
-            LAUNCHES["spmm_packets"] += 1
-        if sc.splits.shape[0] and not gather_only:
-            err = lib.spmm_packets_reduce(
-                sc.splits.data_ptr(), sc.splits.shape[0], partial.data_ptr(),
-                y.data_ptr(), out_bf16, int(vec), d, stream(dev))
-            raise_on(err, "spmm_packets_reduce")
-            if mode is None:
-                LAUNCHES["spmm_packets_reduce"] += 1
-    return y
+    if mode is None:
+        return launch(_lib(), ("spmm_packets", "spmm_packets_reduce"), schedule(p),
+                      p.w, xk, y, (int(bf16), out_bf16), (out_bf16,), LAUNCHES)
+    return launch(_lib(), ("spmm_packets_ablation",
+                           None if gather_only else "spmm_packets_reduce"),
+                  schedule(p), p.w, xk, y, (mode,), (out_bf16,))
 
 
 def spmm_packets(p: EdgePackets, x: torch.Tensor,
@@ -329,6 +190,9 @@ def _spmm_packets_ablation(p: EdgePackets, x: torch.Tensor,
     _check_args(p, x, None)
     if x.device.type != "cuda":
         raise ValueError("the B7 ablations run on a CUDA device only")
+    if x.shape[1] % 4:
+        raise ValueError("the ablations take bf16 compute, an f32 output and "
+                         "D % 4 == 0")
     return _launch(p, x, torch.float32, True, ABLATIONS.index(mode))
 
 
