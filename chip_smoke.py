@@ -25,6 +25,15 @@ nvcc per source, sm_90a, all started together), then:
    entry's sum of |w x|), and to itself on a second launch, timed beside
    its bound, that plain version and ``torch.sparse.mm`` on a CSR tensor,
    then by ``CHUNK_EDGES`` (``coo_csr chunk sweep``);
+1d. epilogue — ``ConvStack``'s row epilogue (bias, L2 normalisation, ReLU
+   and per-node batch norm, ``ops/epilogue_kernels.py``) forward and
+   backward at the GCN cells' hidden layers (169,343 x 256; the last
+   layer's normalisation alone too) and at syn1's (D = 20), each held to
+   its plain twin (per entry, 1e-5 sqrt(F) of the row's largest value)
+   and to itself on a second launch, timed beside its bound and the twin
+   (and 20 calls back to back, as a training loop queues them);
+   then the exact launches of 5 epochs of syn1's COO training (3 + 3 an
+   epoch, 3 forward for the closing evaluation);
 2. train — ``train_node_classifier`` on syn1 (seed 0) at its published
    widths (10 -> 20 -> 20 -> 20, 3 GraphConv layers, 4 classes), 1000
    epochs on the BCSR path (``use_bcsr=True``); first holds 20 epochs on
@@ -283,11 +292,21 @@ def format_ran(counts):
     return "+".join(ran)
 
 
+EPILOGUE_KERNELS = ("epilogue_fwd", "epilogue_bwd")  # dense, not a product
+
+
+def sparse_launches(counts):
+    """The launches of the adjacency kernels in ``counts``: every kernel but
+    ``ConvStack``'s row epilogue, which runs on every 2-D CUDA path."""
+    return sum(v for k, v in counts.items() if k not in EPILOGUE_KERNELS)
+
+
 def coo_only(counts):
-    """The run launched the COO product's CSR kernel and no other."""
+    """The run launched the COO product's CSR kernel and no other adjacency
+    kernel."""
     return (counts.get("spmm_coo_csr", 0) > 0
             and all(v == 0 for k, v in counts.items()
-                    if not k.startswith("spmm_coo_csr")))
+                    if not k.startswith("spmm_coo_csr") and k not in EPILOGUE_KERNELS))
 
 
 def auto_line(text):
@@ -317,6 +336,29 @@ def time_ms(fn, warmup: int = 3, iters: int = 21) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def back_to_back_ms(fn, k: int = 20, reps: int = 9) -> float:
+    """Median over ``reps`` of CUDA-event time around ``k`` calls in a row,
+    over ``k``: the device time of a call whose launch the host has queued
+    ahead, as in a training loop (a single timed call also holds the host's
+    own time before its launch)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / k)
     times.sort()
     return times[len(times) // 2]
 
@@ -1681,6 +1723,76 @@ def library_gat(c, z, el, er, heads, slope, g=None):
     return fwd
 
 
+def phase_epilogue(gen, g, feat, labels):
+    """``ConvStack``'s row epilogue (``ops/epilogue_kernels.py``) at the GCN
+    cells' layers (169,343 x 256: the hidden layers' bias, normalisation,
+    ReLU and batch norm, ``arxiv``, and the last layer's normalisation,
+    ``arxiv-last``) and at syn1's (``syn1``, D = 20), forward and backward:
+    each held to its plain twin entry by entry (the row's sums in another
+    order: 1e-5 sqrt(F) of the row's largest value), the row statistics
+    too, and to itself on a second launch, and timed beside its bound and
+    the twin.  Then 5 epochs of syn1's COO training with bn: 3 forward and
+    3 backward launches an epoch and 3 forward for the closing evaluation,
+    exactly."""
+    import torch
+
+    from tpugraph_torch import ops
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.ops import epilogue_kernels as ek
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+
+    records = {name: [] for name in EPILOGUE_KERNELS}
+    for shape, n, f, hidden in (("arxiv", ARXIV_NODES, 256, True),
+                                ("arxiv-last", ARXIV_NODES, 256, False),
+                                ("syn1", g.num_nodes_padded, 20, True)):
+        y = torch.randn((n, f), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((f,), generator=gen, device="cuda")
+        gy = torch.randn((n, f), generator=gen, device="cuda")
+        flags = (hidden, hidden)  # relu, bn
+        out, stats = ek.epilogue_forward(y, b, *flags)
+        ref, ref_stats = ek.epilogue_forward_plain(y, b, *flags)
+        torch.cuda.synchronize()
+        check(bool(((stats - ref_stats).abs()
+                    <= 1e-5 * math.sqrt(f) * ref_stats.abs()).all()),
+              f"epilogue {shape}: row statistics leave the plain version's")
+        dy = ek.epilogue_backward(gy, y, b, stats, *flags)
+        check(torch.equal(ek.epilogue_forward(y, b, *flags)[0], out)
+              and torch.equal(ek.epilogue_backward(gy, y, b, stats, *flags), dy),
+              f"epilogue {shape}: two launches differ")
+        del out, ref, ref_stats, dy
+        # bytes: y_lin read and the output written (forward), g and y_lin
+        # read and dy written (backward), 12 bytes of statistics a row; about
+        # 11 and 16 operations an entry
+        fwd = lambda: ek.epilogue_forward(y, b, *flags)[0]
+        bwd = lambda: ek.epilogue_backward(gy, y, b, stats, *flags)
+        extra = {"rows": n, "variant": "relu+bn" if hidden else "normalize"}
+        records["epilogue_fwd"].append(measure_case(
+            "epilogue_fwd", shape, f, fwd,
+            lambda: ek.epilogue_forward_plain(y, b, *flags)[0], None,
+            8 * n * f + 12 * n + 4 * f, 11.0 * n * f, F32_FLOPS_PER_S, f, extra=extra))
+        records["epilogue_bwd"].append(measure_case(
+            "epilogue_bwd", shape, f, bwd,
+            lambda: ek.epilogue_backward_plain(gy, y, b, stats, *flags), None,
+            12 * n * f + 12 * n + 4 * f, 16.0 * n * f, F32_FLOPS_PER_S, f, extra=extra))
+        for name, fn in (("epilogue_fwd", fwd), ("epilogue_bwd", bwd)):
+            records[name][-1]["back_to_back_ms"] = ms = back_to_back_ms(fn)
+            print(f"  {name} {shape}: {ms:.4f} ms a call back to back [{CARD}]",
+                  flush=True)
+        del y, gy, stats
+        torch.cuda.empty_cache()
+    model = GcnEncoderNode(10, 20, 20, 4, 3, bn=True,
+                           generator=torch.Generator().manual_seed(0))
+    ops.reset_launch_counts()
+    train_node_classifier(model, g, feat, labels, TrainConfig(num_epochs=5))
+    counts = ops.launch_counts()
+    print(f"  epilogue launches, 5 epochs of syn1 COO training with bn: "
+          f"{ {k: counts[k] for k in EPILOGUE_KERNELS} } [{CARD}]", flush=True)
+    check((counts["epilogue_fwd"], counts["epilogue_bwd"]) == (18, 15),
+          f"syn1 training: {counts['epilogue_fwd']} forward and "
+          f"{counts['epilogue_bwd']} backward epilogues, not 18 and 15")
+    return {"records": records, "launches": {"epilogue_syn1_train": counts}}
+
+
 def phase_gat(gen):
     """GAT's edge attention at the ``gat-arxiv-train`` cell's shapes (the
     arxiv stand-in, self-loops removed and one added a node: 2,501,829
@@ -1930,7 +2042,7 @@ def phase_coo(banded_tile_sps, keep):
             check(summary["num_nodes_explained"] == EXPLAIN_STATS_NODES,
                   "the stats explain did not explain 60 nodes")
             check(auc is not None and auc > 0.9, f"cli.explain {arm}: AUC {auc}")
-            check(sum(stats_launches.values()) == 0,
+            check(sparse_launches(stats_launches) == 0,
                   "the COO stats explain launched a kernel")
             # bench_explain.py:285-305: the batched explain of the 60 nodes,
             # best of 3 after a first run, on the CLI's explainer
@@ -1980,7 +2092,7 @@ def phase_coo(banded_tile_sps, keep):
     state, hist = run(4)
     torch.cuda.synchronize()
     coo_sps = 4 / (time.perf_counter() - t0)
-    check(sum(ops.launch_counts().values()) == 0, "the COO explain launched a kernel")
+    check(sparse_launches(ops.launch_counts()) == 0, "the COO explain launched a kernel")
     check(bool(np.all(np.isfinite(hist["total"])))
           and bool(torch.isfinite(state.edge_logits).all()),
           "banded COO explain: non-finite loss or mask")
@@ -2218,7 +2330,7 @@ def phase_syn(gen, keep):
                           f"{key}: the tile-space explain did not launch {k}")
             ops.reset_launch_counts()
             summary, wall, text = run_cli(cli_explain.main, dirs + flags)
-            check(sum(ops.launch_counts().values()) == 0,
+            check(sparse_launches(ops.launch_counts()) == 0,
                   f"{key}: the COO stats explain launched a kernel")
             auc = summary["auc"]
             done = re.search(r"explained (\d+) nodes in ([0-9.]+)s \((\d+) epochs",
@@ -2403,7 +2515,7 @@ def phase_graph(gen, keep):
             ops.reset_launch_counts()
             summary, wall, text = run_cli(cli_train.main,
                                           base + flags + ["--epochs", str(epochs)])
-            check(sum(ops.launch_counts().values()) == 0,
+            check(sparse_launches(ops.launch_counts()) == 0,
                   f"graph training {method} launched a tile kernel")
             last = last_epoch_scalars(text)
             acc = summary["test_result"]["acc"]
@@ -2428,7 +2540,7 @@ def phase_graph(gen, keep):
         for flags in GRAPH_EXPLAIN:
             ops.reset_launch_counts()
             summary, wall, text = run_cli(cli_explain.main, base + flags)
-            check(sum(ops.launch_counts().values()) == 0,
+            check(sparse_launches(ops.launch_counts()) == 0,
                   f"the COO graph explain {flags} launched a kernel")
             idxs = summary.get("graph_indices", [summary.get("graph_idx")])
             for gi in idxs:
@@ -2643,7 +2755,7 @@ def phase_baselines(keep):
         ops.reset_launch_counts()
         summary, wall, _ = run_cli(cli_explain.main, argv)
         launches[f"cli_{model}_stats"] = ops.launch_counts()
-        check(sum(launches[f"cli_{model}_stats"].values()) == 0,
+        check(sparse_launches(launches[f"cli_{model}_stats"]) == 0,
               f"the {model} baseline launched a kernel")
         check(summary["num_nodes_explained"] == EXPLAIN_STATS_NODES,
               f"{model}: the stats explain did not explain 60 nodes")
@@ -3493,7 +3605,7 @@ def phase_mesh(gen, keep):
     bad = {q: (e, lim) for q, e, lim in zip(MESH_STATS, errs, limits) if e > lim}
     check(not bad, f"sharded COO explain card vs CPU (query: diff, limit): {bad}")
     check(auc_mesh > 0.9, f"sharded COO AUC {auc_mesh}")
-    check(sum(launches["mesh_coo_explain"].values()) == 0,
+    check(sparse_launches(launches["mesh_coo_explain"]) == 0,
           "the COO explain launched a kernel")
     results["coo"] = {"s": coo_s, "auc": auc_mesh, "auc_single": auc_one,
                       "same_err": same, "cpu_err": cpu_err,
@@ -3590,8 +3702,8 @@ def phase_mesh(gen, keep):
           f"{MESH_TP_WIDE_TOL}) [{CARD}]", flush=True)
     check(err_w <= MESH_TP_WIDE_TOL and bool(np.all(np.isfinite(tp_w))),
           f"TP power-law losses differ by {err_w}")
-    check(sum(launches["mesh_tp_syn1"].values()) + sum(
-        launches["mesh_tp_powerlaw"].values()) == 0, "the COO TP step launched a kernel")
+    check(sparse_launches(launches["mesh_tp_syn1"]) + sparse_launches(
+        launches["mesh_tp_powerlaw"]) == 0, "the COO TP step launched a kernel")
     results["tp"] = {"syn1_err": err, "syn1_steps_per_s": tp_sps,
                      "syn1_single_steps_per_s": one_sps, "powerlaw_err": err_w,
                      "powerlaw_steps_per_s": tp_w_sps,
@@ -3843,6 +3955,12 @@ def main() -> int:
     coo_csr = phase_coo_csr(gen)
     print(f"  coo_csr phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 1d: ConvStack's row epilogue at the GCN cells' shapes
+    print("phase epilogue", flush=True)
+    t0 = time.perf_counter()
+    epi = phase_epilogue(gen, g, feat, labels)
+    print(f"  epilogue phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 1c: GAT's edge attention at the gat-arxiv cell's shapes
     print("phase gat", flush=True)
     t0 = time.perf_counter()
@@ -4020,7 +4138,7 @@ def main() -> int:
              **prof_ph["launches"], **par["launches"], **mesh_ph["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
              **diff["launches"], "launch_probes": probes["launches"],
-             **gat_ph["launches"]}
+             **gat_ph["launches"], **epi["launches"]}
     meta = {
         "spmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
@@ -4066,6 +4184,9 @@ def main() -> int:
         **{name: ("tpugraph_torch/csrc/coo_kernels.cu",
                   "none: the JAX package normalises no edge weights over a row",
                   recs[0], recs) for name, recs in gat_ph["records"].items()},
+        **{name: ("tpugraph_torch/csrc/epilogue_kernels.cu",
+                  "none: XLA fuses the bias, normalisation, ReLU and batch norm",
+                  recs[0], recs) for name, recs in epi["records"].items()},
     }
     for name, rec in probes["kernels"].items():
         meta[name] = ("tpugraph_torch/csrc/probe_kernels.cu",
@@ -4093,7 +4214,7 @@ def main() -> int:
     }
     report = []
     for name, (src, replaces, main_shape, all_shapes) in meta.items():
-        by_path = {p: c[name] for p, c in paths.items() if c[name]}
+        by_path = {p: c[name] for p, c in paths.items() if c.get(name)}
         check(sum(by_path.values()) > 0, f"{name} was never launched on its path")
         report.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -2,8 +2,8 @@
 (spmm_bcsr_packed), B4 (spmm_stacked_resident), B5 (spmm_pair_resident),
 B6 (spmm_power_resident) and B7 (spmm_packets) against their plain
 PyTorch versions on the card, with every tile / x / output dtype they
-take; and the COO path (ops, training, the batched explainer) on the
-card against the CPU.  This file imports no
+take; the COO path (ops, training, the batched explainer) on the
+card against the CPU; and ConvStack's row epilogue against its twins.  This file imports no
 JAX (nor does it need ``tests/conftest.py``, which does), so it runs on a
 machine without JAX:
 
@@ -1682,3 +1682,179 @@ def test_gat_encoder_training_on_card_matches_reference(cuda_device):
         assert float((got - v).abs().max() / v.abs().max()) < 1e-4, k
     want = job["logits"].cpu().numpy()
     assert float(np.abs(out["ypred"][0] - want).max() / np.abs(want).max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# ConvStack's row epilogue (ops/epilogue_kernels.py)
+
+EPI_VARIANTS = [(False, False), (True, False), (True, True)]  # (relu, bn)
+# (rows, F): the arxiv cell's hidden layers, syn1's widths, a width of four
+# register groups, one whose rows take scalar loads (F % 4 != 0), and one wider
+# than the registers hold (each pass reads the row again)
+EPI_SHAPES = [(169_343, 256), (768, 20), (1000, 300), (1000, 30), (257, 1100)]
+
+
+def _epi_inputs(n, f, seed, device):
+    """y_lin with zero (padded) rows 0-1 and rows 2-3 the ReLU zeroes whole,
+    a bias and an output gradient (numpy-seeded)."""
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((n, f)).astype(np.float32)
+    y[:2] = 0.0
+    y[2:4] = -np.abs(y[2:4]) - 5.0
+    b = (0.1 * rng.standard_normal(f)).astype(np.float32)
+    g = rng.standard_normal((n, f)).astype(np.float32)
+    return (torch.from_numpy(t).to(device) for t in (y, b, g))
+
+
+def _epi_close(got, ref, f):
+    """Each entry within 1e-5 sqrt(F) of its row's largest |plain value|: the
+    row's sums (F terms) in the kernel's order, not torch's."""
+    scale = ref.abs().amax(-1, keepdim=True)
+    used = float(((got - ref).abs() / (1e-5 * math.sqrt(f) * scale + 1e-30)).max())
+    assert used <= 1.0, used
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [False, True])
+@pytest.mark.parametrize("relu,bn", EPI_VARIANTS)
+@pytest.mark.parametrize("n,f", EPI_SHAPES)
+def test_epilogue_matches_plain_on_card(cuda_device, n, f, relu, bn, use_bias):
+    """Forward (output and row statistics) and backward against the plain
+    twins on the card, entry by entry within 1e-5 sqrt(F) of the row's
+    largest value; two launches of each bit for bit; the backward also from
+    a gradient whose rows lie apart (a slice of the concatenation's)."""
+    from tpugraph_torch.ops import epilogue_kernels as ek
+
+    y, b, g = _epi_inputs(n, f, seed=n + f, device=cuda_device)
+    bias = b if use_bias else None
+    out, stats = ek.epilogue_forward(y, bias, relu, bn)
+    ref, ref_stats = ek.epilogue_forward_plain(y, bias, relu, bn)
+    _epi_close(out, ref, f)
+    torch.testing.assert_close(stats, ref_stats, rtol=1e-5 * math.sqrt(f), atol=0)
+    dy = ek.epilogue_backward(g, y, bias, stats, relu, bn)
+    _epi_close(dy, ek.epilogue_backward_plain(g, y, bias, stats, relu, bn), f)
+    assert torch.equal(ek.epilogue_forward(y, bias, relu, bn)[0], out)
+    assert torch.equal(ek.epilogue_backward(g, y, bias, stats, relu, bn), dy)
+    wide = torch.zeros((n, f + 12), device=cuda_device)
+    wide[:, 4:4 + f] = g
+    assert torch.equal(ek.epilogue_backward(wide[:, 4:4 + f], y, bias, stats, relu, bn),
+                       dy)
+    assert bool(torch.isfinite(out).all() and torch.isfinite(dy).all())
+
+
+def _epi_graph(n, e, seed, device):
+    """A random graph as the COO training path holds it (with its CSR, so the
+    product repeats bit for bit) and features."""
+    from tpugraph_torch.nn import SparseAdj
+    from tpugraph_torch.ops import coo_kernels as ck
+
+    s, r, w = (torch.from_numpy(t).to(device) for t in _coo(n, e, seed))
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, 10)).astype(np.float32)).to(device)
+    return SparseAdj(s, r, w, ck.edge_csr(s, r, n)), x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bn", [False, True])
+def test_gcn_encoder_gradients_through_epilogue_match_twin(cuda_device, bn, monkeypatch):
+    """GcnEncoderNode (syn1's widths, 3 layers) on the card: the embeddings
+    and every parameter's gradient through the kernels against the same
+    model with the plain twins in their place, within 1e-4 of each tensor's
+    largest entry; one forward and backward launch 3 + 3 epilogues, an
+    evaluation forward 3 and no backward one."""
+    from tpugraph_torch import ops
+    from tpugraph_torch.nn import GcnEncoderNode
+    from tpugraph_torch.ops import epilogue_kernels as ek
+
+    adj, x = _epi_graph(2000, 12000, seed=21, device=cuda_device)
+    model = GcnEncoderNode(10, 20, 20, 4, 3, bn=bn,
+                           generator=torch.Generator().manual_seed(0), device=cuda_device)
+    w = torch.linspace(-1, 1, 4, device=cuda_device)
+
+    def run():
+        model.zero_grad()
+        logits, _ = model(x, adj)
+        (logits * w).sum().backward()
+        return logits.detach(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    ops.reset_launch_counts()
+    got, got_grads = run()
+    counts = ops.launch_counts()
+    assert (counts["epilogue_fwd"], counts["epilogue_bwd"]) == (3, 3)
+    again, again_grads = run()
+    assert torch.equal(again, got)
+    assert all(torch.equal(again_grads[k], v) for k, v in got_grads.items())
+    model.eval()
+    with torch.no_grad():
+        model(x, adj)
+    model.train()
+    counts = ops.launch_counts()
+    assert (counts["epilogue_fwd"], counts["epilogue_bwd"]) == (9, 6)
+
+    monkeypatch.setattr(ek, "epilogue_forward", ek.epilogue_forward_plain)
+    monkeypatch.setattr(ek, "epilogue_backward", ek.epilogue_backward_plain)
+    ref, ref_grads = run()
+    assert ops.launch_counts()["epilogue_fwd"] == 9
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-4
+    for k, v in ref_grads.items():
+        assert float((got_grads[k] - v).abs().max() / v.abs().max()) < 1e-4, k
+
+
+@pytest.mark.cuda
+def test_epilogue_launches_in_training_not_on_dense_batches(cuda_device):
+    """``train_node_classifier`` on COO for E epochs launches 3 E + 3
+    forward epilogues (the closing evaluation's 3) and 3 E backward ones; a
+    graph batch ``x [B, N, D]`` on a dense adjacency, whose batch norm spans
+    the batch, keeps the separate ops and launches none."""
+    from tpugraph_torch import ops
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.nn import GcnEncoderGraph, GcnEncoderNode
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+
+    s, r, _ = _coo(3000, 15000, seed=5)
+    g = graph_from_edges(s, r, 3000)
+    rng = np.random.default_rng(5)
+    feat = rng.standard_normal((g.num_nodes_padded, 10)).astype(np.float32)
+    labels = rng.integers(0, 4, 3000)
+    model = GcnEncoderNode(10, 20, 20, 4, 3, bn=True,
+                           generator=torch.Generator().manual_seed(0), device=cuda_device)
+    ops.reset_launch_counts()
+    out = train_node_classifier(model, g, feat, labels, TrainConfig(num_epochs=4),
+                                device=cuda_device)
+    counts = ops.launch_counts()
+    assert (counts["epilogue_fwd"], counts["epilogue_bwd"]) == (15, 12)
+    assert np.all(np.isfinite(out["history"]["loss"]))
+
+    graph = GcnEncoderGraph(10, 20, 20, 2, 3, bn=True,
+                            generator=torch.Generator().manual_seed(0), device=cuda_device)
+    xb = torch.randn((4, 30, 10), device=cuda_device)
+    adj = (torch.rand((4, 30, 30), device=cuda_device) < 0.2).float()
+    ops.reset_launch_counts()
+    ypred, _ = graph(xb, adj)
+    ypred.sum().backward()
+    assert sum(ops.launch_counts().values()) == 0
+
+
+@pytest.mark.cuda
+def test_epilogue_under_vmap_is_one_launch_of_the_flat_rows(cuda_device):
+    """Mapped over graphs with ``torch.func.vmap`` (the multigraph trainer),
+    the epilogue is one launch each way over the batch's rows, bit for bit
+    the flat rows' output and gradient."""
+    from tpugraph_torch import ops
+    from tpugraph_torch.ops import epilogue_kernels as ek
+
+    y, b, g = _epi_inputs(4 * 500, 20, seed=8, device=cuda_device)
+    y3, g3 = y.reshape(4, 500, 20), g.reshape(4, 500, 20)
+    outs = []
+    for mapped in (True, False):
+        y_req = y3.clone().requires_grad_()
+        ops.reset_launch_counts()
+        if mapped:
+            out = torch.func.vmap(lambda t: ek.row_epilogue(t, b, True, True))(y_req)
+        else:
+            out = ek.row_epilogue(y_req.reshape(2000, 20), b, True, True).reshape(4, 500, 20)
+        out.backward(g3)
+        counts = ops.launch_counts()
+        assert (counts["epilogue_fwd"], counts["epilogue_bwd"]) == (1, 1)
+        outs.append((out.detach(), y_req.grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])

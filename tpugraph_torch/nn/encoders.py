@@ -27,6 +27,8 @@ from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.nn.initializers import torch_linear_bias, torch_linear_kernel
 from tpugraph_torch.nn.layers import (Adjacency, GATConv, GraphConv, SparseAdj,
                                       apply_dropout, fresh_batch_norm)
+from tpugraph_torch.ops.epilogue_kernels import row_epilogue
+from tpugraph_torch.utils.profiling import trace_annotation, trace_backward
 
 
 def _torch_dense(out_dim: int, in_dim: int,
@@ -64,7 +66,12 @@ class ConvStack(nn.Module):
     ``bn``, :func:`fresh_batch_norm`) between, L2-normalized embeddings,
     returning the per-layer concatenation
     (``tpugraph/nn/encoders.py:71``).  ``dropout`` reaches the
-    ``conv_block`` layers only, as in ``tpugraph``."""
+    ``conv_block`` layers only, as in ``tpugraph``.  On a 2-D float32
+    CUDA ``x`` each layer's bias, normalisation, ReLU and batch norm run
+    as one kernel forward and one backward
+    (:func:`~tpugraph_torch.ops.epilogue_kernels.row_epilogue`); a 3-D
+    ``x``, whose batch norm spans the batch, and every CPU tensor take the
+    separate ops."""
 
     def __init__(self, input_dim: int, hidden_dim: int, embedding_dim: int,
                  num_layers: int, add_self: bool = False,
@@ -90,20 +97,36 @@ class ConvStack(nn.Module):
                 embedding_mask: Optional[torch.Tensor] = None,
                 dropout_gen: Optional[torch.Generator] = None):
         x_all, att_all = [], []
-        for conv in [self.conv_first, *self.conv_block]:
-            x, adj_att = conv(x, adj, dropout_gen)
-            x = torch.relu(x)
-            if self.bn:
-                x = fresh_batch_norm(x)
+        convs = [self.conv_first, *self.conv_block, self.conv_last]
+        for i, conv in enumerate(convs):
+            hidden = i < len(convs) - 1
+            if x.dim() == 2 and x.dtype == torch.float32 and x.is_cuda:
+                x, adj_att = self._fused(conv, x, adj, dropout_gen, hidden)
+            else:
+                x, adj_att = conv(x, adj, dropout_gen)
+                if hidden:
+                    x = torch.relu(x)
+                    if self.bn:
+                        x = fresh_batch_norm(x)
             x_all.append(x)
             att_all.append(adj_att)
-        x, adj_att = self.conv_last(x, adj, dropout_gen)
-        x_all.append(x)
-        att_all.append(adj_att)
         x_tensor = torch.cat(x_all, dim=-1) if self.concat else x
         if embedding_mask is not None:
             x_tensor = x_tensor * embedding_mask[..., None]
         return x_tensor, att_all
+
+    def _fused(self, conv: GraphConv, x: torch.Tensor, adj: Adjacency,
+               dropout_gen: Optional[torch.Generator], hidden: bool):
+        """``conv`` and what follows it on a 2-D float32 CUDA ``x``, whose
+        batch norm takes each node's statistics over its features: the
+        layer's product, then its bias, normalisation and, on hidden
+        layers, ReLU and batch norm in one kernel each way, the trace
+        regions ``nn.epilogue`` and ``nn.epilogue.backward``."""
+        y, adj_att = conv.transform(x, adj, dropout_gen)
+        with trace_annotation("nn.epilogue"):
+            x = trace_backward("nn.epilogue.backward", y, lambda ys: row_epilogue(
+                ys, conv.bias, hidden, hidden and self.bn))
+        return x, adj_att
 
 
 class GcnEncoderNode(nn.Module):

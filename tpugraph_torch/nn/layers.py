@@ -380,6 +380,18 @@ class GraphConv(nn.Module):
     def forward(self, x: torch.Tensor, adj: Adjacency,
                 dropout_gen: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Adjacency]:
+        y, adj_att = self.transform(x, adj, dropout_gen)
+        if self.bias is not None:
+            y = y + self.bias
+        if self.normalize_embedding:
+            y = normalize_embedding(y)
+        return y, adj_att
+
+    def transform(self, x: torch.Tensor, adj: Adjacency,
+                  dropout_gen: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, Adjacency]:
+        """The layer before its bias: ``((A @ x) @ W [+ x @ W_self],
+        adj_att)``, dropout applied to ``x`` first while training."""
         if self.training and self.dropout > 0.001:
             x = apply_dropout(x, self.dropout, dropout_gen)
         with trace_annotation("nn.aggregate"):
@@ -388,10 +400,6 @@ class GraphConv(nn.Module):
         y = torch.matmul(y, self.weight)
         if self.add_self:
             y = y + torch.matmul(x, self.self_weight)
-        if self.bias is not None:
-            y = y + self.bias
-        if self.normalize_embedding:
-            y = normalize_embedding(y)
         return y, adj_att
 
     def _aggregate(self, x: torch.Tensor, adj: Adjacency

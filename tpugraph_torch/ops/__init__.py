@@ -64,13 +64,14 @@ from tpugraph_torch.ops.resident_kernels import (  # noqa: F401
 from tpugraph_torch.ops import (  # noqa: E402
     bcsr_kernels,
     coo_kernels,
+    epilogue_kernels,
     packets_kernels,
     probe_kernels,
     resident_kernels,
 )
 
 _KERNEL_MODULES = (bcsr_kernels, resident_kernels, packets_kernels, probe_kernels,
-                   coo_kernels)
+                   coo_kernels, epilogue_kernels)
 
 
 def launch_counts() -> dict:
