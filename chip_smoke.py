@@ -34,6 +34,14 @@ nvcc per source, sm_90a, all started together), then:
    (and 20 calls back to back, as a training loop queues them);
    then the exact launches of 5 epochs of syn1's COO training (3 + 3 an
    epoch, 3 forward for the closing evaluation);
+1e. deepergcn — GENConv's softmax aggregation (``ops/gen_kernels.py``)
+   at the ``deepergcn-arxiv-train`` cell's shape (the stand-in with a
+   self-loop a node, 2,501,829 edges, D = 128, t = 0.1): the forward, its
+   reduce pass alone and the backward over A^T, each held to its plain
+   twin and to itself on a second launch, timed beside its bound, the twin
+   and PyTorch's segment-softmax calls; then 3 epochs of the 28-layer
+   model on the stand-in and ``cli.train --method deepergcn`` at 28 x 128
+   on syn2, card against the CPU;
 2. train — ``train_node_classifier`` on syn1 (seed 0) at its published
    widths (10 -> 20 -> 20 -> 20, 3 GraphConv layers, 4 classes), 1000
    epochs on the BCSR path (``use_bcsr=True``); first holds 20 epochs on
@@ -1822,13 +1830,13 @@ def phase_gat(gen):
     from tpugraph_torch.nn import GatEncoderNode
     from tpugraph_torch.ops import coo_kernels as ck
     from tpugraph_torch.train import TrainConfig, train_node_classifier
-    from tpugraph_torch.train.loop import gat_adjacency
+    from tpugraph_torch.train.loop import self_loop_adjacency
 
     d0 = chunglu.generate(0, ARXIV_NODES, ARXIV_EDGES, feat_dim=1, num_classes=1)
     g = graph_from_edges(np.concatenate([d0["lo"], d0["hi"]]),
                          np.concatenate([d0["hi"], d0["lo"]]), ARXIV_NODES)
     ops.reset_launch_counts()
-    adj, n = gat_adjacency(g, torch.device("cuda"))
+    adj, n = self_loop_adjacency(g, torch.device("cuda"))
     csr, e = adj.csr, int(adj.senders.shape[0])
     k_row = int((csr.a.rowptr[1:] - csr.a.rowptr[:-1]).max())
     print(f"  gat: {n} nodes, {e} attended edges, longest row {k_row}, "
@@ -1939,6 +1947,208 @@ def phase_gat(gen):
     print(f"  gat syn2: 20 epochs' losses card vs CPU within {gap:.3g}", flush=True)
     check(gap < 1e-4, f"gat syn2: card losses leave the CPU's by {gap:.3g}")
     del adj, csr
+    torch.cuda.empty_cache()
+    return {"records": records, "launches": launches}
+
+
+DEEPERGCN_EPOCHS = 3    # phase_deepergcn's training rows
+
+
+def library_softmax_aggr(c, x, t, eps, g=None, lse=None):
+    """PyTorch calls for GENConv's softmax aggregation, which the port never
+    makes: the per-channel segment softmax over the CSR rows
+    (``segment_reduce`` max and sums on an edges x channels tensor); with
+    ``g`` the backward over A^T, each edge's weight from ``lse`` times the
+    receiver's gradient, summed by ``segment_reduce``."""
+    import torch
+
+    n = x.shape[0]
+    counts = (c.rowptr[1:] - c.rowptr[:-1]).long()
+    col = c.col.long()
+    mu = torch.relu(x) + eps
+
+    def fwd():
+        s = t * mu[col]
+        mx = torch.segment_reduce(s, "max", lengths=counts, unsafe=True)
+        p = torch.exp(s - torch.repeat_interleave(mx, counts, 0, output_size=col.shape[0]))
+        den = torch.segment_reduce(p, "sum", lengths=counts, unsafe=True)
+        return torch.segment_reduce(p * mu[col], "sum", lengths=counts, unsafe=True) / den
+
+    def bwd():
+        rows = torch.repeat_interleave(torch.arange(n, device=x.device), counts,
+                                       output_size=col.shape[0])
+        w = torch.exp(t * mu[rows] - lse[col]) * g[col]
+        dx = torch.segment_reduce(w, "sum", lengths=counts, unsafe=True)
+        return torch.where(x > 0, dx, 0.0)
+
+    return fwd if g is None else bwd
+
+
+def merge_partials_plain(c, part):
+    """The forward reduce pass's merge in plain PyTorch: each split row's
+    chunks (``part [3, parts, D]``: maximum, sum, weighted sum) rescaled by
+    the row's largest maximum and added in chunk order; returns the split
+    rows' ``m``."""
+    import torch
+
+    sp = c.splits.long()
+    seg = torch.repeat_interleave(torch.arange(sp.shape[0], device=part.device), sp[:, 2])
+    first = torch.repeat_interleave(sp[:, 1], sp[:, 2])
+    k = torch.arange(seg.shape[0], device=part.device) - torch.repeat_interleave(
+        torch.cumsum(sp[:, 2], 0) - sp[:, 2], sp[:, 2])
+    idx = first + k
+    mx, sm, ac = part[0][idx], part[1][idx], part[2][idx]
+    d = part.shape[2]
+    big = mx.new_full((sp.shape[0], d), -torch.inf).scatter_reduce(
+        0, seg[:, None].expand(-1, d), mx, "amax", include_self=True)
+    coef = torch.exp(mx - big[seg])
+    tot = mx.new_zeros((sp.shape[0], d)).index_add(0, seg, sm * coef)
+    return mx.new_zeros((sp.shape[0], d)).index_add(0, seg, ac * coef) / tot
+
+
+def phase_deepergcn(gen):
+    """GENConv's softmax aggregation at the ``deepergcn-arxiv-train`` cell's
+    shape (the arxiv stand-in with a self-loop a node: 2,501,829 edges;
+    D = 128, t = 0.1): the forward (main and reduce pass), its reduce pass
+    alone and the backward over A^T (main and reduce), each held entry by
+    entry to its plain version and timed beside its bound, the plain
+    version and PyTorch's calls; lse within 1e-5 of its largest entry, two
+    launches bit-identical.  Then ``DEEPERGCN_EPOCHS`` epochs of
+    ``DeeperGcnEncoderNode`` at the cell's widths on the stand-in through
+    ``train_node_classifier``, whose split rows take both reduce passes (its
+    launches are the ones the report counts, not the timing loops'), and
+    ``cli.train --method deepergcn`` at those widths on syn2 (COO), its
+    first loss held within 1e-5 of the CPU's and its epochs' within 1e-3
+    (Adam's steps on near-zero gradients follow rounding)."""
+    import numpy as np
+    import torch
+
+    from gnnbench import deepergcn_counts as dc
+    from gnnbench.data import chunglu
+    from tpugraph_torch import ops
+    from tpugraph_torch.cli import train as cli_train
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.nn import DeeperGcnEncoderNode
+    from tpugraph_torch.ops import gen_kernels as gk
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+    from tpugraph_torch.train.loop import self_loop_adjacency
+
+    d0 = chunglu.generate(0, ARXIV_NODES, ARXIV_EDGES, feat_dim=1, num_classes=1)
+    g = graph_from_edges(np.concatenate([d0["lo"], d0["hi"]]),
+                         np.concatenate([d0["hi"], d0["lo"]]), ARXIV_NODES)
+    adj, n = self_loop_adjacency(g, torch.device("cuda"))
+    csr, e = adj.csr, int(adj.senders.shape[0])
+    k_row = int((csr.a.rowptr[1:] - csr.a.rowptr[:-1]).max())
+    d, t, eps = 128, 0.1, 1e-7
+    # ReLU(batch norm)-like inputs, as every layer after the first gets
+    x = torch.relu(torch.randn((n, d), generator=gen, device="cuda"))
+    gy = torch.randn((n, d), generator=gen, device="cuda")
+    m0, lse0 = gk.softmax_aggr_plain(csr.a, x, t, eps)
+    shape = "deepergcn-arxiv"
+    records = {}
+    records["softmax_aggr"] = [measure_case(
+        "softmax_aggr", shape, d, lambda: gk.softmax_aggr_csr(csr.a, x, t, eps)[0],
+        lambda: gk.softmax_aggr_plain(csr.a, x, t, eps)[0],
+        lambda: library_softmax_aggr(csr.a, x, t, eps),
+        dc.aggregation_bytes(n, e, d, False), dc.aggregation_flops(e, d, False),
+        F32_FLOPS_PER_S, k_row,
+        extra={"edges": e, "split_rows": int(csr.a.splits.shape[0])})]
+    # the reduce pass alone, on the main pass's partials
+    m_buf, lse_buf, part = gk.softmax_aggr_main(csr.a, x, t, eps)
+    split = csr.a.splits[:, 0].long()
+
+    def reduce_only():
+        gk.softmax_aggr_reduce(csr.a, part, m_buf, lse_buf)
+        return m_buf[split]
+
+    records["softmax_aggr_reduce"] = [measure_case(
+        "softmax_aggr_reduce", shape, d, reduce_only,
+        lambda: merge_partials_plain(csr.a, part), None,
+        4 * (3 * csr.a.num_parts * d + 2 * split.shape[0] * d + 4 * split.shape[0]),
+        8 * csr.a.num_parts * d, F32_FLOPS_PER_S, int(csr.a.splits[:, 2].max()),
+        extra={"split_rows": int(split.shape[0]), "partial_rows": csr.a.num_parts,
+               "library_null_reason": "no PyTorch call merges softmax partials by "
+                                      "their maxima"})]
+    records["softmax_aggr_backward"] = [measure_case(
+        "softmax_aggr_backward", shape, d,
+        lambda: gk.softmax_aggr_backward_csr(csr.a_t, x, gy, lse0, t, eps),
+        lambda: gk.softmax_aggr_backward_plain(csr.a_t, x, gy, lse0, t, eps),
+        lambda: library_softmax_aggr(csr.a_t, x, t, eps, gy, lse0),
+        dc.aggregation_bytes(n, e, d, True), dc.aggregation_flops(e, d, True),
+        F32_FLOPS_PER_S, k_row,
+        extra={"edges": e, "split_rows": int(csr.a_t.splits.shape[0])})]
+    got = [gk.softmax_aggr_csr(csr.a, x, t, eps)
+           + (gk.softmax_aggr_backward_csr(csr.a_t, x, gy, lse0, t, eps),) for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*got)), "deepergcn: two launches differ")
+    gap = float((got[0][1] - lse0).abs().max() / lse0.abs().max())
+    check(gap < 1e-5, f"deepergcn: lse leaves its plain version by {gap:.3g}")
+    print(f"  deepergcn: {n} nodes, {e} attended edges, longest row {k_row}, "
+          f"{csr.a.splits.shape[0]} / {csr.a_t.splits.shape[0]} rows split (A / A^T); "
+          f"lse gap {gap:.3g}", flush=True)
+    del x, gy, m0, lse0, part, m_buf, lse_buf, got, adj, csr
+    torch.cuda.empty_cache()
+
+    # the launches counted: training on the stand-in (split rows: both
+    # reduce passes) and the CLI below, not the timing loops
+    d1 = chunglu.generate(0, ARXIV_NODES, ARXIV_EDGES, feat_dim=128, num_classes=40)
+    model = DeeperGcnEncoderNode(128, 128, 40, num_layers=28, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_node_classifier(model, g, d1["feat"], d1["labels"],
+                                TrainConfig(num_epochs=DEEPERGCN_EPOCHS, lr=0.01))
+    launches = {"deepergcn_arxiv_train": ops.launch_counts()}
+    print(f"  deepergcn arxiv stand-in, 28x128: {DEEPERGCN_EPOCHS} epochs in "
+          f"{time.perf_counter() - t0:.2f} s (losses "
+          f"{[round(v, 4) for v in out['history']['loss']]}); launches "
+          f"{ {k: v for k, v in launches['deepergcn_arxiv_train'].items() if v} }",
+          flush=True)
+    for name in gk.LAUNCHES:
+        check(launches["deepergcn_arxiv_train"][name] >= 28 * DEEPERGCN_EPOCHS,
+              f"deepergcn arxiv training launched {name} "
+              f"{launches['deepergcn_arxiv_train'][name]} times")
+    del model, out, d1
+    torch.cuda.empty_cache()
+
+    # the CLI at the cell's widths on syn2 (COO), card against the CPU
+    argv = ["--dataset", "syn2", "--method", "deepergcn", "--num-gc-layers", "28",
+            "--hidden-dim", "128", "--epochs", str(DEEPERGCN_EPOCHS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        summary, wall, _ = run_cli(cli_train.main, argv + [
+            "--ckptdir", os.path.join(tmp, "ck"), "--logdir", os.path.join(tmp, "log")])
+        launches["cli_deepergcn_train"] = ops.launch_counts()
+    print(f"  cli.train --method deepergcn (28 x 128, syn2): test acc "
+          f"{summary['result_test']['acc']:.4f}; "
+          f"{DEEPERGCN_EPOCHS / summary['elapsed_s']:.1f} epochs/s over "
+          f"{DEEPERGCN_EPOCHS} epochs ({wall:.2f} s the call); softmax_aggr launches "
+          f"{launches['cli_deepergcn_train']['softmax_aggr']}", flush=True)
+    check(launches["cli_deepergcn_train"]["softmax_aggr"] >= 28 * DEEPERGCN_EPOCHS,
+          "cli.train --method deepergcn did not run the aggregation kernel")
+    from tpugraph_torch.cli.config import parse_train_args
+    from tpugraph_torch.cli.tasks import node_task_data, node_task_model
+
+    cfg = parse_train_args(argv)
+    G, labels, _ = node_task_data(cfg)
+    model, gs, feat = node_task_model(cfg, G, labels, "cpu")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    short = TrainConfig(num_epochs=DEEPERGCN_EPOCHS, lr=cfg.lr, clip=cfg.clip,
+                        weight_decay=cfg.weight_decay)
+    cpu = train_node_classifier(model, gs, feat, labels, short, init_params=init,
+                                device="cpu")
+    card_model = DeeperGcnEncoderNode(feat.shape[1], 128, int(max(labels)) + 1, 28,
+                                      device="cuda")
+    card = train_node_classifier(card_model, gs, feat, labels, short, init_params=init)
+    # the first loss is the forward alone; after it, Adam divides each
+    # entry's gradient by its own size, so the 28 GENConv biases (no gradient
+    # but rounding noise: batch norms follow) and other entries near zero move
+    # by steps that rounding picks, on the card and the CPU alike
+    first = abs(cpu["history"]["loss"][0] - card["history"]["loss"][0]) / abs(
+        cpu["history"]["loss"][0])
+    gap = float(np.max(np.abs(np.subtract(cpu["history"]["loss"], card["history"]["loss"]))))
+    print(f"  deepergcn syn2: first loss card vs CPU within {first:.3g} of it, "
+          f"{DEEPERGCN_EPOCHS} epochs' losses within {gap:.3g}", flush=True)
+    check(first < 1e-5, f"deepergcn syn2: the card's first loss leaves the CPU's by {first:.3g}")
+    check(gap < 1e-3, f"deepergcn syn2: card losses leave the CPU's by {gap:.3g}")
     torch.cuda.empty_cache()
     return {"records": records, "launches": launches}
 
@@ -3967,6 +4177,12 @@ def main() -> int:
     gat_ph = phase_gat(gen)
     print(f"  gat phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- phase 1e: DeeperGCN's softmax aggregation at the deepergcn-arxiv cell's shape
+    print("phase deepergcn", flush=True)
+    t0 = time.perf_counter()
+    dgcn_ph = phase_deepergcn(gen)
+    print(f"  deepergcn phase {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- phase 2: training (first 20 epochs held against the CPU)
     print("phase train", flush=True)
     dims = dict(input_dim=10, hidden_dim=20, embedding_dim=20, label_dim=4,
@@ -4138,7 +4354,7 @@ def main() -> int:
              **prof_ph["launches"], **par["launches"], **mesh_ph["launches"],
              **{f"lowloc_{f}": c for f, c in low["launches"].items()},
              **diff["launches"], "launch_probes": probes["launches"],
-             **gat_ph["launches"], **epi["launches"]}
+             **gat_ph["launches"], **epi["launches"], **dgcn_ph["launches"]}
     meta = {
         "spmm_bcsr": ("tpugraph_torch/csrc/bcsr_kernels.cu",
                       "tpugraph/ops/pallas_spmm.py:98", shapes[1]["spmm_bcsr"],
@@ -4184,6 +4400,9 @@ def main() -> int:
         **{name: ("tpugraph_torch/csrc/coo_kernels.cu",
                   "none: the JAX package normalises no edge weights over a row",
                   recs[0], recs) for name, recs in gat_ph["records"].items()},
+        **{name: ("tpugraph_torch/csrc/gen_kernels.cu",
+                  "none: the JAX package has no GENConv softmax aggregation",
+                  recs[0], recs) for name, recs in dgcn_ph["records"].items()},
         **{name: ("tpugraph_torch/csrc/epilogue_kernels.cu",
                   "none: XLA fuses the bias, normalisation, ReLU and batch norm",
                   recs[0], recs) for name, recs in epi["records"].items()},

@@ -1,0 +1,6 @@
+"""``softmax_aggr_backward_roofline.deepergcn`` (kernels layer, %): the
+softmax aggregation backwards' least time over the device time launched
+under nn.softmax_aggr.backward, in the DeeperGCN training cells; moves
+``train_epochs_per_s.coo``."""
+
+from gnnbench.deepergcn_readers import softmax_aggr_backward_roofline as read  # noqa: F401

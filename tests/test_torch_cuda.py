@@ -1858,3 +1858,188 @@ def test_epilogue_under_vmap_is_one_launch_of_the_flat_rows(cuda_device):
         assert (counts["epilogue_fwd"], counts["epilogue_bwd"]) == (1, 1)
         outs.append((out.detach(), y_req.grad))
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+# ---------------------------------------------------------------------------
+# DeeperGCN's softmax aggregation (ops/gen_kernels.py)
+
+
+def _gen_kernels_vs_plain(csr, x, g, t, eps=1e-7):
+    """The forward (main and reduce pass) and the backward over A^T against
+    their plain versions on the same inputs (the plain forward's lse feeds
+    both backwards): the largest gap of each output over its largest entry,
+    and whether two launches gave the same bits."""
+    from tpugraph_torch.ops import gen_kernels as gk
+
+    m, lse = gk.softmax_aggr_csr(csr.a, x, t, eps)
+    m0, lse0 = gk.softmax_aggr_plain(csr.a, x, t, eps)
+    dx = gk.softmax_aggr_backward_csr(csr.a_t, x, g, lse0, t, eps)
+    dx0 = gk.softmax_aggr_backward_plain(csr.a_t, x, g, lse0, t, eps)
+    gaps = {}
+    for name, got, want in (("m", m, m0), ("lse", lse, lse0), ("dx", dx, dx0)):
+        fin = torch.isfinite(want)
+        assert torch.equal(fin, torch.isfinite(got)), name
+        gaps[name] = float((got - want)[fin].abs().max() / want[fin].abs().max())
+    again = gk.softmax_aggr_csr(csr.a, x, t, eps) + (
+        gk.softmax_aggr_backward_csr(csr.a_t, x, g, lse0, t, eps),)
+    same = all(torch.equal(a, b) for a, b in zip(again, (m, lse, dx)))
+    return gaps, same
+
+
+@pytest.mark.cuda
+def test_softmax_aggr_matches_plain_at_arxiv_shape(cuda_device):
+    """The DeeperGCN cell's layer (D = 128, t = 0.1) on its 2.5M-edge
+    adjacency (422 split rows each way), on ReLU(BN)-like inputs: m, lse
+    and dx within f32 reordering of their plain versions (1e-5 of the
+    largest entry: sums of up to ~3,000 terms reassociated by the chunks
+    and the online softmax's rescaling), and two launches bit-identical."""
+    a = _gat_arxiv(cuda_device)
+    assert a["csr"].a.splits.shape[0] > 0 and a["csr"].a_t.splits.shape[0] > 0
+    gen = torch.Generator().manual_seed(11)
+    x = torch.relu(torch.randn((a["n"], 128), generator=gen)).to(cuda_device)
+    g = torch.randn((a["n"], 128), generator=gen).to(cuda_device)
+    gaps, same = _gen_kernels_vs_plain(a["csr"], x, g, 0.1)
+    assert same
+    assert max(gaps.values()) < 1e-5, gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,t,scale", [(128, 0.1, 1.0), (64, 1.0, 30.0), (7, 0.1, 1.0),
+                                       (130, 2.0, 5.0), (300, -1.0, 3.0), (256, 8.0, 10.0)])
+def test_softmax_aggr_small_cases_match_plain(cuda_device, d, t, scale):
+    """A hub graph in chunks of 64 (split rows both ways) at every load and
+    group shape: 16-byte loads (D % 4 == 0), scalar loads (D = 7, 130), two
+    groups a warp (D = 256, 300) and a second grid row (D = 300); sharp and
+    negative temperatures, ``t mu`` up to 240, and rows with no edge."""
+    from tpugraph_torch.ops import coo_kernels as ck
+    from tpugraph_torch.ops import gen_kernels as gk
+
+    s, r, _ = _coo(300, 4000, seed=9)
+    r %= 250                           # rows 250..279 receive only their self-loop
+    s[:1500], r[1500:3000] = 3, 3
+    loops = np.arange(280)             # and rows 280..299 nothing at all
+    s = torch.from_numpy(np.concatenate([s, loops])).to(cuda_device)
+    r = torch.from_numpy(np.concatenate([r, loops])).to(cuda_device)
+    chunk = row_csr.CHUNK_EDGES
+    row_csr.CHUNK_EDGES = 64
+    try:
+        csr = ck.edge_csr(s, r, 300)
+    finally:
+        row_csr.CHUNK_EDGES = chunk
+    gen = torch.Generator().manual_seed(d)
+    x = (torch.randn((300, d), generator=gen) * scale).to(cuda_device)
+    g = torch.randn((300, d), generator=gen).to(cuda_device)
+    gaps, same = _gen_kernels_vs_plain(csr, x, g, t)
+    assert same
+    # an exponent near |t mu| carries that many f32 ulps of 1
+    assert max(gaps.values()) < 1e-5 * max(1.0, abs(t) * scale), gaps
+    m, lse = gk.softmax_aggr_csr(csr.a, x, t, 1e-7)
+    assert bool((m[280:] == 0).all()) and bool(torch.isinf(lse[280:]).all())
+
+
+@pytest.mark.cuda
+def test_softmax_aggr_launches_reduce_and_checks(cuda_device):
+    """The main passes and, with split rows, their reduce passes are
+    counted; the forward's reduce pass alone rewrites the split rows from
+    the main pass's partials; a wrong shape or device raises."""
+    from tpugraph_torch.ops import gen_kernels as gk
+
+    a = _gat_arxiv(cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((a["n"], 128), generator=gen).to(cuda_device).requires_grad_()
+    before = dict(gk.LAUNCHES)
+    m = gk.softmax_aggr(a["csr"], x, 0.1, 1e-7)
+    m.backward(torch.ones_like(m))
+    torch.cuda.synchronize()
+    for k in ("softmax_aggr", "softmax_aggr_reduce", "softmax_aggr_backward",
+              "softmax_aggr_backward_reduce"):
+        assert gk.LAUNCHES[k] == before[k] + 1, k
+    c = a["csr"].a
+    m1, lse1 = gk.softmax_aggr_csr(c, x.detach(), 0.1, 1e-7)
+    split = c.splits[:, 0].long()
+    xd = x.detach().contiguous()
+    m2, lse2, part = gk.softmax_aggr_main(c, xd, 0.1, 1e-7)
+    whole = torch.ones(a["n"], dtype=torch.bool, device=cuda_device)
+    whole[split] = False  # the rows that are one chunk: the main pass writes them
+    assert torch.equal(m2[whole], m1[whole]) and torch.equal(lse2[whole], lse1[whole])
+    gk.softmax_aggr_reduce(c, part, m2, lse2)
+    assert torch.equal(m2, m1) and torch.equal(lse2, lse1)
+    with pytest.raises(ValueError, match="x must be"):
+        gk.softmax_aggr_csr(c, torch.zeros(5, 128, device=cuda_device), 0.1, 1e-7)
+    with pytest.raises(ValueError, match="shaped as x"):
+        gk.softmax_aggr_backward_csr(a["csr"].a_t, xd, xd[:, :64].contiguous(), lse1,
+                                     0.1, 1e-7)
+
+
+@pytest.mark.cuda
+def test_deepergcn_training_on_card_matches_reference(cuda_device):
+    """``train_node_classifier`` on a DeeperGcnEncoderNode (6 res+ layers of
+    32 channels, a 2,000-edge hub row split in chunks) on the card against
+    the plain reference's job in float64 on the card (its literal form)
+    from the same state: the first step's gradient (Adam's first moment
+    over 0.1) within 1e-4 of the larger of the leaf's largest entry and a
+    hundredth of the model's (a GENConv bias's gradient is rounding noise:
+    every path from it to the loss passes a batch norm; 9e-6 seen on the
+    CPU twins); three epochs' losses within 1e-5; and the closing
+    evaluation within 1e-4 of the reference's float64 evaluation of the
+    trained state.  Against float64, not the float32 reference: that one
+    sums the hub row's terms in one sequence, some 100 ulps off, which the
+    six batch norms' backward carry to 2e-4 of the first layers'
+    gradients (the program's chunked sums: 1e-6; on the CPU).  The
+    parameters after three steps are not compared entry by entry: Adam
+    divides each entry's gradient by its own size, so an entry whose
+    gradient is near zero moves by a step that rounding picks."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from reference import deepergcn as ref
+    from tpugraph_torch.core.graph import graph_from_edges
+    from tpugraph_torch.nn import DeeperGcnEncoderNode
+    from tpugraph_torch.train import TrainConfig, train_node_classifier
+
+    s, r, _ = _coo(5000, 60000, seed=12)
+    s[:2000] = 4
+    g = graph_from_edges(np.concatenate([s, r]), np.concatenate([r, s]), 5000)
+    rng = np.random.default_rng(3)
+    feat = rng.standard_normal((g.num_nodes_padded, 24)).astype(np.float32)
+    labels = rng.integers(0, 6, 5000)
+    model = DeeperGcnEncoderNode(24, 32, 6, num_layers=6,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device=cuda_device)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    names = [k for k, _ in model.named_parameters()]
+    outs = {}
+    for epochs in (1, 3):
+        cfg = TrainConfig(num_epochs=epochs, lr=0.01, clip=0.0, weight_decay=0.0)
+        outs[epochs] = train_node_classifier(model, g, feat, labels, cfg, seed=2,
+                                             init_params=state, device=cuda_device)
+    assert outs[3]["adj"].csr.a.splits.shape[0] > 0
+    adj = outs[3]["adj"]
+    st = ref.structure(adj.senders, adj.receivers, 5000)
+    x = torch.from_numpy(feat[:5000]).to(cuda_device, torch.float64)
+    train_idx, _ = ref.split_nodes(5000, cfg.train_ratio, 2)
+
+    def f64(sd):
+        return {k: v.double() if v.is_floating_point() else v.clone() for k, v in sd.items()}
+
+    job = ref.train_job(f64(state), x, st, torch.from_numpy(labels).to(cuda_device),
+                        torch.from_numpy(train_idx).to(cuda_device), num_layers=6, t=0.1,
+                        eps=1e-7, lr=0.01, weight_decay=0.0, clip=None, epochs=3,
+                        snapshot=3, literal=True)
+    np.testing.assert_allclose(outs[3]["history"]["loss"], job["losses"], rtol=1e-5)
+    adam = outs[1]["opt_state"]["adam"]["state"]
+    top = max(float(v.abs().max()) for v in job["first_grad"].values())
+    for i, k in enumerate(names):
+        want = job["first_grad"][k]
+        scale = max(float(want.abs().max()), 1e-2 * top)
+        assert float((adam[i]["exp_avg"] / 0.1 - want).abs().max()) / scale < 1e-4, k
+    stats = ("running_mean", "running_var", "num_batches_tracked")
+    trained = f64(outs[3]["params"])
+    params = {k: v for k, v in trained.items() if not k.endswith(stats)}
+    bufs = {k: v for k, v in trained.items() if k.endswith(stats)}
+    with torch.no_grad():
+        want = ref.forward(params, bufs, x, st, num_layers=6, t=0.1, eps=1e-7,
+                           training=False, literal=True).cpu().numpy()
+    got = outs[3]["ypred"][0]
+    assert float(np.abs(got - want).max() / np.abs(want).max()) < 1e-4

@@ -58,7 +58,7 @@ def _graph(seed=0, n=300, e=2000, hub=True):
 def small(monkeypatch):
     monkeypatch.setattr(row_csr, "CHUNK_EDGES", 64)
     g, rng = _graph()
-    adj, n = loop.gat_adjacency(g, torch.device("cpu"))
+    adj, n = loop.self_loop_adjacency(g, torch.device("cpu"))
     return g, adj, n, rng
 
 
@@ -79,7 +79,7 @@ def test_gat_adjacency_drops_padding_and_self_loops_and_adds_one_a_node():
     r = np.array([1, 0, 2, 3, 2], np.int32)  # 2 -> 2 is a self-loop
     g = graph_from_edges(s, r, 4, pad_multiple=16)
     assert g.senders.shape[0] == 16 and g.num_nodes_padded == 16
-    adj, n = loop.gat_adjacency(g, torch.device("cpu"))
+    adj, n = loop.self_loop_adjacency(g, torch.device("cpu"))
     assert n == 4
     assert adj.senders.tolist() == [0, 1, 2, 3, 0, 1, 2, 3]
     assert adj.receivers.tolist() == [1, 0, 3, 2, 0, 1, 2, 3]
@@ -90,7 +90,8 @@ def test_gat_adjacency_drops_padding_and_self_loops_and_adds_one_a_node():
 def test_gat_adjacency_raises_with_bcsr():
     g, _ = _graph()
     with pytest.raises(ValueError, match="use_bcsr"):
-        loop.build_adjacency(g, TrainConfig(use_bcsr=True), torch.device("cpu"), gat=True)
+        loop.build_adjacency(g, TrainConfig(use_bcsr=True), torch.device("cpu"),
+                             self_loops=True)
 
 
 @pytest.mark.parametrize("heads", [1, 3])
@@ -159,7 +160,7 @@ def test_split_rows_agree_with_unsplit_rows(monkeypatch):
     out = []
     for chunk in (16, 100000):
         monkeypatch.setattr(row_csr, "CHUNK_EDGES", chunk)
-        adj, n = loop.gat_adjacency(g, torch.device("cpu"))
+        adj, n = loop.self_loop_adjacency(g, torch.device("cpu"))
         if not out:
             z = torch.from_numpy(rng.standard_normal((n, 6)).astype(np.float32))
             el, er = _scores(n, 2, rng, 3.0)
@@ -171,7 +172,7 @@ def test_self_loop_only_node_keeps_its_own_row(small):
     """A node whose only in-edge is its self-loop attends to itself alone:
     alpha = 1, so y is its own z row exactly, and lse its own score."""
     g = graph_from_edges(np.array([0, 1], np.int32), np.array([1, 0], np.int32), 3)
-    adj, n = loop.gat_adjacency(g, torch.device("cpu"))
+    adj, n = loop.self_loop_adjacency(g, torch.device("cpu"))
     z = torch.arange(12, dtype=torch.float32).view(3, 4)
     el = torch.tensor([[0.5, -1.0], [2.0, 0.1], [-3.0, 4.0]])
     er = torch.tensor([[1.0, 1.0], [-2.0, 0.3], [1.0, -7.0]])

@@ -31,7 +31,7 @@ class Config:
     ckptdir: str = "ckpt"
 
     # model (reference configs.py:86-99)
-    method: str = "base"          # base | att | soft-assign | gat
+    method: str = "base"          # base | att | soft-assign | gat | deepergcn
     num_heads: int = 3            # --method gat: attention heads a layer
     input_dim: int = 10
     hidden_dim: int = 20
@@ -109,8 +109,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--logdir", default=d.logdir)
     p.add_argument("--ckptdir", default=d.ckptdir)
     p.add_argument("--method", default=d.method,
-                   help="base | att | soft-assign | gat (the port's own "
-                        "multi-head GAT node classifier; node tasks only)")
+                   help="base | att | soft-assign | gat | deepergcn (the port's "
+                        "own multi-head GAT and DeeperGCN node classifiers; node "
+                        "tasks only)")
     p.add_argument("--num-heads", dest="num_heads", type=int, default=d.num_heads,
                    help="--method gat: heads a layer, --hidden-dim wide each")
     p.add_argument("--input-dim", "--input_dim", dest="input_dim", type=int,
@@ -233,23 +234,27 @@ def _to_config(ns: argparse.Namespace) -> Config:
     return cfg
 
 
+# the node classifiers that train on the self-looped COO adjacency alone
+SELF_LOOP_METHODS = ("gat", "deepergcn")
+
+
 def check_ported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` before anything runs for ``--resume``
     with ``--halo N > 1``, which ``tpugraph`` rejects only once a
     checkpoint has loaded (``tpugraph/cli/tasks.py:109``), and for
-    ``--method gat`` anywhere but single-device node classification on
-    the COO edge list."""
+    ``--method gat`` or ``deepergcn`` anywhere but single-device node
+    classification on the COO edge list."""
     if cfg.resume and cfg.halo_devices > 1:
         raise NotImplementedError(
             "--resume is not supported with --halo; restart or use the "
             "single-device path")
-    if cfg.method == "gat":
+    if cfg.method in SELF_LOOP_METHODS:
         graph_task = (cfg.bmname is not None or cfg.pkl_fname is not None
                       or cfg.dataset == "enron_multigraph")
         if graph_task or cfg.use_bcsr or cfg.halo_devices > 1:
             raise NotImplementedError(
-                "--method gat trains single-graph node tasks on one device over "
-                "the COO edge list: no --bmname/--pkl/enron_multigraph, --bcsr "
+                f"--method {cfg.method} trains single-graph node tasks on one device "
+                "over the COO edge list: no --bmname/--pkl/enron_multigraph, --bcsr "
                 "or --halo")
 
 

@@ -59,8 +59,8 @@ from typing import Dict
 import numpy as np
 import torch.distributed as dist
 
-from tpugraph_torch.cli.config import (Config, check_ported, cli_device,
-                                       parse_explain_args, rank_backend,
+from tpugraph_torch.cli.config import (SELF_LOOP_METHODS, Config, check_ported,
+                                       cli_device, parse_explain_args, rank_backend,
                                        rank_count)
 from tpugraph_torch.cli.tasks import is_writer
 from tpugraph_torch.explain.explainer import Explainer
@@ -73,8 +73,9 @@ from tpugraph_torch.utils.tb_writer import SummaryWriter
 from tpugraph_torch.viz.graphs import denoise_graph, log_graph, save_matrix_image
 
 
-_GAT_EXPLAIN = ("explaining a GAT checkpoint (--method gat) is not supported: "
-                "the explainer masks GcnEncoderNode's edge weights")
+def _unexplainable(method: str) -> str:
+    return (f"explaining a {method} checkpoint (--method {method}) is not supported: "
+            "the explainer masks GcnEncoderNode's edge weights")
 
 
 def build_explainer(cfg: Config) -> Explainer:
@@ -86,8 +87,8 @@ def build_explainer(cfg: Config) -> Explainer:
     device = cli_device(cfg)
     prefix = gen_prefix(cfg.name, cfg.method, cfg.hidden_dim, cfg.output_dim,
                         cfg.bias, cfg.name_suffix)
-    if cfg.method == "gat":
-        raise NotImplementedError(_GAT_EXPLAIN)
+    if cfg.method in SELF_LOOP_METHODS:
+        raise NotImplementedError(_unexplainable(cfg.method))
     ckpt = load_checkpoint(cfg.ckptdir, prefix)
     cg = ckpt["cg"]
     if cg is None:
@@ -96,8 +97,8 @@ def build_explainer(cfg: Config) -> Explainer:
     # from the flags, which must then repeat the training's)
     meta = ckpt["meta"] or {}
     model_type = meta.get("model_type", cfg.method)
-    if model_type == "gat":
-        raise NotImplementedError(_GAT_EXPLAIN)
+    if model_type in SELF_LOOP_METHODS:
+        raise NotImplementedError(_unexplainable(model_type))
     graph_mode = (cfg.graph_mode or cfg.multigraph_class >= 0
                   or cfg.graph_idx >= 0)
     if graph_mode and model_type == "soft-assign":

@@ -37,8 +37,8 @@ from tpugraph_torch.data.readers import (ENRON_LABELS, disjoint_union_all,
                                          load_enron_slices, load_graph_pickle,
                                          read_biosnap, read_graphfile)
 from tpugraph_torch.data.shapes import SimpleGraph
-from tpugraph_torch.nn import (GatEncoderNode, GcnEncoderGraph, GcnEncoderNode,
-                               SoftPoolingGcnEncoder)
+from tpugraph_torch.nn import (DeeperGcnEncoderNode, GatEncoderNode, GcnEncoderGraph,
+                               GcnEncoderNode, SoftPoolingGcnEncoder)
 from tpugraph_torch.train.checkpoint import (gen_prefix, load_checkpoint,
                                              save_checkpoint)
 from tpugraph_torch.train.loop import (TrainConfig, train_graph_classifier,
@@ -103,12 +103,20 @@ def build_node_model(cfg: Config, input_dim: int, num_classes: int,
     from a generator seeded with ``cfg.seed`` (``tpugraph/cli/tasks.py:50``;
     JAX draws them from ``PRNGKey(seed)``); for ``--method gat`` the port's
     :class:`GatEncoderNode`: ``--num-gc-layers`` layers of ``--num-heads``
-    heads ``--hidden-dim`` wide, ``--dropout`` after the hidden ones."""
+    heads ``--hidden-dim`` wide, ``--dropout`` after the hidden ones; for
+    ``--method deepergcn`` the port's :class:`DeeperGcnEncoderNode`:
+    ``--num-gc-layers`` res+ GENConv blocks ``--hidden-dim`` wide, ``t``
+    0.1, ``--dropout`` after each block's ReLU."""
     if cfg.method == "gat":
         return GatEncoderNode(
             input_dim=input_dim, head_dim=cfg.hidden_dim, label_dim=num_classes,
             num_layers=cfg.num_gc_layers, num_heads=cfg.num_heads,
             dropout=cfg.dropout,
+            generator=torch.Generator().manual_seed(cfg.seed), device=device)
+    if cfg.method == "deepergcn":
+        return DeeperGcnEncoderNode(
+            input_dim=input_dim, hidden_dim=cfg.hidden_dim, label_dim=num_classes,
+            num_layers=cfg.num_gc_layers, dropout=cfg.dropout,
             generator=torch.Generator().manual_seed(cfg.seed), device=device)
     return GcnEncoderNode(
         input_dim=input_dim,

@@ -2,6 +2,7 @@
 
 from tpugraph_torch.nn.encoders import (  # noqa: F401
     ConvStack,
+    DeeperGcnEncoderNode,
     GatEncoderNode,
     GcnEncoderGraph,
     GcnEncoderNode,
@@ -12,6 +13,7 @@ from tpugraph_torch.nn.encoders import (  # noqa: F401
 from tpugraph_torch.nn.layers import (  # noqa: F401
     BCSRAdj,
     GATConv,
+    GENConv,
     GraphConv,
     PacketAdj,
     SparseAdj,

@@ -1,8 +1,8 @@
 """Port of ``tpugraph/nn/encoders.py``: ``ConvStack``, ``PredHead``,
 ``GcnEncoderNode``, the graph classifier ``GcnEncoderGraph`` and the
 DiffPool ``SoftPoolingGcnEncoder``, plus :func:`params_from_jax`; and the
-port's own :class:`GatEncoderNode`, which has no ``tpugraph``
-counterpart.
+port's own :class:`GatEncoderNode` and :class:`DeeperGcnEncoderNode`, which
+have no ``tpugraph`` counterpart.
 
 Module and parameter names follow the flax tree, so a ``tpugraph``
 parameter tree maps onto the ``state_dict`` by name:
@@ -25,7 +25,7 @@ from torch import nn
 
 from tpugraph_torch._device import DeviceLike, default_device
 from tpugraph_torch.nn.initializers import torch_linear_bias, torch_linear_kernel
-from tpugraph_torch.nn.layers import (Adjacency, GATConv, GraphConv, SparseAdj,
+from tpugraph_torch.nn.layers import (Adjacency, GATConv, GENConv, GraphConv, SparseAdj,
                                       apply_dropout, fresh_batch_norm)
 from tpugraph_torch.ops.epilogue_kernels import row_epilogue
 from tpugraph_torch.utils.profiling import trace_annotation, trace_backward
@@ -189,11 +189,11 @@ class GatEncoderNode(nn.Module):
     layers' outputs while training, with masks from ``dropout_gen`` (DGL's
     input, attention and edge dropout are not ported).
     Parameters are drawn from ``generator`` on the CPU, then the module
-    moves to ``device`` (``None`` = CUDA).  ``gat`` tells the trainer to
-    give it the GAT adjacency (:func:`~tpugraph_torch.train.loop.
-    build_adjacency`)."""
+    moves to ``device`` (``None`` = CUDA).  ``self_loops`` tells the
+    trainer to give it the self-looped adjacency with its CSR
+    (:func:`~tpugraph_torch.train.loop.build_adjacency`)."""
 
-    gat = True
+    self_loops = True
 
     def __init__(self, input_dim: int, head_dim: int, label_dim: int,
                  num_layers: int = 3, num_heads: int = 3,
@@ -231,6 +231,65 @@ class GatEncoderNode(nn.Module):
                     h = apply_dropout(h, self.dropout, dropout_gen)
         logits = h.view(h.shape[0], self.num_heads, self.label_dim).mean(1) + self.bias
         return logits, []
+
+
+class DeeperGcnEncoderNode(nn.Module):
+    """DeeperGCN node classifier (arXiv:2006.07739) as the authors'
+    ogbn-arxiv example builds it with ``--block res+ --gcn_aggr softmax_sg``
+    (``deep_gcns_torch/examples/ogb/ogbn_arxiv/model.py``): an input
+    ``nn.Linear`` to ``hidden_dim``, ``num_layers`` :class:`GENConv` of
+    ``hidden_dim`` channels in pre-activation residual blocks and a linear
+    head::
+
+        h^0     = x W_in + b_in
+        h^1     = GEN_0(h^0)
+        h^{l+1} = GEN_l(ReLU(BN_{l-1}(h^l))) + h^l        l = 1 .. L-1
+        logits  = ReLU(BN_{L-1}(h^L)) W_out + b_out
+
+    ``BatchNorm1d`` normalises each channel over the nodes (affine, running
+    statistics for evaluation).  ``t`` is the softmax's fixed temperature
+    and ``eps`` the messages' offset.  ``dropout`` drops entries after each
+    block's ReLU and before the head while training, with masks from
+    ``dropout_gen``.  ``x [N, D]`` + a :class:`SparseAdj` with its CSR and a
+    self-loop on every node -> ``(logits [N, C], [])``.  Parameters are
+    drawn from ``generator`` on the CPU (the linears as ``nn.Linear`` draws
+    them), then the module moves to ``device`` (``None`` = CUDA).
+    ``self_loops`` tells the trainer to give it the self-looped adjacency
+    with its CSR (:func:`~tpugraph_torch.train.loop.build_adjacency`)."""
+
+    self_loops = True
+
+    def __init__(self, input_dim: int, hidden_dim: int, label_dim: int,
+                 num_layers: int = 28, t: float = 0.1, eps: float = 1e-7,
+                 dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        device = default_device(device)
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.label_dim = label_dim
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.node_features_encoder = _torch_dense(hidden_dim, input_dim, generator)
+        self.gcns = nn.ModuleList(GENConv(hidden_dim, hidden_dim, t, eps, generator)
+                                  for _ in range(num_layers))
+        self.norms = nn.ModuleList(nn.BatchNorm1d(hidden_dim) for _ in range(num_layers))
+        self.node_pred_linear = _torch_dense(label_dim, hidden_dim, generator)
+        self.to(device)
+
+    def _drop(self, h: torch.Tensor, dropout_gen: Optional[torch.Generator]) -> torch.Tensor:
+        if self.training and self.dropout > 0.001:
+            return apply_dropout(h, self.dropout, dropout_gen)
+        return h
+
+    def forward(self, x: torch.Tensor, adj: SparseAdj,
+                dropout_gen: Optional[torch.Generator] = None):
+        h = self.gcns[0](self.node_features_encoder(x), adj)
+        for i in range(1, self.num_layers):
+            h2 = self._drop(torch.relu(self.norms[i - 1](h)), dropout_gen)
+            h = self.gcns[i](h2, adj) + h
+        h = self._drop(torch.relu(self.norms[self.num_layers - 1](h)), dropout_gen)
+        return self.node_pred_linear(h), []
 
 
 def _masked_max_pool(x: torch.Tensor,

@@ -1,7 +1,8 @@
 """Port of ``tpugraph/nn/layers.py``: ``GraphConv`` on the COO,
 block-sparse and packet paths, and ``fresh_batch_norm``; and the port's
 own :class:`GATConv`, multi-head graph attention (Velickovic et al.,
-arXiv:1710.10903) on the COO edge list's CSR.
+arXiv:1710.10903), and :class:`GENConv`, DeeperGCN's softmax-aggregation
+convolution (Li et al., arXiv:2006.07739), on the COO edge list's CSR.
 
 ``y = (A @ x) @ W [+ x @ W_self] + b``, then optional L2 normalization
 per node; with ``att``, ``A`` is first scaled by GAT-style scores
@@ -78,12 +79,14 @@ from typing import Iterator, NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from tpugraph_torch.nn.initializers import xavier_relu_normal, xavier_relu_uniform
+from tpugraph_torch.nn.initializers import (torch_linear_bias, torch_linear_kernel,
+                                            xavier_relu_normal, xavier_relu_uniform)
 from tpugraph_torch.ops.bcsr import BCSR, BCSRTranspose
 from tpugraph_torch.ops.bcsr_kernels import (bcsr_matvec, bcsr_matvec_dw,
                                              bcsr_matvec_dw_pair, sddmm_dw)
 from tpugraph_torch.ops.coo_kernels import EdgeCSR, csr_matvec, gat_attention
 from tpugraph_torch.ops.dense import dense_spmm
+from tpugraph_torch.ops.gen_kernels import softmax_aggr
 from tpugraph_torch.ops.message import sddmm, spmm
 from tpugraph_torch.ops.packets import EdgePackets
 from tpugraph_torch.ops.packets_kernels import packets_matvec
@@ -629,7 +632,7 @@ class GATConv(nn.Module):
     def forward(self, x: torch.Tensor, adj: SparseAdj) -> torch.Tensor:
         if not isinstance(adj, SparseAdj) or adj.csr is None:
             raise ValueError("GATConv attends over a SparseAdj with its EdgeCSR "
-                             "(train.loop.build_adjacency(..., gat=True))")
+                             "(train.loop.build_adjacency(..., self_loops=True))")
         z = torch.matmul(x, self.weight)
         with trace_annotation("nn.attention"):
             y = trace_backward("nn.attention.backward", z,
@@ -643,3 +646,42 @@ class GATConv(nn.Module):
         el = torch.sum(zh * self.attn_l, dim=-1)
         er = torch.sum(zh * self.attn_r, dim=-1)
         return gat_attention(csr, z, el, er, self.num_heads, self.negative_slope)
+
+
+class GENConv(nn.Module):
+    """DeeperGCN's generalized convolution with ``softmax_sg`` aggregation
+    (arXiv:2006.07739; the authors' ``GENConv`` in ``deep_gcns_torch``,
+    one MLP layer, no message norm): for receiver ``v`` over its in-edges
+    ``u`` (the adjacency carries a self-loop on every node), ``mu_u =
+    ReLU(x_u) + eps``, ``m_v = sum_u softmax_u(t mu_u) mu_u`` per channel
+    with the softmax weights under no gradient, and ``y_v = (x_v + m_v) W +
+    b``.  ``weight`` is ``[in, out]``; ``weight`` and ``bias`` are drawn
+    from ``generator`` as ``nn.Linear`` draws them.
+
+    ``adj`` is a :class:`SparseAdj` with its ``csr``
+    (:func:`tpugraph_torch.train.loop.build_adjacency` gives a model with
+    ``self_loops`` one on every device); the aggregation runs
+    :func:`tpugraph_torch.ops.gen_kernels.softmax_aggr` (the kernels on the
+    card, their plain versions on the CPU).  While a ``torch.profiler``
+    records, the aggregation is the trace region ``nn.softmax_aggr`` and
+    its backward ``nn.softmax_aggr.backward``; the GEMM lies outside."""
+
+    def __init__(self, input_dim: int, output_dim: int, t: float = 0.1,
+                 eps: float = 1e-7, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.t = t
+        self.eps = eps
+        self.weight = nn.Parameter(
+            torch_linear_kernel((output_dim, input_dim), generator).t().contiguous())
+        self.bias = nn.Parameter(torch_linear_bias(input_dim, (output_dim,), generator))
+
+    def forward(self, x: torch.Tensor, adj: SparseAdj) -> torch.Tensor:
+        if not isinstance(adj, SparseAdj) or adj.csr is None:
+            raise ValueError("GENConv aggregates over a SparseAdj with its EdgeCSR "
+                             "(train.loop.build_adjacency(..., self_loops=True))")
+        with trace_annotation("nn.softmax_aggr"):
+            m = trace_backward("nn.softmax_aggr.backward", x,
+                               lambda xs: softmax_aggr(adj.csr, xs, self.t, self.eps))
+        return torch.addmm(self.bias, x + m, self.weight)

@@ -65,13 +65,14 @@ from tpugraph_torch.ops import (  # noqa: E402
     bcsr_kernels,
     coo_kernels,
     epilogue_kernels,
+    gen_kernels,
     packets_kernels,
     probe_kernels,
     resident_kernels,
 )
 
 _KERNEL_MODULES = (bcsr_kernels, resident_kernels, packets_kernels, probe_kernels,
-                   coo_kernels, epilogue_kernels)
+                   coo_kernels, epilogue_kernels, gen_kernels)
 
 
 def launch_counts() -> dict:

@@ -17,9 +17,10 @@ inside), ``train.inputs``, in each epoch ``train.forward``,
 ``train.backward`` and ``train.optimizer``, and the closing
 ``train.eval``; ``GraphConv`` marks its adjacency products.
 
-A GAT model (:class:`~tpugraph_torch.nn.GatEncoderNode`, which the JAX
-package does not have) always trains on COO: ``build_adjacency`` gives it
-the live edges with one self-loop a node and their CSR on every device.
+A model with ``self_loops`` (:class:`~tpugraph_torch.nn.GatEncoderNode`,
+:class:`~tpugraph_torch.nn.DeeperGcnEncoderNode`, which the JAX package
+does not have) always trains on COO: ``build_adjacency`` gives it the live
+edges with one self-loop a node and their CSR on every device.
 
 ``use_bcsr=False`` (the default, as in JAX) aggregates over the padded
 COO edge list (``SparseAdj``, ``tpugraph/train/loop.py:476-477``), which
@@ -251,9 +252,10 @@ def choose_format(s_np: np.ndarray, r_np: np.ndarray, w_np: np.ndarray,
     return "tiles"
 
 
-def gat_adjacency(g: Graph, device: torch.device) -> Tuple[SparseAdj, int]:
-    """The adjacency a GAT model attends over, as DGL's ogbn-arxiv example
-    builds it (``remove_self_loop().add_self_loop()``): the live edges
+def self_loop_adjacency(g: Graph, device: torch.device) -> Tuple[SparseAdj, int]:
+    """The adjacency a model with ``self_loops`` aggregates over, as DGL's
+    ogbn-arxiv GAT example builds it (``remove_self_loop().add_self_loop()``)
+    and DeeperGCN's ``--self_loop`` adds them: the live edges
     (weight not 0) that are not self-loops, then one self-loop for each of
     the ``g.n_node`` real nodes, all weights 1, with the :class:`EdgeCSR`
     built on ``device``.  Padding nodes are left out, so the node count it
@@ -270,7 +272,7 @@ def gat_adjacency(g: Graph, device: torch.device) -> Tuple[SparseAdj, int]:
 
 
 def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
-                    att: bool = False, gat: bool = False) -> Tuple[Adjacency, int]:
+                    att: bool = False, self_loops: bool = False) -> Tuple[Adjacency, int]:
     """Pack ``g`` in the format ``cfg`` selects and move it to ``device``
     (``tpugraph/train/loop.py:316-477``); returns the adjacency and the
     padded node count it needs (a multiple of the block for the tile
@@ -279,14 +281,14 @@ def build_adjacency(g: Graph, cfg: TrainConfig, device: torch.device,
     path, which needs none); packets carry B7's row schedules, built on
     the card after the upload (:func:`packets_kernels.schedule`);
     otherwise :func:`choose_format` picks the format (``att``: an
-    attention model, which takes f32 tiles with a transpose plan).  A GAT
-    model (``gat``) takes :func:`gat_adjacency` and raises with
-    ``use_bcsr``."""
-    if gat:
+    attention model, which takes f32 tiles with a transpose plan).  A
+    model that asks for ``self_loops`` (GAT, DeeperGCN) takes
+    :func:`self_loop_adjacency` and raises with ``use_bcsr``."""
+    if self_loops:
         if cfg.use_bcsr:
-            raise ValueError("a GAT model trains on the COO edge list's CSR: "
+            raise ValueError("a self-looped model trains on the COO edge list's CSR: "
                              "use_bcsr is not supported")
-        return gat_adjacency(g, device)
+        return self_loop_adjacency(g, device)
     if not cfg.use_bcsr:
         with trace_annotation("train.pack.upload"):
             s = g.senders.to(device, torch.int64)
@@ -384,8 +386,9 @@ def train_node_classifier(
     """Full-batch node classification on one padded graph
     (``tpugraph/train/loop.py:279``).
 
-    ``model`` is a :class:`tpugraph_torch.nn.GcnEncoderNode` or a
-    :class:`~tpugraph_torch.nn.GatEncoderNode`; it moves to
+    ``model`` is a :class:`tpugraph_torch.nn.GcnEncoderNode`, a
+    :class:`~tpugraph_torch.nn.GatEncoderNode` or a
+    :class:`~tpugraph_torch.nn.DeeperGcnEncoderNode`; it moves to
     ``device`` (``None`` = CUDA) and trains in place, starting from
     ``init_params`` (a ``state_dict``) and ``init_opt_state`` (the
     optimizer's ``state_dict``, its update count included) when given,
@@ -394,9 +397,9 @@ def train_node_classifier(
     {"loss", "train_acc", "test_acc"})`` is called every ``LOG_EVERY``
     epochs and after the last (each call waits for the device).  Returns params
     (the ``state_dict``), ``ypred [1, N_pad, C]``, the split, the metric
-    history, train/test results (``ypred`` holds ``N_real`` rows for a GAT
-    model, which has no padding nodes), the seconds of the epoch loop
-    (``"elapsed"``) and of packing and uploading the adjacency
+    history, train/test results (``ypred`` holds ``N_real`` rows for a
+    model with ``self_loops``, which has no padding nodes), the seconds of
+    the epoch loop (``"elapsed"``) and of packing and uploading the adjacency
     (``"pack_s"``), the packed adjacency (``"adj"``) and the optimizer's
     ``state_dict`` (``"opt_state"``).  ``class_weight [C]`` weighs each
     node's cross-entropy by its label's weight (ppi's ``[1, 5]``).  A
@@ -411,9 +414,9 @@ def train_node_classifier(
 
     with trace_annotation("train.pack"):
         t_pack = time.perf_counter()
-        sp, n_new = build_adjacency(g, cfg, device,
-                                    att=bool(getattr(model, "att", False)),
-                                    gat=bool(getattr(model, "gat", False)))
+        sp, n_new = build_adjacency(
+            g, cfg, device, att=bool(getattr(model, "att", False)),
+            self_loops=bool(getattr(model, "self_loops", False)))
         pack_s = time.perf_counter() - t_pack
 
     with trace_annotation("train.inputs"):
